@@ -1,0 +1,125 @@
+"""Model configuration schema (copy of ``repro/configs/base.py``).
+
+The fields and derived properties are those of the reference dataclass,
+so a config built here describes the same model; only
+``activation_dtype`` returns a ``torch.dtype``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` → ``torch.bfloat16`` (the config's dtype strings)."""
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; known: {list(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | enc_dec | hybrid | ssm | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # attention options
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_type: str = "rmsnorm"    # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    attn_window: int = 0          # 0 = global; >0 = sliding window
+    use_rope: bool = True
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_dispatch: str = "shard_map"
+
+    # encoder–decoder (whisper)
+    enc_layers: int = 0
+    enc_seq: int = 0
+
+    # hybrid (recurrentgemma)
+    block_pattern: tuple = ()
+    lru_width: int = 0
+    conv_width: int = 4
+
+    # ssm (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 128
+
+    frontend: str = ""
+
+    # numerics / compilation
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    attention_impl: str = "xla"
+    scan_layers: bool = True
+    remat: str = "full"
+    microbatches: int = 1
+    param_strategy: str = "fsdp"
+    kv_cache_dtype: str = ""
+    serve_param_dtype: str = "bfloat16"
+    tp_strategy: str = "auto"
+
+    # -- derived -----------------------------------------------------------
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding/head tables padded to a multiple of 256; logits beyond
+        ``vocab_size`` are masked to -1e30."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """A tiny same-family config for CPU tests (the reference's
+        ``reduced()`` for the dense family: float32, 2 layers, d_model 64)."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"{self.family} configs wait for ROADMAP.md §A.7-A.9")
+        return self.replace(
+            num_layers=2,
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 4) or 4,
+            head_dim=16,
+            d_ff=128,
+            vocab_size=512,
+            ssm_chunk=8,
+            moe_capacity_factor=1.25,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2),
+            dtype="float32",
+            remat="none",
+        )

@@ -1,0 +1,109 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``kernels/<name>/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
+into its own shared library with a plain C interface, and loaded with
+``ctypes``; no PyTorch headers are included, so a build takes seconds.
+Nothing is built at import time: the first launch builds every source at
+once (one ``nvcc`` process each, all started together) into
+``kernels/build/`` (listed in ``.gitignore``).  Libraries are named by a
+hash of their source, so an edited source is never served a stale build.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not 0 (a refused launch never runs, and
+a later synchronize would not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: dict = {}
+BUILD_LOG: dict = {}   # name -> {"seconds", "ptxas"} of this process's builds
+
+
+def sources() -> dict:
+    """kernel name → its CUDA source, for every kernel in the package."""
+    return {p.parent.parent.name: p
+            for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_all() -> dict:
+    """Compile every kernel source not yet built, all ``nvcc`` processes
+    in parallel.  Returns {name: library path}; raises on a failed build."""
+    srcs = sources()
+    todo = {n: s for n, s in srcs.items() if not _lib_path(s).exists()}
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for name, src in todo.items():
+            tmp = _lib_path(src).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        errors = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{name}:\n{out}")
+                continue
+            os.replace(tmp, _lib_path(todo[name]))
+            BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                               "ptxas": out}
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return {n: _lib_path(s) for n, s in srcs.items()}
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building on first use.
+    ``signatures`` maps each C function to its ctypes argtypes (pointers
+    and the stream as ``c_void_p``, so they are not cut to 32 bits)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,83 @@
+"""Paged decode attention: wrapper of the CUDA kernel.
+
+Replaces ``repro/kernels/paged_attention/kernel.py::paged_decode_attention_fwd``
+(Pallas ``_paged_kernel``).  CPU tensors take the plain version
+(:mod:`.ref`); CUDA tensors launch ``csrc/paged_attention.cu`` or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+from .ref import paged_decode_attention_ref
+
+MAX_GROUP = 8     # q heads per kv head the kernel holds in registers
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"paged_decode_attention_fwd":
+               [_I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _P]}
+
+
+def _check(q, k_pages, v_pages, page_table, lengths):
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError("k_pages/v_pages must have q's dtype")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("page_table and lengths must be int32")
+    B, one, H, d = q.shape
+    P, ps, KVH, dk = k_pages.shape
+    if one != 1 or dk != d or v_pages.shape != k_pages.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k/v "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != B \
+            or lengths.shape != (B,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match batch {B}")
+    if H % KVH or H // KVH > MAX_GROUP or d > MAX_HEAD_DIM:
+        raise ValueError(f"H={H}, KVH={KVH}, d={d}: the kernel takes "
+                         f"H/KVH <= {MAX_GROUP} and d <= {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           window=0):
+    """q: [B,1,H,d]; k_pages,v_pages: [P,ps,KVH,d]; page_table: [B,N]
+    int32; lengths: [B] int32 → [B,1,H,d].  Keys at positions
+    ``[max(0, len - window), len)`` attend (all of ``[0, len)`` without a
+    window)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                          lengths, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k_pages, v_pages, page_table, lengths)
+    B, _, H, d = q.shape
+    P, ps, KVH, _ = k_pages.shape
+    N = page_table.shape[1]
+    out = torch.empty_like(q)
+    lib = _build.load("paged_attention", _SIGNATURES)
+    err = lib.paged_decode_attention_fwd(
+        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, H, KVH, d, ps, N, P, int(window), d ** -0.5,
+        _build.stream_ptr(q.device))
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

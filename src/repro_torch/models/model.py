@@ -1,0 +1,88 @@
+"""Model facade: one object per architecture config (dense family)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.device import resolve_device
+
+from . import lm
+from .common import init_tree
+
+
+class Model:
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def schema(self) -> dict:
+        return lm.lm_schema(self.cfg)
+
+    def init(self, seed=0, *, device="cuda", dtype=None) -> dict:
+        """Random parameters from a ``torch.Generator`` made on ``device``
+        and seeded with ``seed`` (or a generator passed in its place).
+        ``dtype`` defaults to the config's ``param_dtype``."""
+        dev = resolve_device(device)
+        if isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+        dt = dtype or torch_dtype(self.cfg.param_dtype)
+        with torch.no_grad():
+            return init_tree(gen, self.schema(), dt, dev)
+
+    def num_params(self) -> int:
+        def count(tree):
+            return sum(count(v) if isinstance(v, dict)
+                       else int(torch.Size(v.shape).numel())
+                       for v in tree.values())
+        return count(self.schema())
+
+    # -- compute -------------------------------------------------------------
+
+    def forward(self, params, batch):
+        """→ (logits [B,S,V], aux_loss)."""
+        return lm.forward(self.cfg, params, batch)
+
+    def prefill(self, params, batch, capacity, *, prefix=None,
+                prefix_len=None, last_index=None):
+        """→ (last_logits [B,V], cache); see :func:`lm.prefill`."""
+        if prefix is not None and self.prefix_seq_axes() is None:
+            raise ValueError(
+                f"{self.cfg.name}: KV is not positionally sliceable — "
+                f"prefix-aware prefill unsupported")
+        return lm.prefill(self.cfg, params, batch, capacity, prefix=prefix,
+                          prefix_len=prefix_len, last_index=last_index)
+
+    def prefix_seq_axes(self):
+        """Sequence axis of each serving-cache leaf, or None when
+        per-position KV reuse is unsound (int8 KV, windowed attention).
+        The dense cache leaves are ``[L, B, T, KVH, hd]``: axis 2."""
+        cfg = self.cfg
+        if cfg.kv_cache_dtype == "int8" or cfg.attn_window:
+            return None
+        lm.check_family(cfg)
+        return {"k": 2, "v": 2}
+
+    # -- paged KV -------------------------------------------------------------
+
+    def init_paged_cache(self, num_pages, page_size, *, device="cuda"):
+        """Block-paged KV pool: leaves [L, num_pages, page_size, KVH, hd]."""
+        if self.prefix_seq_axes() is None:
+            raise ValueError(
+                f"{self.cfg.name}: KV is not positionally sliceable — "
+                f"paged layout unsupported")
+        return lm.init_paged_cache(self.cfg, num_pages, page_size,
+                                   resolve_device(device))
+
+    def decode_step_paged(self, params, cache, tokens, positions,
+                          page_table):
+        """tokens [B,1], positions [B], page_table [B,N] int32 →
+        (logits [B,V], cache updated in place)."""
+        return lm.decode_step_paged(self.cfg, params, cache, tokens,
+                                    positions, page_table)
+
+
+def build_model(cfg) -> Model:
+    return Model(cfg)

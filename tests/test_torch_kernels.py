@@ -1,0 +1,241 @@
+"""The port's attention kernels' plain versions against the JAX package.
+
+On the CPU the port's kernel wrappers take their plain PyTorch versions
+(the CUDA kernels themselves run only on the card, where
+``chip_smoke.py`` holds each kernel against its plain version).  Here the
+same numpy inputs go through the JAX Pallas kernels in interpret mode,
+the JAX oracles and the port, at the tolerances of
+``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: one intra-op thread, so parallel test workers do not
+# compete with idle-spinning thread pools
+torch.set_num_threads(1)
+
+from repro.kernels.flash_attention import ops as fa_jax  # noqa: E402
+from repro.kernels.paged_attention import ops as pa_jax  # noqa: E402
+from repro.kernels.paged_attention.ref import (  # noqa: E402
+    paged_decode_attention_ref as paged_ref_jax)
+from repro.models import attention as att_jax  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_pt  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import keep_mask  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa_pt  # noqa: E402
+from repro_torch.models import attention as att_pt  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def both(x, name):
+    """The same numpy array in each framework, cast to ``name``."""
+    jd, td = DTYPES[name]
+    return jnp.asarray(x, jnp.float32).astype(jd), \
+        torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(td)
+
+
+def close(a_jax, b_torch, name):
+    np.testing.assert_allclose(np.asarray(a_jax, np.float32),
+                               b_torch.float().numpy(), **tol(name))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+
+
+def _paged_case(B, ps, N, H, KVH, d, seed=4):
+    """Page 0 scratch, shuffled per-sequence tables (a kernel that ignored
+    the table would read the wrong pages)."""
+    rng = np.random.RandomState(seed)
+    P = B * N + 3
+    q = rng.randn(B, 1, H, d)
+    kp = rng.randn(P, ps, KVH, d)
+    vp = rng.randn(P, ps, KVH, d)
+    table = (rng.permutation(P - 1)[: B * N] + 1).reshape(B, N)
+    return q, kp, vp, table.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,ps,N,H,KVH,d,lengths,window", [
+    (2, 16, 4, 4, 4, 32, (64, 37), 0),   # full + ragged last page
+    (2, 8, 6, 8, 2, 64, (48, 41), 0),    # GQA 4:1, small pages
+    (1, 32, 3, 4, 1, 32, (70,), 0),      # MQA, big pages, ragged
+    (2, 16, 4, 4, 4, 32, (64, 50), 24),  # sliding window across pages
+    (1, 16, 2, 2, 2, 16, (1,), 0),       # single valid token
+    (2, 16, 3, 5, 1, 80, (33, 40), 0),   # stablelm head_dim, G=5
+])
+def test_paged_decode_matches_jax(B, ps, N, H, KVH, d, lengths, window,
+                                  dtype):
+    q, kp, vp, table = _paged_case(B, ps, N, H, KVH, d)
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (q, kp, vp))
+    lens = np.asarray(lengths, np.int32)
+    out_pt = pa_pt.paged_decode_attention(
+        qt, kt, vt, torch.from_numpy(table), torch.from_numpy(lens),
+        window=window)
+    out_pl = pa_jax.paged_decode_attention(
+        qj, kj, vj, jnp.asarray(table), jnp.asarray(lens), window=window,
+        interpret=True)
+    ref = paged_ref_jax(qj, kj, vj, jnp.asarray(table), jnp.asarray(lens),
+                        window=window)
+    assert out_pt.dtype == qt.dtype and out_pt.shape == qt.shape
+    close(out_pl, out_pt, dtype)
+    close(ref, out_pt, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_retired_rows_on_scratch_page(dtype):
+    """Retired slots: every table entry is scratch page 0 and the length
+    is stale.  The output must stay finite and equal the reference's; the
+    live rows are unaffected."""
+    B, ps, N, H, KVH, d = 3, 8, 4, 4, 2, 32
+    q, kp, vp, table = _paged_case(B, ps, N, H, KVH, d, seed=9)
+    table[1] = 0
+    table[2] = 0
+    lens = np.asarray([29, 17, N * ps], np.int32)
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (q, kp, vp))
+    out_pt = pa_pt.paged_decode_attention(
+        qt, kt, vt, torch.from_numpy(table), torch.from_numpy(lens))
+    assert torch.isfinite(out_pt.float()).all()
+    ref = paged_ref_jax(qj, kj, vj, jnp.asarray(table), jnp.asarray(lens))
+    close(ref, out_pt, dtype)
+    out_pl = pa_jax.paged_decode_attention(
+        qj, kj, vj, jnp.asarray(table), jnp.asarray(lens), interpret=True)
+    close(out_pl, out_pt, dtype)
+
+
+def test_paged_decode_stale_pages_cannot_poison():
+    """Positions past a sequence's length may hold anything, NaN
+    included: the output must not see them."""
+    B, ps, N, H, KVH, d = 2, 8, 3, 4, 4, 16
+    q, kp, vp, table = _paged_case(B, ps, N, H, KVH, d, seed=5)
+    lens = np.asarray([11, 20], np.int32)
+    clean = pa_pt.paged_decode_attention(
+        *(torch.from_numpy(x).float() for x in (q, kp, vp)),
+        torch.from_numpy(table), torch.from_numpy(lens))
+    for b, n in enumerate(lens):
+        for j in range(n, N * ps):
+            page, off = table[b, j // ps], j % ps
+            kp[page, off] = np.nan
+            vp[page, off] = np.nan
+    dirty = pa_pt.paged_decode_attention(
+        *(torch.from_numpy(x).float() for x in (q, kp, vp)),
+        torch.from_numpy(table), torch.from_numpy(lens))
+    assert torch.equal(clean, dirty)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KVH,d,window", [
+    (1, 128, 4, 4, 32, 0),
+    (2, 256, 4, 2, 64, 0),      # GQA
+    (1, 256, 8, 1, 32, 0),      # MQA
+    (2, 128, 4, 4, 32, 64),     # sliding window
+    (1, 192, 2, 2, 16, 0),      # non-multiple of block
+    (1, 96, 4, 4, 80, 0),       # stablelm head_dim
+])
+def test_flash_matches_jax_kernel(B, S, H, KVH, d, window, dtype):
+    rng = np.random.RandomState(0)
+    q = rng.randn(B, S, H, d)
+    k = rng.randn(B, S, KVH, d)
+    v = rng.randn(B, S, KVH, d)
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (q, k, v))
+    out_pt = fa_pt.flash_attention(qt, kt, vt, causal=True, window=window)
+    out_pl = fa_jax.flash_attention(qj, kj, vj, True, window, True)
+    close(out_pl, out_pt, dtype)
+
+
+@pytest.mark.parametrize("prefix_len", [0, 21, 32])
+def test_flash_prefix_mode_matches_mha_reference(prefix_len):
+    """Prefix mode against the reference engine's prefill attention:
+    ``mha_reference`` over [padded prefix ; suffix] with
+    ``prefix_causal_mask``, for an empty, a ragged and a full prefix."""
+    B, S, Tpad, H, KVH, d = 2, 24, 32, 4, 2, 16
+    rng = np.random.RandomState(prefix_len)
+    q = rng.randn(B, S, H, d).astype(np.float32)
+    k = rng.randn(B, Tpad + S, KVH, d).astype(np.float32)
+    v = rng.randn(B, Tpad + S, KVH, d).astype(np.float32)
+    mask = att_jax.prefix_causal_mask(S, Tpad, prefix_len)
+    ref = att_jax.mha_reference(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), mask=mask)
+    out = fa_pt.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, prefix_pad=Tpad, prefix_len=prefix_len)
+    close(ref, out, "float32")
+    # the port's own mask and plain attention are the reference's too
+    mask_pt = att_pt.prefix_causal_mask(S, Tpad, prefix_len)
+    assert np.array_equal(np.asarray(mask), mask_pt.numpy())
+    plain = att_pt.mha_reference(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), mask=mask_pt)
+    close(ref, plain, "float32")
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_mask_without_prefix_is_reference_causal_mask(window):
+    """With no prefix the flash mask is the reference's ``causal_mask``
+    (and the port's copy of it)."""
+    S = 12
+    ref = np.asarray(att_jax.causal_mask(S, S, window=window))[0, 0]
+    assert np.array_equal(
+        att_pt.causal_mask(S, S, window=window)[0, 0].numpy(), ref)
+    assert np.array_equal(keep_mask(S, S, window=window).numpy(), ref)
+
+
+def test_flash_prefix_args_validated():
+    q = torch.zeros(1, 4, 2, 8)
+    k = torch.zeros(1, 12, 2, 8)
+    with pytest.raises(ValueError, match="prefix_len"):
+        fa_pt.flash_attention(q, k, k, prefix_pad=8, prefix_len=9)
+    with pytest.raises(ValueError, match="prefix_len"):
+        fa_pt.flash_attention(q, k, k, prefix_pad=16, prefix_len=0)
+
+
+# ---------------------------------------------------------------------------
+# device dispatch
+
+
+def test_cuda_request_without_gpu_raises():
+    """Asking for the card where there is none raises; nothing quietly
+    runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    model = build_model(get_config("stablelm-3b").reduced())
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init(0)                      # device defaults to "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init_paged_cache(4, 16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        from repro_torch.serving.engine import ServingEngine
+        ServingEngine(model, model.init(0, device="cpu"))
+
+
+def test_kernel_launch_counters_ignore_plain_path():
+    """The launch counters count kernel launches only: the CPU path runs
+    the plain version and leaves them alone."""
+    before = (pa_pt.paged_decode_attention.launches,
+              fa_pt.flash_attention.launches)
+    q, kp, vp, table = _paged_case(1, 8, 2, 2, 2, 16)
+    pa_pt.paged_decode_attention(
+        *(torch.from_numpy(x).float() for x in (q, kp, vp)),
+        torch.from_numpy(table), torch.tensor([5], dtype=torch.int32))
+    x = torch.zeros(1, 8, 2, 16)
+    fa_pt.flash_attention(x, x, x)
+    assert (pa_pt.paged_decode_attention.launches,
+            fa_pt.flash_attention.launches) == before
+

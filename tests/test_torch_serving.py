@@ -1,0 +1,242 @@
+"""The port's paged serving engine against the JAX engine.
+
+Both engines are built from the same parameters (JAX init, converted with
+``convert.from_jax``) on reduced stablelm-3b (float32) and run the same
+scenarios; greedy tokens must be *equal*.  The JAX engine runs its default
+``attention_impl="xla"``; the port runs on the CPU, where its kernel
+wrappers take their plain versions.
+"""
+
+import asyncio
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: one intra-op thread, so parallel test workers do not
+# compete with idle-spinning thread pools
+torch.set_num_threads(1)
+
+from repro.configs import get_config as get_config_jax  # noqa: E402
+from repro.models import build_model as build_jax  # noqa: E402
+from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
+from repro.serving.sampler import sample_tokens as sample_jax  # noqa: E402
+from repro.serving.tokenizer import ByteTokenizer as TokJax  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.convert import from_jax  # noqa: E402
+from repro_torch.serving import sampler  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.tokenizer import ByteTokenizer  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def served():
+    cfg_j = get_config_jax("stablelm-3b").reduced()
+    mj = build_jax(cfg_j)
+    params_j = mj.init(jax.random.PRNGKey(7))
+    cfg = get_config("stablelm-3b").reduced()
+    mt = build_model(cfg)
+    params_t = from_jax(cfg, jax.tree.map(np.asarray, params_j),
+                        device="cpu")
+    return (mj, params_j), (mt, params_t)
+
+
+def _rand_prompts(seed, n, length, lo=1, hi=200):
+    rng = np.random.RandomState(seed)
+    return [[int(t) for t in rng.randint(lo, hi, size=length)]
+            for _ in range(n)]
+
+
+PREFIX = list(range(40, 72))   # page-aligned 32-token shared prefix
+
+# name -> (engine kwargs, prompts, max_new, warm prefix)
+SCENARIOS = {
+    "single": (dict(max_slots=4, max_len=64), [[5, 17, 31]], 8, None),
+    "concurrent": (dict(max_slots=4, max_len=64),
+                   [[1, 2, 3], [9, 8, 7], [42, 5, 6], [3, 1, 4]], 4, None),
+    "more_than_slots": (dict(max_slots=2, max_len=64),
+                        [[i, i + 1] for i in range(5)], 4, None),
+    "shared_prefix": (dict(max_slots=4, max_len=96),
+                      [PREFIX + [100 + i, 7, 9 + i] for i in range(3)], 6,
+                      PREFIX),
+    "chunked": (dict(max_slots=2, max_len=64, prefill_chunk=8),
+                [list(range(3, 23)), list(range(50, 80))], 5, None),
+    "backpressure": (dict(max_slots=4, max_len=64, page_size=16,
+                          num_pages=8), _rand_prompts(3, 4, 40), 8, None),
+}
+
+
+async def _serve(engine, prompts, max_new, warm):
+    if warm is not None:
+        await engine.warm_prefix(warm)
+    outs = await asyncio.gather(*[
+        engine.generate(p, max_new_tokens=max_new) for p in prompts])
+    await engine.stop()
+    return outs
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_greedy_tokens_equal_jax_engine(served, name):
+    (mj, pj), (mt, pt) = served
+    kw, prompts, max_new, warm = SCENARIOS[name]
+    ej = JaxEngine(mj, pj, **kw)
+    et = ServingEngine(mt, pt, device="cpu", **kw)
+    want = asyncio.run(_serve(ej, prompts, max_new, warm))
+    got = asyncio.run(_serve(et, prompts, max_new, warm))
+    assert got == want
+    assert all(len(o) == max_new for o in got)
+    st = et.stats()
+    assert st["kv_admit_copies"] == 0
+    assert st["prefill_compilations"] <= st["prefill_shape_bound"]
+    if name == "concurrent":
+        assert max(et.batch_occupancy) >= 2
+    if name == "shared_prefix":
+        assert st["prefill_tokens_reused"] > 0
+        assert st["prefill_tokens_reused"] == ej.prefill_tokens_reused
+    if name == "chunked":
+        assert et.prefill_chunks == ej.prefill_chunks >= 6
+    if name == "backpressure":
+        assert et.admit_stalls > 0 and et.allocator.page_faults > 0
+    # every page is free again or owned by the trie alone
+    trie = et.prefix_cache.pages if et.prefix_cache is not None else 0
+    assert not et._slot_pages
+    assert et.allocator.free_count == et.num_pages - trie
+
+
+def test_cancellation_returns_pages(served):
+    """Cancelled requests (hedge losers, dropped clients) give back their
+    slot pages and trie pins; the survivors' tokens equal the JAX
+    engine's, and the allocator's free count returns to its start."""
+    (mj, pj), (mt, pt) = served
+
+    async def go(engine):
+        start = engine.allocator.free_count
+        await engine.warm_prefix(PREFIX)
+        keep = [asyncio.create_task(
+            engine.generate(PREFIX + [100 + i], max_new_tokens=6))
+            for i in range(2)]
+        drop = [asyncio.create_task(
+            engine.generate(PREFIX + [200 + i], max_new_tokens=24))
+            for i in range(2)]
+        await asyncio.sleep(0)
+        for t in drop:
+            t.cancel()
+        outs = await asyncio.gather(*keep)
+        await asyncio.gather(*drop, return_exceptions=True)
+        await engine.stop()
+        return outs, start
+
+    want, _ = asyncio.run(go(JaxEngine(mj, pj, max_slots=4, max_len=64,
+                                       page_size=16)))
+    et = ServingEngine(mt, pt, max_slots=4, max_len=64, page_size=16,
+                       device="cpu")
+    got, start = asyncio.run(go(et))
+    assert got == want
+    assert et.prefix_cache.stats()["tokens_matched"] > 0
+    assert not et._slot_pages and not et.active
+    for nd in et.prefix_cache.root.children.values():
+        assert nd.refs == 0, "leaked pin"
+    et.reset_prefix_cache()
+    assert et.allocator.free_count == start == et.num_pages
+
+
+def test_unsupported_engine_options_raise(served):
+    _, (mt, pt) = served
+    for kw in (dict(kv_layout="contiguous"), dict(mesh=object()),
+               dict(metrics=object())):
+        with pytest.raises(NotImplementedError):
+            ServingEngine(mt, pt, device="cpu", **kw)
+    eng = ServingEngine(mt, pt, max_slots=2, max_len=64, page_size=16,
+                        num_pages=2, device="cpu")
+
+    async def go():
+        with pytest.raises(ValueError, match="pages"):
+            await eng.generate(list(range(20)), max_new_tokens=20)
+        with pytest.raises(ValueError, match="max_len"):
+            await eng.generate(list(range(64)), max_new_tokens=1)
+    asyncio.run(go())
+
+
+def test_port_engine_behind_local_backend_through_poppy(served):
+    """A PopPy program's parallel ``llm()`` calls reach the port's engine
+    through the unchanged ``LocalEngineBackend`` and share decode steps."""
+    from repro.core import poppy
+    from repro.core.ai import llm, use_backend
+    from repro.serving.backend import LocalEngineBackend
+
+    _, (mt, pt) = served
+    engine = ServingEngine(mt, pt, max_slots=4, max_len=64, device="cpu")
+    backend = LocalEngineBackend(engine)
+
+    @poppy
+    def fanout(n):
+        outs = tuple()
+        for i in range(n):
+            outs += (llm(f"prompt {i}", max_tokens=4),)
+        return outs
+
+    with use_backend(backend):
+        outs = fanout(4)
+    assert len(outs) == 4 and all(isinstance(o, str) for o in outs)
+    assert engine.decode_tokens > 0
+    assert max(engine.batch_occupancy) >= 2, \
+        "parallel PopPy calls did not share decode batches"
+
+
+# ---------------------------------------------------------------------------
+# sampler and tokenizer
+
+
+@pytest.mark.parametrize("top_k,top_p", [(0, 0.0), (3, 0.0), (0, 0.7),
+                                         (4, 0.9)])
+def test_sampling_masks_equal_jax(monkeypatch, top_k, top_p):
+    """The logits the draw samples from — temperature-scaled, top-k and
+    top-p masked — equal the reference's before the draw."""
+    logits = np.random.RandomState(5).randn(3, 11).astype(np.float32)
+    logits[1, 4] = logits[1, 7]      # a tie at a top-k boundary candidate
+    seen = {}
+
+    def capture(rng, lg, axis=-1):
+        seen["logits"] = np.asarray(lg)
+        return jax.numpy.zeros(lg.shape[:-1], jax.numpy.int32)
+
+    monkeypatch.setattr(jax.random, "categorical", capture)
+    sample_jax(jax.random.PRNGKey(0), jax.numpy.asarray(logits),
+               temperature=0.8, top_k=top_k, top_p=top_p)
+    mine = sampler.filter_logits(torch.from_numpy(logits), temperature=0.8,
+                                 top_k=top_k, top_p=top_p).numpy()
+    ref = seen["logits"]
+    assert np.array_equal(np.isinf(mine), np.isinf(ref))
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(mine[fin], ref[fin], rtol=1e-6, atol=1e-6)
+
+
+def test_sampling_frequencies_follow_softmax():
+    """Draws from an explicit generator follow the softmax of the scaled
+    logits: with n draws each frequency lies within 5 standard errors
+    (sqrt(p(1-p)/n)) of its probability — a bound a correct sampler
+    breaks with probability below 1e-5 per token."""
+    logits = torch.tensor([[1.0, 0.5, -0.3, 2.0, 0.0, -1.0, 1.5, 0.2]])
+    n, temp = 20000, 0.7
+    gen = torch.Generator().manual_seed(0)
+    toks = sampler.sample_tokens(logits.repeat(n, 1), temperature=temp,
+                                 generator=gen)
+    freq = torch.bincount(toks.long(), minlength=8).double() / n
+    p = torch.softmax(logits[0].double() / temp, -1)
+    assert ((freq - p).abs() <= 5 * (p * (1 - p) / n).sqrt()).all()
+    # batched: greedy rows are argmax, stochastic rows follow the same law
+    temps = torch.tensor([0.0, temp]).repeat(n // 2)
+    both = sampler.sample_tokens_batched(
+        logits.repeat(n, 1), temps, generator=torch.Generator().manual_seed(1))
+    assert (both[0::2] == 3).all()
+    freq2 = torch.bincount(both[1::2].long(), minlength=8).double() / (n // 2)
+    assert ((freq2 - p).abs() <= 5 * (p * (1 - p) / (n // 2)).sqrt()).all()
+
+
+def test_tokenizer_is_the_reference():
+    a, b = ByteTokenizer(512), TokJax(512)
+    for text in ("hello", "ünïcödé ✓", ""):
+        assert a.encode(text) == b.encode(text)
+        assert a.decode(a.encode(text)) == b.decode(b.encode(text)) == text
