@@ -9,11 +9,11 @@ Phases, each printing one JSON line:
 1. build   — compile every CUDA kernel of the port from the sources in
              this checkout (``src/repro_torch/kernels/*/csrc/*.cu``).
 2. kernels — each kernel against its plain PyTorch version on the card,
-             at the main path's shapes (stablelm-3b and a GQA shape), in
-             bf16 (tolerance 2e-2) and f32 (2e-5), with its median time
-             over CUDA events, its bound, the plain version's time and a
-             PyTorch library call's time as a yardstick the port never
-             calls.
+             at the main paths' shapes (stablelm-3b, recurrentgemma-9b
+             and a GQA shape), in bf16 (tolerance 2e-2) and f32 (2e-5),
+             with its median time over CUDA events, its bound, the plain
+             version's time and a PyTorch library call's time as a
+             yardstick the port never calls.
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -23,6 +23,18 @@ Phases, each printing one JSON line:
              step's logits against the same model run through the plain
              versions: with the whole model in float32 within 1e-4
              relative L2 error (bf16's reading is printed, not held).
+4. serve_hybrid — full-width recurrentgemma-9b (38 blocks, bf16, seeded
+             random weights) behind the contiguous ServingEngine: 8
+             concurrent greedy requests with 2100 … 2 prompt tokens (the
+             ring rolls at prefill and wraps in decode; the shortest is
+             below the conv history), then an int8-KV engine on the same
+             weights serving 4 of them.  Checks exact launch counts
+             (12 decode-attention launches per step, 12 flash and 26
+             RG-LRU scans per admission), and a 2100-token prefill's and
+             one decode step's logits, dense and int8 KV, against the
+             plain versions with the whole model in float32 within 1e-4
+             (bf16 printed only), and a 2-token prompt's decode step
+             against the full forward.
 
 Float32 matmuls and convolutions run in full float32 here:
 ``allow_tf32`` is switched off for both cuBLAS and cuDNN, so the f32
@@ -52,7 +64,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
-PHASES = ("build", "kernels", "serve")
+PHASES = ("build", "kernels", "serve", "serve_hybrid")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -67,12 +79,33 @@ REPLACES = {
     "paged_decode_attention":
         "src/repro/kernels/paged_attention/kernel.py:71",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:91",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:63",
+    "decode_attention_int8":
+        "src/repro/kernels/decode_attention/kernel.py:143",
+    "rglru_scan": "src/repro/kernels/rglru/kernel.py:47",
 }
 SOURCES = {
     "paged_decode_attention":
         "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "decode_attention":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "decode_attention_int8":
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+}
+# the kernels phase row that stands for each kernel in the summary line:
+# its main path's shape, in the serving dtype
+SUMMARY_CASE = {
+    "paged_decode_attention": dict(shape="stablelm-3b", dtype="bfloat16"),
+    "flash_attention": dict(shape="stablelm-3b", dtype="bfloat16",
+                            prefix_pad=512),
+    "decode_attention": dict(shape="recurrentgemma-9b", dtype="bfloat16"),
+    "decode_attention_int8": dict(shape="recurrentgemma-9b",
+                                  dtype="bfloat16"),
+    "rglru_scan": dict(shape="recurrentgemma-9b", dtype="float32",
+                       h0=False),
 }
 
 
@@ -278,7 +311,175 @@ def phase_kernels():
                     library_ms=time_ms(sdpa_flash),
                     bound_ms=b_ms, bound_by=b_by))
                 emit({"phase": "kernels", **results[-1]})
+    for row in hybrid_kernel_rows(gen):
+        results.append(row)
+        emit({"phase": "kernels", **row})
     return results
+
+
+def sdpa(q, k, v, mask):
+    """One PyTorch call computing grouped-query attention: q [B,H,S,d],
+    k/v [B,KVH,T,d], boolean keep mask.  ``enable_gqa`` where this
+    PyTorch has it, else K/V repeated to H heads first."""
+    import torch.nn.functional as F
+    try:
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    except TypeError:
+        G = q.shape[1] // k.shape[1]
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
+            attn_mask=mask)
+
+
+def ring_valid(positions, C, device="cuda"):
+    """[B, C] validity of a ring cache of C slots holding the positions up
+    to ``positions`` (the reference's ``(j <= pos) | (pos >= C)``)."""
+    pos = torch.tensor(positions, device=device)[:, None]
+    j = torch.arange(C, device=device)[None, :]
+    return (j <= pos) | (pos >= C)
+
+
+def hybrid_kernel_rows(gen):
+    """The recurrentgemma-9b path's kernels against their plain versions:
+    decode attention (dense and int8) at its ring cache and one GQA /
+    stablelm-3b shape, the RG-LRU scan at a 2100-token prefill, and flash
+    at that prefill's windowed MQA shape (d = 256)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_int8_ref, decode_attention_ref)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, keep_mask)
+    from repro_torch.kernels.rglru import ops as lru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+
+    dev = "cuda"
+    rows = []
+    # cache positions of the serve_hybrid decode batch (prompt + 31): the
+    # first two rows have wrapped the 2048-slot ring
+    rg_pos = [2130, 2060, 1530, 730, 330, 150, 70, 32]
+    shapes = {
+        "recurrentgemma-9b": dict(H=16, KVH=1, d=256, C=2048, pos=rg_pos),
+        "gqa-40:8": dict(H=40, KVH=8, d=128, C=1024,
+                         pos=[1023, 777, 512, 300, 129, 64, 1, 600]),
+        "stablelm-3b": dict(H=32, KVH=32, d=80, C=1024,
+                            pos=[1023, 777, 512, 300, 129, 64, 1, 600]),
+    }
+    cases = [("decode_attention", "recurrentgemma-9b"),
+             ("decode_attention", "gqa-40:8"),
+             ("decode_attention_int8", "recurrentgemma-9b"),
+             ("decode_attention_int8", "stablelm-3b")]
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        es = torch.finfo(dtype).bits // 8
+        for kname, sname in cases:
+            sh = shapes[sname]
+            H, KVH, d, C = sh["H"], sh["KVH"], sh["d"], sh["C"]
+            B = len(sh["pos"])
+            valid = ring_valid(sh["pos"], C)
+            q = torch.randn(B, 1, H, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(B, C, KVH, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(B, C, KVH, d, generator=gen, device=dev).to(dtype)
+            n_valid = int(valid.sum().item())
+            if kname == "decode_attention":
+                args = (q, k, v, valid)
+                fn, ref_fn = da_ops.decode_attention, decode_attention_ref
+                kv_es = es
+            else:
+                k8, ks = quantize_kv(k)
+                v8, vs = quantize_kv(v)
+                args = (q, k8, v8, ks, vs, valid)
+                fn = da_ops.decode_attention_int8
+                ref_fn = decode_attention_int8_ref
+                kv_es = 1 + 4 / d                     # int8 + one f32 scale
+            out = fn(*args)
+            err = check_close(f"{kname} {sname} {dname}", out,
+                              ref_fn(*args), dname)
+            # stale slots may hold anything: NaN there must not reach out
+            poisoned = [a.clone() for a in args]
+            if kname == "decode_attention":
+                for t in poisoned[1:3]:
+                    t[~valid] = float("nan")
+            else:
+                for t in poisoned[3:5]:      # NaN scales poison the rows
+                    t[~valid] = float("nan")
+            if not torch.equal(fn(*poisoned), out):
+                fail(f"{kname} {sname} {dname}: NaN in invalid slots "
+                     f"changed the output")
+            mask = valid[:, None, None, :]
+
+            def library():
+                if kname == "decode_attention":
+                    return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), mask)
+                kd = dequantize_kv(k8, ks, dtype)
+                vd = dequantize_kv(v8, vs, dtype)
+                return sdpa(q.transpose(1, 2), kd.transpose(1, 2),
+                            vd.transpose(1, 2), mask)
+
+            nbytes = 2 * q.numel() * es + 2 * n_valid * KVH * d * kv_es \
+                + valid.numel()
+            flops = 4 * n_valid * H * d
+            b_ms, b_by = bound(nbytes, flops, dname)
+            rows.append(dict(
+                kernel=kname, shape=sname, dtype=dname, B=B, H=H, KVH=KVH,
+                d=d, C=C, positions=sh["pos"], valid_rows=n_valid,
+                max_abs_err=err, tol=TOL[dname],
+                ms=time_ms(lambda: fn(*args)),
+                plain_ms=time_ms(lambda: ref_fn(*args)),
+                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by))
+
+        # flash at the hybrid prefill: S = T = 2100, MQA, d = 256, window
+        S, H, KVH, d, W = 2100, 16, 1, 256, 2048
+        q = torch.randn(1, S, H, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(1, S, KVH, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(1, S, KVH, d, generator=gen, device=dev).to(dtype)
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=W)
+        err = check_close(f"flash recurrentgemma-9b {dname}", out,
+                          flash_attention_ref(q, k, v, causal=True,
+                                              window=W), dname)
+        keep = keep_mask(S, S, window=W, device=dev)
+        pairs = int(keep.sum().item())
+        b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es,
+                           4 * pairs * H * d, dname)
+        rows.append(dict(
+            kernel="flash_attention", shape="recurrentgemma-9b", dtype=dname,
+            S=S, T=S, H=H, KVH=KVH, d=d, window=W, prefix_pad=0,
+            prefix_len=0, max_abs_err=err, tol=TOL[dname],
+            ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True,
+                                                      window=W)),
+            plain_ms=time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=True, window=W), warmup=1, reps=5),
+            library_ms=time_ms(lambda: sdpa(q.transpose(1, 2),
+                                            k.transpose(1, 2),
+                                            v.transpose(1, 2), keep)),
+            bound_ms=b_ms, bound_by=b_by))
+
+    # the RG-LRU scan is float32 only, as the reference kernel is
+    B, S, Wd = 1, 2100, 4096
+    a = torch.sigmoid(torch.randn(B, S, Wd, generator=gen, device=dev))
+    b = torch.randn(B, S, Wd, generator=gen, device=dev)
+    h0 = torch.randn(B, Wd, generator=gen, device=dev)
+    for with_h0 in (False, True):
+        h = h0 if with_h0 else None
+        out = lru_ops.rglru_scan(a, b, h)
+        err = check_close(f"rglru_scan h0={with_h0}", out,
+                          rglru_scan_ref(a, b, h), "float32")
+        # one entry per read of a and b and per write of h; 2 flops each
+        b_ms, b_by = bound(3 * a.numel() * 4 + (B * Wd * 4 if with_h0 else 0),
+                           2 * a.numel(), "float32")
+        rows.append(dict(
+            kernel="rglru_scan", shape="recurrentgemma-9b", dtype="float32",
+            B=B, S=S, W=Wd, h0=with_h0, max_abs_err=err, tol=TOL["float32"],
+            ms=time_ms(lambda: lru_ops.rglru_scan(a, b, h)),
+            plain_ms=time_ms(lambda: rglru_scan_ref(a, b, h)),
+            library_ms=None,
+            library_note="no single PyTorch call computes a linear "
+                         "recurrence with per-step coefficients",
+            bound_ms=b_ms, bound_by=b_by))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +561,7 @@ def phase_serve(seed):
     wave = [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size,
                                                   size=n)]
             for n in suf_lens]
-    profile = profile_wave(engine, wave)
+    profile = profile_wave(engine, wave, "serve_profile.txt")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # bf16, information only: kernel and plain version round attention
@@ -401,16 +602,247 @@ def phase_serve(seed):
 
 
 def plain_attention():
-    """Patch the model's attention to call the kernels' plain versions."""
+    """Patch the model to call every kernel's plain version: attention
+    (flash, paged decode, contiguous decode dense and int8) and the RG-LRU
+    scan."""
+    import contextlib
     from unittest import mock
 
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_int8_ref, decode_attention_ref)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_ref)
-    return mock.patch.multiple(
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.multiple(
         "repro_torch.models.attention",
         fa_ops=mock.Mock(flash_attention=flash_attention_ref),
-        pa_ops=mock.Mock(paged_decode_attention=paged_decode_attention_ref))
+        pa_ops=mock.Mock(paged_decode_attention=paged_decode_attention_ref),
+        da_ops=mock.Mock(decode_attention=decode_attention_ref,
+                         decode_attention_int8=decode_attention_int8_ref)))
+    stack.enter_context(mock.patch(
+        "repro_torch.models.rglru.lru_ops",
+        mock.Mock(rglru_scan=rglru_scan_ref)))
+    return stack
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve full-width recurrentgemma-9b (contiguous engine)
+
+# prompt lengths of the hybrid wave: past the 2048 window (the prefill
+# rolls the ring; decode wraps it again), inside it, and shorter than the
+# conv history (2 < conv_width - 1 = 3)
+HYBRID_PROMPTS = (2100, 2030, 1500, 700, 300, 120, 40, 2)
+HYBRID_INT8_PROMPTS = (2100, 700, 40, 2)
+
+
+def serve_counted(engine, prompts, max_new, counters):
+    """Serve ``prompts`` concurrently with every launch counter set to 0
+    just before; → (outputs, {name: launches}, seconds)."""
+    async def go():
+        outs = await asyncio.gather(*[
+            engine.generate(p, max_new_tokens=max_new) for p in prompts])
+        await engine.stop()
+        return outs
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = asyncio.run(go())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return outs, {n: fn.launches for n, fn in counters.items()}, seconds
+
+
+def check_hybrid_launches(label, launches, steps, admissions, *, int8):
+    """The contiguous path's exact launch counts: one decode-attention
+    launch per attention block per decode step (the int8 kernel on an
+    int8 cache, the dense one otherwise, never both), one flash and one
+    RG-LRU scan launch per attention / recurrent block per admission."""
+    want = {"decode_attention": 0 if int8 else 12 * steps,
+            "decode_attention_int8": 12 * steps if int8 else 0,
+            "flash_attention": 12 * admissions,
+            "rglru_scan": 26 * admissions,
+            "paged_decode_attention": 0}
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want} for {steps} decode "
+             f"steps and {admissions} admissions")
+
+
+def phase_serve_hybrid(seed):
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.rglru import ops as lru_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = {"decode_attention": da_ops.decode_attention,
+                "decode_attention_int8": da_ops.decode_attention_int8,
+                "flash_attention": fa_ops.flash_attention,
+                "rglru_scan": lru_ops.rglru_scan,
+                "paged_decode_attention": pa_ops.paged_decode_attention}
+    cfg = get_config("recurrentgemma-9b")
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    model, model8 = build_model(cfg), build_model(cfg8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(seed)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, size=n)]
+               for n in HYBRID_PROMPTS]
+    max_len, max_new = 2304, 32
+
+    # -- bf16 KV: 8 concurrent requests
+    engine = ServingEngine(model, params, max_slots=8, max_len=max_len,
+                           device="cuda")
+    outs, launches, serve_s = serve_counted(engine, prompts, max_new,
+                                            counters)
+    st = engine.stats()
+    check_hybrid_launches("bf16 KV", launches, st["steps"],
+                          st["prefill_chunks"], int8=False)
+    if (st["kv_layout"], st["paged"], st["prefill_shape_bound"]) \
+            != ("contiguous", False, None):
+        fail(f"hybrid engine stats {st}")
+    if st["kv_admit_copies"] != len(prompts) \
+            or st["prefill_chunks"] != len(prompts):
+        fail(f"{st['prefill_chunks']} admissions, {st['kv_admit_copies']} "
+             f"slot copies for {len(prompts)} requests")
+    for i, o in enumerate(outs):
+        if len(o) != max_new or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"hybrid request {i}: {len(o)} tokens, or one outside "
+                 f"the vocab")
+    dec = sorted(engine.decode_step_s)
+
+    # -- int8 KV on the same parameters: 4 requests
+    prompts8 = [prompts[HYBRID_PROMPTS.index(n)] for n in HYBRID_INT8_PROMPTS]
+    engine8 = ServingEngine(model8, params, max_slots=8, max_len=max_len,
+                            device="cuda")
+    outs8, launches8, serve8_s = serve_counted(engine8, prompts8, max_new,
+                                               counters)
+    st8 = engine8.stats()
+    check_hybrid_launches("int8 KV", launches8, st8["steps"],
+                          st8["prefill_chunks"], int8=True)
+    for i, o in enumerate(outs8):
+        if len(o) != max_new or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"int8 request {i}: {len(o)} tokens, or one outside vocab")
+    dec8 = sorted(engine8.decode_step_s)
+    del engine8
+
+    with torch.no_grad():
+        toks = {n: torch.tensor([prompts[HYBRID_PROMPTS.index(n)]],
+                                dtype=torch.int32, device="cuda")
+                for n in (2100, 300)}
+        prefill_ms = {f"{n}_tokens": time_ms(lambda n=n: model.prefill(
+            params, {"tokens": toks[n]}, capacity=max_len), warmup=1, reps=3)
+            for n in toks}
+    profile = profile_wave(engine, prompts, "serve_hybrid_profile.txt")
+    del engine
+    bf16 = hybrid_kernel_vs_plain(model, model8, params, prompts[0],
+                                  max_len)
+    logits_bf16 = logits_agreement(bf16, cfg.vocab_size, None, "bf16")
+    del bf16, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_bf16_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # -- the whole model in float32: kernel path vs plain path, held
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    m32_8 = build_model(dataclasses.replace(cfg8, dtype="float32"))
+    params32 = m32.init(seed, device="cuda", dtype=torch.float32)
+    logits_f32 = logits_agreement(
+        hybrid_kernel_vs_plain(m32, m32_8, params32, prompts[0], max_len),
+        cfg.vocab_size, LOGITS_TOL_F32, "f32")
+    short = short_prompt_vs_forward(m32, params32, prompts[-1], max_len)
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "serve_hybrid", "model": cfg.name,
+          "layers": cfg.num_layers, "params": model.num_params(),
+          "init_s": init_s, "serve_s": serve_s, "requests": len(prompts),
+          "prompt_tokens": list(HYBRID_PROMPTS),
+          "new_tokens": sum(len(o) for o in outs),
+          "decode_steps": st["steps"],
+          "decode_step_median_ms": statistics.median(dec) * 1e3,
+          "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
+          "decode_tokens_per_s": st["decode_tokens"]
+          / max(sum(dec), 1e-9),
+          "prefill_ms": prefill_ms, "admissions": st["prefill_chunks"],
+          "kv_admit_copies": st["kv_admit_copies"], "launches": launches,
+          "int8": {"requests": len(prompts8), "serve_s": serve8_s,
+                   "decode_steps": st8["steps"],
+                   "decode_step_median_ms": statistics.median(dec8) * 1e3,
+                   "launches": launches8},
+          "logits_vs_plain": {"bfloat16": logits_bf16,
+                              "float32": logits_f32},
+          "short_prompt_decode_vs_forward_f32": short,
+          "profiled_wave": profile, "peak_memory_gb_bf16": peak_bf16_gb,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    total = {n: launches[n] + launches8[n] for n in launches}
+    return total
+
+
+def hybrid_kernel_vs_plain(model, model8, params, prompt, max_len):
+    """Last logits of a full-prompt prefill (longer than the window: the
+    ring rolls) and of one decode step past the wrap, through the kernels
+    and through the plain versions, for the dense KV cache (``model``) and
+    the int8 one (``model8``, same parameters).  Both decode steps start
+    from a copy of the kernel path's prefill cache.
+    → {name: (kernel logits, plain logits)}."""
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for tag, m in (("", model), ("_int8", model8)):
+            lg_k, cache = m.prefill(params, {"tokens": toks},
+                                    capacity=max_len)
+            with plain_attention():
+                lg_p, _ = m.prefill(params, {"tokens": toks},
+                                    capacity=max_len)
+            out["prefill" + tag] = (lg_k, lg_p)
+            cur = lg_k.argmax(-1).to(torch.int32)[:, None]
+            copy = clone_tree(cache)
+            lg_k2, _ = m.decode_step(params, cache, cur, pos)
+            with plain_attention():
+                lg_p2, _ = m.decode_step(params, copy, cur, pos)
+            out["decode_step" + tag] = (lg_k2, lg_p2)
+            del cache, copy
+    return out
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def short_prompt_vs_forward(model, params, prompt, max_len):
+    """A prompt shorter than the conv history: prefill it, take one decode
+    step with the greedy token, and hold that step's logits against the
+    full forward's at the same position (relative L2, float32)."""
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        lg, cache = model.prefill(params, {"tokens": toks}, capacity=max_len)
+        cur = lg.argmax(-1).to(torch.int32)[:, None]
+        pos = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+        step, _ = model.decode_step(params, cache, cur, pos)
+        full, _ = model.forward(params, {"tokens": torch.cat([toks, cur], 1)})
+    vocab = model.cfg.vocab_size
+    a, b = step.float()[:, :vocab], full[:, -1].float()[:, :vocab]
+    rel = ((a - b).norm() / b.norm()).item()
+    if not rel <= LOGITS_TOL_F32:
+        fail(f"{len(prompt)}-token prompt: decode after prefill vs forward "
+             f"rel L2 error {rel} > {LOGITS_TOL_F32}")
+    return {"prompt_tokens": len(prompt), "rel_l2_err": rel,
+            "tol": LOGITS_TOL_F32}
 
 
 def kernel_vs_plain(model, params, prompt, plen=384, pad=512, ps=16):
@@ -481,11 +913,11 @@ def logits_agreement(comparisons, vocab, tol, label):
     return report
 
 
-def profile_wave(engine, prompts):
+def profile_wave(engine, prompts, table):
     """Serve ``prompts`` under ``torch.profiler``: the device's busy share
     of the wall time and device time by kernel (the full table goes to
-    ``chiprun_out/serve_profile.txt``).  None where the profiler saw no
-    device time."""
+    ``chiprun_out/<table>``).  None where the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     async def wave():
@@ -513,7 +945,7 @@ def profile_wave(engine, prompts):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "serve_profile.txt").write_text("".join(
+    (OUT_DIR / table).write_text("".join(
         f"{dev:14.1f} us {cnt:8d}x  {key}\n" for dev, cnt, key in rows))
     if busy <= 0:
         return None
@@ -550,20 +982,30 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    kernel_rows, launches = [], {}
+    kernel_rows, launches, seconds = [], {}, {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
     if "build" in phases:
-        phase_build()
+        timed("build", phase_build)
     if "kernels" in phases:
-        kernel_rows = phase_kernels()
+        kernel_rows = timed("kernels", phase_kernels)
     if "serve" in phases:
-        launches = phase_serve(args.seed)
+        launches = timed("serve", phase_serve, args.seed)
+    if "serve_hybrid" in phases:
+        hybrid = timed("serve_hybrid", phase_serve_hybrid, args.seed)
+        launches = {n: launches.get(n, 0) + hybrid.get(n, 0)
+                    for n in set(launches) | set(hybrid)}
+    emit({"phase": "timing", "seconds": seconds})
 
     summary = []
-    for name in ("paged_decode_attention", "flash_attention"):
-        # the main path's case: stablelm-3b in bf16 (flash with its prefix)
+    for name, case in SUMMARY_CASE.items():
         rows = [r for r in kernel_rows if r["kernel"] == name
-                and r["shape"] == "stablelm-3b" and r["dtype"] == "bfloat16"
-                and r.get("prefix_pad", 512) == 512]
+                and all(r.get(k) == v for k, v in case.items())]
         if not rows:
             continue
         r = rows[0]

@@ -104,12 +104,14 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """A tiny same-family config for CPU tests (the reference's
-        ``reduced()`` for the dense family: float32, 2 layers, d_model 64)."""
-        if self.family != "dense":
+        """A tiny same-family config for CPU tests: the reference's
+        ``reduced()`` (float32, d_model 64; hybrid configs keep one
+        (rglru, rglru, attn) super-block at lru_width 64, ssm configs drop
+        the attention heads).  Families the port does not run yet raise."""
+        if self.family not in ("dense", "hybrid", "ssm"):
             raise NotImplementedError(
                 f"{self.family} configs wait for ROADMAP.md §A.7-A.9")
-        return self.replace(
+        kw = dict(
             num_layers=2,
             d_model=64,
             num_heads=4,
@@ -117,9 +119,20 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=512,
+            lru_width=64 if self.lru_width else 0,
+            ssm_state=16 if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_state else 64,
             ssm_chunk=8,
             moe_capacity_factor=1.25,
             num_experts_per_tok=min(self.num_experts_per_tok, 2),
             dtype="float32",
             remat="none",
         )
+        if self.block_pattern:
+            kw["block_pattern"] = ("rglru", "rglru", "attn")
+            kw["num_layers"] = 3
+        if self.family == "ssm":
+            kw["num_heads"] = 0
+            kw["num_kv_heads"] = 0
+            kw["head_dim"] = 0
+        return self.replace(**kw)

@@ -1,9 +1,11 @@
-"""Grouped-query attention for the dense family: projections, the plain
-masked attention, full-sequence attention (forward and prefix-aware
-prefill) and one-token decode over block-paged KV pools.
+"""Grouped-query attention: projections, the plain masked attention,
+full-sequence attention (forward and prefix-aware prefill), one-token
+decode over a contiguous or ring KV cache (optionally int8) and over
+block-paged KV pools.
 
-Counterpart of ``repro/models/attention.py``.  Both attention products
-run in hand-written kernels: ``full_attention`` in the flash kernel and
+Counterpart of ``repro/models/attention.py``.  Every attention product
+runs in a hand-written kernel: ``full_attention`` in the flash kernel,
+``decode_attention`` in the contiguous decode kernel (dense or int8) and
 ``paged_decode_attention`` in the paged decode kernel.  Their wrappers
 pick the kernel or its plain version by the tensors' device, so this
 module has no implementation switch.
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 
@@ -146,14 +149,109 @@ def full_attention(cfg, p, x, *, positions, window=0, return_kv=False,
 
 
 # ---------------------------------------------------------------------------
+# cached decode (contiguous or ring KV cache)
+
+
+def init_kv_cache(cfg, batch, capacity, dtype, device):
+    """Contiguous KV cache ``[batch, capacity, KVH, hd]`` per leaf; with
+    ``kv_cache_dtype == "int8"`` int8 leaves plus an f32 scale
+    ``[batch, capacity, KVH]`` per K and V."""
+    shape = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def quantize_kv(x):
+    """Per-(position, head) symmetric int8 (the reference's KIVI-style
+    scheme, bit for bit).  x: [..., hd] → (q int8 [..., hd], scale f32
+    [...]); ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype):
+    """int8 values times their scale, in ``dtype``."""
+    return q.to(dtype) * scale[..., None].to(dtype)
+
+
+def pack_kv(cfg, k, v):
+    """Cache leaves for freshly computed K/V [B,S,KVH,hd]."""
+    if cfg.kv_cache_dtype == "int8":
+        qk, sk = quantize_kv(k)
+        qv, sv = quantize_kv(v)
+        return {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    return {"k": k, "v": v}
+
+
+def decode_valid(positions, C, window):
+    """[B, C] bool: cache slot j holds a position the current token
+    attends.  A full cache (window 0) holds position j at slot j; a ring
+    buffer of C = window slots holds position p at slot p % C, so once a
+    row has wrapped (pos >= C) every slot is live."""
+    j = torch.arange(C, device=positions.device)[None, :]
+    pos = positions.long()[:, None]
+    valid = j <= pos
+    if window > 0:
+        valid = valid | (pos >= C)
+    return valid
+
+
+def decode_attention(cfg, p, x, cache, positions, *, window=0):
+    """One-token decode over a contiguous cache: x [B,1,D]; cache k/v
+    [B,C,KVH,hd] (int8 with scales when ``kv_cache_dtype == "int8"``);
+    positions [B] is the index of the *current* token.  Returns out
+    [B,1,D].
+
+    The step's (packed) K/V are written into slot ``pos`` — ``pos % C``
+    for a windowed ring buffer — of ``cache`` **in place** (the JAX
+    reference donated the cache and returned a new one).  Keys are
+    stored post-RoPE, so ring order does not matter under the validity
+    mask."""
+    B = x.shape[0]
+    C = cache["k"].shape[1]
+    q = _project_q(cfg, p, x)
+    k, v = _project_kv(cfg, p, x)
+    if cfg.use_rope:
+        cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim,
+                                cfg.rope_theta, x.dtype)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    slots = (positions % C if window > 0 else positions).long()
+    rows = torch.arange(B, device=x.device)
+    for name, new in pack_kv(cfg, k, v).items():
+        cache[name][rows, slots] = new[:, 0].to(cache[name].dtype)
+    valid = decode_valid(positions, C, window)
+    if cfg.kv_cache_dtype == "int8":
+        out = da_ops.decode_attention_int8(
+            q.contiguous(), cache["k"], cache["v"], cache["k_scale"],
+            cache["v_scale"], valid)
+    else:
+        out = da_ops.decode_attention(q.contiguous(), cache["k"],
+                                      cache["v"], valid)
+    return _out_proj(out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
 # paged decode (block-paged KV pools)
 
 
 def init_paged_kv_cache(cfg, num_pages, page_size, dtype, device):
     """Block-paged KV pool: [num_pages, page_size, KVH, hd] per leaf."""
     if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV waits for the contiguous engine (ROADMAP.md §A.6)")
+        raise ValueError(
+            "paged KV requires unquantized KV: int8 KV runs on the "
+            "contiguous engine")
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

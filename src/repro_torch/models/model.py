@@ -1,4 +1,5 @@
-"""Model facade: one object per architecture config (dense family)."""
+"""Model facade: one object per architecture config (dense and hybrid
+families)."""
 
 from __future__ import annotations
 
@@ -57,13 +58,29 @@ class Model:
 
     def prefix_seq_axes(self):
         """Sequence axis of each serving-cache leaf, or None when
-        per-position KV reuse is unsound (int8 KV, windowed attention).
-        The dense cache leaves are ``[L, B, T, KVH, hd]``: axis 2."""
-        cfg = self.cfg
-        if cfg.kv_cache_dtype == "int8" or cfg.attn_window:
+        per-position KV reuse is unsound: recurrent/hybrid state is not
+        positionally sliceable, windowed attention uses ring buffers and
+        int8 KV would make cached and cold prefills differ.  Such models
+        are served from the contiguous cache.  The dense cache leaves are
+        ``[L, B, T, KVH, hd]``: axis 2."""
+        lm.check_family(self.cfg)
+        if lm.is_contiguous(self.cfg):
             return None
-        lm.check_family(cfg)
         return {"k": 2, "v": 2}
+
+    # -- contiguous KV ----------------------------------------------------------
+
+    def init_cache(self, batch, capacity, *, device="cuda"):
+        """Grouped contiguous decode cache for ``batch`` sequences of up to
+        ``capacity`` positions (ring buffers of ``min(capacity, window)``
+        slots for windowed attention); see :func:`lm.init_cache`."""
+        return lm.init_cache(self.cfg, batch, capacity,
+                             resolve_device(device))
+
+    def decode_step(self, params, cache, tokens, positions):
+        """tokens [B,1], positions [B] → (logits [B,V], cache updated in
+        place) over the grouped contiguous cache."""
+        return lm.decode_step(self.cfg, params, cache, tokens, positions)
 
     # -- paged KV -------------------------------------------------------------
 

@@ -1,22 +1,31 @@
-"""Continuous-batching inference engine over block-paged KV.
+"""Continuous-batching inference engine over block-paged or contiguous
+KV.
 
-Counterpart of the paged path of ``repro/serving/engine.py``: a fixed
-decode batch of ``max_slots`` sequences steps together through
-``Model.decode_step_paged``; free slots admit queued requests through
-prefix-aware, bucketed and chunked ``Model.prefill``.  Everything is
-asyncio — PopPy's bursts of parallel ``llm()`` calls land here and share
-decode steps.
+Counterpart of ``repro/serving/engine.py``: a fixed decode batch of
+``max_slots`` sequences steps together; free slots admit queued requests
+through ``Model.prefill``.  Everything is asyncio — PopPy's bursts of
+parallel ``llm()`` calls land here and share decode steps.  Two layouts,
+chosen by the model as the reference chooses them:
 
-KV lives in a page pool shared by all slots (``[L, P, ps, KVH, hd]``):
-page 0 is scratch, a per-slot page table maps positions to pages, the
-radix trie (:class:`PagedPrefixCache`) shares full prefix pages by
-reference (zero KV copies at admission), and pages are allocated eagerly
-for prompt + max_new at admission, so decode never faults.
+- **paged** (models whose KV can be cut by position: dense attention with
+  unquantized KV): KV lives in a page pool shared by all slots (``[L, P,
+  ps, KVH, hd]``); page 0 is scratch, a per-slot page table maps
+  positions to pages, the radix trie (:class:`PagedPrefixCache`) shares
+  full prefix pages by reference (zero KV copies at admission), and pages
+  are allocated eagerly for prompt + max_new at admission, so decode never
+  faults.  Prefill is prefix-aware, bucketed and chunked.
+- **contiguous** (``Model.prefix_seq_axes()`` is None: hybrid/recurrent,
+  int8-KV and windowed models): one ``[.., max_slots, C, ..]`` cache with
+  a slot per sequence (ring buffers for windowed attention, recurrent
+  state for RG-LRU blocks).  A request is admitted by one exact-length
+  prefill, copied into its slot, and the batch steps through
+  ``Model.decode_step``.
 
 The reference's jit + buffer donation becomes in-place updates of the
-pool tensors.  Prefill still pads prompts to length buckets, which keeps
-the set of kernel shapes small.  Not in this slice (the arguments raise):
-``kv_layout="contiguous"``, ``mesh=`` and the tracer/metrics hooks.
+cache tensors.  Not in this slice (the arguments raise):
+``kv_layout="contiguous"`` for a model the paged layout serves (the
+reference's contiguous prefix cache and splice), ``mesh=`` and the
+tracer/metrics hooks.
 """
 
 from __future__ import annotations
@@ -145,14 +154,16 @@ def default_buckets(max_len: int, lo: int = 16) -> tuple:
 
 class ServingEngine:
     """Continuous batching over a ``repro_torch.models.Model`` on one
-    device, paged KV layout.
+    device: paged KV where the model's cache can be cut by position,
+    contiguous otherwise (``kv_layout`` reports which).
 
-    Knobs: ``prefix_cache_budget`` (bytes of radix KV to retain; 0/None
-    disables), ``prefill_chunk`` (tokens per prefill chunk interleaved
-    with decode; None = whole prompt), ``page_size`` and ``num_pages``
-    (default: enough for every slot at ``max_len``).  Prefill pads to
-    powers of two up to ``max_len``; the loop yields between steps and
-    quiesces after ``IDLE_QUIESCE_S`` idle seconds."""
+    Knobs of the paged layout: ``prefix_cache_budget`` (bytes of radix KV
+    to retain; 0/None disables), ``prefill_chunk`` (tokens per prefill
+    chunk interleaved with decode; None = whole prompt), ``page_size`` and
+    ``num_pages`` (default: enough for every slot at ``max_len``); paged
+    prefill pads to powers of two up to ``max_len``.  The contiguous
+    layout admits each prompt whole and ignores them.  The loop yields
+    between steps and quiesces after ``IDLE_QUIESCE_S`` idle seconds."""
 
     IDLE_QUIESCE_S = 1.0
 
@@ -161,10 +172,9 @@ class ServingEngine:
                  prefill_chunk=None, page_size=16, num_pages=None,
                  kv_layout=None, metrics=None, mesh=None, device="cuda",
                  seed=0):
-        if kv_layout not in (None, "paged"):
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r}: the contiguous engine waits for "
-                f"ROADMAP.md §A.6")
+        if kv_layout not in (None, "paged", "contiguous"):
+            raise ValueError(f"kv_layout must be 'paged' or 'contiguous', "
+                             f"got {kv_layout!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: tensor-parallel serving waits for ROADMAP.md §A.11")
@@ -210,13 +220,39 @@ class ServingEngine:
         self.kv_admit_copies = 0
         self.admit_stalls = 0
 
+        # host copies of the per-slot decode state, uploaded each step
+        self._positions = np.zeros((max_slots,), np.int32)
+        self._cur_tokens = np.zeros((max_slots, 1), np.int32)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self._wait_pages: list[Request] = []   # admission backpressure
+
         self._seq_axes = model.prefix_seq_axes()
-        if self._seq_axes is None:
+        self.paged_kv = self._seq_axes is not None
+        self.kv_layout = "paged" if self.paged_kv else "contiguous"
+        if self.paged_kv and kv_layout == "contiguous":
             raise NotImplementedError(
-                f"{self.cfg.name}: KV is not positionally sliceable; the "
-                f"contiguous engine waits for ROADMAP.md §A.6")
-        self.kv_layout = "paged"
-        self.paged_kv = True
+                f"{self.cfg.name}: kv_layout='contiguous' for a model the "
+                f"paged layout serves (its prefix cache and splice) waits "
+                f"for ROADMAP.md §A.6")
+        if self.paged_kv:
+            self._init_paged(page_size, num_pages, prefix_cache_budget,
+                             prefill_chunk)
+        else:
+            # exact-length prefill into a slot of one contiguous cache
+            self._buckets = ()
+            self.prefill_chunk = None
+            self.prefix_cache = None
+            self.page_size = None
+            self.num_pages = 0
+            self.cache = model.init_cache(max_slots, max_len,
+                                          device=self.device)
+
+    def _init_paged(self, page_size, num_pages, prefix_cache_budget,
+                    prefill_chunk):
+        """Block-paged KV state: the page pool shared by all slots, the
+        radix trie and the per-slot page tables."""
+        max_slots, max_len = self.max_slots, self.max_len
         if page_size < 1 or max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a positive multiple "
                              f"of page_size {page_size}")
@@ -227,13 +263,6 @@ class ServingEngine:
                              f"page_size {page_size} (finalize scatters "
                              f"whole pages)")
         self.prefill_chunk = prefill_chunk
-
-        # host copies of the per-slot decode state, uploaded each step
-        self._positions = np.zeros((max_slots,), np.int32)
-        self._cur_tokens = np.zeros((max_slots, 1), np.int32)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
-
         self.page_size = page_size
         self.pages_per_slot = max_len // page_size
         self.num_pages = int(num_pages) if num_pages \
@@ -242,8 +271,8 @@ class ServingEngine:
             raise ValueError(f"num_pages must be >= 1, got {self.num_pages}")
         self.allocator = PageAllocator(self.num_pages, page_size)
         # pool leaves [L, num_pages + 1, page_size, KVH, hd]; page 0 scratch
-        self.kv_pages = model.init_paged_cache(self.num_pages + 1, page_size,
-                                               device=self.device)
+        self.kv_pages = self.model.init_paged_cache(
+            self.num_pages + 1, page_size, device=self.device)
         self._empty_prefix = {
             name: leaf.new_zeros((leaf.shape[0], 1, 0) + leaf.shape[3:])
             for name, leaf in self.kv_pages.items()}
@@ -253,7 +282,6 @@ class ServingEngine:
                                           device=self.device)
         self._table_dirty = False
         self._slot_pages: dict[int, list] = {}
-        self._wait_pages: list[Request] = []   # admission backpressure
         self.page_op_shapes: set = set()
         if prefix_cache_budget:
             page_bytes = tree_nbytes(self.kv_pages) // (self.num_pages + 1)
@@ -313,7 +341,7 @@ class ServingEngine:
         # pages are allocated eagerly for prompt + max_new at admission: a
         # request needing more than the whole pool would stall forever
         total = min(len(prompt_tokens) + max_new_tokens, self.max_len)
-        need = -(-total // self.page_size)
+        need = -(-total // self.page_size) if self.paged_kv else 0
         if need > self.num_pages:
             raise ValueError(
                 f"request needs {need} KV pages ({len(prompt_tokens)} "
@@ -422,9 +450,12 @@ class ServingEngine:
         return len(self.prefill_shapes)
 
     @property
-    def prefill_shape_bound(self) -> int:
+    def prefill_shape_bound(self) -> int | None:
         """Ceiling on distinct prefill shapes: every call pads to a
-        (prefix-bucket, suffix-bucket) pair."""
+        (prefix-bucket, suffix-bucket) pair.  None on the contiguous
+        layout's exact-length path."""
+        if not self.paged_kv:
+            return None
         return (len(self._buckets) + 1) * len(self._buckets)
 
     @property
@@ -447,7 +478,7 @@ class ServingEngine:
             "kv_admit_copies": self.kv_admit_copies,
             "prefix_cache": self.prefix_cache.stats()
             if self.prefix_cache is not None else None,
-            "paged": {
+            "paged": False if not self.paged_kv else {
                 "page_size": self.page_size,
                 "num_pages": self.num_pages,
                 "pages_free": self.allocator.free_count,
@@ -621,7 +652,37 @@ class ServingEngine:
         if self._warm_waiting:
             self._pending.extend(self._warm_waiting)
             self._warm_waiting.clear()
-        self._drain_queue_paged()
+        if self.paged_kv:
+            self._drain_queue_paged()
+            return
+        while self.free_slots and not self.queue.empty():
+            req = self.queue.get_nowait()
+            if req.abandoned:  # cancelled while queued
+                continue
+            req.started_at = time.monotonic()
+            slot = self.free_slots.pop()
+            req.slot = slot
+            self._admit_exact(req, slot)
+
+    @torch.no_grad()
+    def _admit_exact(self, req: Request, slot: int):
+        """Exact-length one-shot prefill into ``slot`` of the contiguous
+        cache (models whose state is not positionally sliceable).  The
+        prefill's cache has the slot cache's shape (capacity ``max_len``,
+        ring buffers at ``min(max_len, window)``) and is copied into the
+        slot in place."""
+        n = len(req.prompt_tokens)
+        self.prefill_shapes.add((0, n))
+        self.prefill_tokens_computed += n
+        self.prefill_chunks += 1
+        logits, pcache = self.model.prefill(
+            self.params,
+            {"tokens": torch.tensor([req.prompt_tokens], dtype=torch.int32,
+                                    device=self.device)},
+            capacity=self.max_len)
+        _write_slot_cache(self.cache, pcache, slot)
+        self.kv_admit_copies += 1
+        self._begin_decode(req, slot, logits)
 
     def _drain_queue_paged(self):
         """Admit in FIFO order under *page* backpressure: a request that
@@ -714,11 +775,12 @@ class ServingEngine:
         return tree_slice(pfx, self._seq_axes, 0, matched)
 
     def _free_slot(self, slot: int):
-        row = self._slot_pages.pop(slot, None)
-        if row:
-            self.allocator.decref(row)
-        self._page_table[slot, :] = 0
-        self._table_dirty = True
+        if self.paged_kv:
+            row = self._slot_pages.pop(slot, None)
+            if row:
+                self.allocator.decref(row)
+            self._page_table[slot, :] = 0
+            self._table_dirty = True
         self.free_slots.append(slot)
 
     def _finish(self, slot):
@@ -739,15 +801,18 @@ class ServingEngine:
     @torch.no_grad()
     def _decode_once(self):
         t0 = time.perf_counter()
-        if self._table_dirty:
-            self._table_dev = torch.as_tensor(self._page_table,
-                                              device=self.device)
-            self._table_dirty = False
-        logits, self.kv_pages = self.model.decode_step_paged(
-            self.params, self.kv_pages,
-            torch.as_tensor(self._cur_tokens, device=self.device),
-            torch.as_tensor(self._positions, device=self.device),
-            self._table_dev)
+        toks = torch.as_tensor(self._cur_tokens, device=self.device)
+        pos = torch.as_tensor(self._positions, device=self.device)
+        if not self.paged_kv:
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, toks, pos)
+        else:
+            if self._table_dirty:
+                self._table_dev = torch.as_tensor(self._page_table,
+                                                  device=self.device)
+                self._table_dirty = False
+            logits, self.kv_pages = self.model.decode_step_paged(
+                self.params, self.kv_pages, toks, pos, self._table_dev)
         self.steps += 1
         self.batch_occupancy.append(len(self.active))
         if any(r.temperature > 0.0 for r in self.active.values()):
@@ -796,6 +861,25 @@ class ServingEngine:
                 if self.queue.empty() and not self._warm_waiting \
                         and not self._pending and not self._wait_pages:
                     return
+
+
+def _write_slot_cache(full, new, slot, ax=0):
+    """Copy a one-sequence cache tree ``new`` into batch slot ``slot`` of
+    the engine's cache tree ``full``, in place.  The batch axis is 1 for
+    the stacked ``layers`` leaves (``[n_groups, max_slots, ...]``) and 0
+    for the rest; apart from it the shapes agree, since prefill fills the
+    slot cache's capacity."""
+    for key, sub in full.items():
+        if isinstance(sub, dict):
+            _write_slot_cache(sub, new[key], slot,
+                              1 if key == "layers" else ax)
+            continue
+        src = new[key]
+        if src.shape[ax] != 1 or src.shape[:ax] + src.shape[ax + 1:] \
+                != sub.shape[:ax] + sub.shape[ax + 1:]:
+            raise ValueError(f"cache leaf {key!r}: {tuple(src.shape)} does "
+                             f"not fit a slot of {tuple(sub.shape)}")
+        sub.select(ax, slot).copy_(src.select(ax, 0))
 
 
 def _leaves(tree):

@@ -1,4 +1,4 @@
-"""The port's attention kernels' plain versions against the JAX package.
+"""The port's kernels' plain versions against the JAX package.
 
 On the CPU the port's kernel wrappers take their plain PyTorch versions
 (the CUDA kernels themselves run only on the card, where
@@ -17,14 +17,21 @@ torch = pytest.importorskip("torch")
 # compete with idle-spinning thread pools
 torch.set_num_threads(1)
 
+from repro.kernels.decode_attention import kernel as da_jax  # noqa: E402
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as decode_ref_jax)
 from repro.kernels.flash_attention import ops as fa_jax  # noqa: E402
 from repro.kernels.paged_attention import ops as pa_jax  # noqa: E402
 from repro.kernels.paged_attention.ref import (  # noqa: E402
     paged_decode_attention_ref as paged_ref_jax)
+from repro.kernels.rglru import kernel as lru_jax  # noqa: E402
+from repro.kernels.rglru.ref import rglru_scan_ref as lru_ref_jax  # noqa: E402
 from repro.models import attention as att_jax  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_pt  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_pt  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import keep_mask  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_pt  # noqa: E402
+from repro_torch.kernels.rglru import ops as lru_pt  # noqa: E402
 from repro_torch.models import attention as att_pt  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -202,6 +209,163 @@ def test_flash_prefix_args_validated():
 
 
 # ---------------------------------------------------------------------------
+# contiguous decode attention (dense and int8)
+
+
+def _decode_case(B, C, H, KVH, d, seed=2):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, 1, H, d), rng.randn(B, C, KVH, d),
+            rng.randn(B, C, KVH, d))
+
+
+def _ring_valid(positions, C):
+    """The reference's ring mask: ``(j <= pos) | (pos >= C)``."""
+    pos = np.asarray(positions)[:, None]
+    j = np.arange(C)[None, :]
+    return (j <= pos) | (pos >= C)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,H,KVH,d,fill", [
+    (2, 256, 4, 4, 32, 200),
+    (2, 512, 8, 2, 64, 512),
+    (1, 384, 4, 1, 32, 100),    # MQA, partially filled, ragged C
+    (2, 256, 16, 1, 256, 77),   # recurrentgemma's MQA, d = 256
+])
+def test_decode_attention_matches_jax(B, C, H, KVH, d, fill, dtype):
+    q, k, v = _decode_case(B, C, H, KVH, d)
+    valid = np.arange(C)[None, :] < np.asarray([[fill]] * B)
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (q, k, v))
+    out = da_pt.decode_attention(qt, kt, vt, torch.from_numpy(valid))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    close(da_jax.decode_attention_fwd(qj, kj, vj, jnp.asarray(valid),
+                                      interpret=True), out, dtype)
+    close(decode_ref_jax(qj, kj, vj, jnp.asarray(valid)), out, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_ring_mask(dtype):
+    """A ring buffer of C slots: rows that wrapped (pos >= C) attend every
+    slot, the others slots [0, pos]; the port's mask is the reference's."""
+    from repro_torch.models.attention import decode_valid
+    B, C, H, KVH, d = 4, 64, 8, 2, 32
+    positions = np.asarray([63, 64, 150, 5], np.int32)
+    valid = _ring_valid(positions, C)
+    assert np.array_equal(
+        decode_valid(torch.from_numpy(positions), C, window=C).numpy(), valid)
+    assert np.array_equal(
+        decode_valid(torch.from_numpy(positions), C, window=0).numpy(),
+        np.arange(C)[None, :] <= positions[:, None])
+    q, k, v = _decode_case(B, C, H, KVH, d, seed=3)
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (q, k, v))
+    out = da_pt.decode_attention(qt, kt, vt, torch.from_numpy(valid))
+    close(da_jax.decode_attention_fwd(qj, kj, vj, jnp.asarray(valid),
+                                      block_kv=16, interpret=True), out,
+          dtype)
+
+
+def test_decode_attention_nan_in_invalid_rows():
+    """Unwritten or stale slots may hold NaN: the output equals the
+    clean one, as the JAX kernel's (which zeroes invalid V rows)."""
+    B, C, H, KVH, d = 2, 128, 4, 2, 32
+    q, k, v = _decode_case(B, C, H, KVH, d, seed=5)
+    valid = _ring_valid([40, 90], C)
+    clean = da_pt.decode_attention(*(torch.from_numpy(x).float()
+                                     for x in (q, k, v)),
+                                   torch.from_numpy(valid))
+    k[~valid] = np.nan
+    v[~valid] = np.nan
+    dirty = da_pt.decode_attention(*(torch.from_numpy(x).float()
+                                     for x in (q, k, v)),
+                                   torch.from_numpy(valid))
+    assert torch.equal(clean, dirty)
+    ref = da_jax.decode_attention_fwd(
+        *(jnp.asarray(x, jnp.float32) for x in (q, k, v)),
+        jnp.asarray(valid), interpret=True)
+    close(ref, dirty, "float32")
+
+
+def test_quantize_kv_bit_exact():
+    """int8 K/V and their scales are the reference's bit for bit, ties
+    (x / scale at .5) rounding half to even included."""
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+    rng = np.random.RandomState(6)
+    x = rng.randn(3, 7, 2, 16).astype(np.float32)
+    x[0, 0, 0, :4] = [127.0, 0.5, 1.5, -2.5]      # scale 1: exact ties
+    qj, sj = att_jax.quantize_kv(jnp.asarray(x))
+    qt, st = quantize_kv(torch.from_numpy(x))
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    assert np.array_equal(qt.numpy(), np.asarray(qj))
+    assert np.array_equal(st.numpy(), np.asarray(sj))
+    assert qt[0, 0, 0, :4].tolist() == [127, 0, 2, -2]
+    assert np.array_equal(
+        dequantize_kv(qt, st, torch.float32).numpy(),
+        np.asarray(att_jax.dequantize_kv(qj, sj, jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,H,KVH,d,fill", [
+    (2, 256, 4, 2, 32, 200),
+    (1, 512, 8, 8, 64, 300),
+    (2, 256, 16, 1, 256, 130),  # recurrentgemma's MQA, d = 256
+])
+def test_decode_attention_int8_matches_jax(B, C, H, KVH, d, fill, dtype):
+    from repro_torch.models.attention import quantize_kv
+    q, k, v = _decode_case(B, C, H, KVH, d, seed=6)
+    valid = np.arange(C)[None, :] < np.asarray([[fill]] * B)
+    qk, sk = quantize_kv(torch.from_numpy(k).float())
+    qv, sv = quantize_kv(torch.from_numpy(v).float())
+    qj, qt = both(q, dtype)
+    out = da_pt.decode_attention_int8(qt, qk, qv, sk, sv,
+                                      torch.from_numpy(valid))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    ref = da_jax.decode_attention_int8_fwd(
+        qj, *(jnp.asarray(t.numpy()) for t in (qk, qv, sk, sv)),
+        jnp.asarray(valid), interpret=True)
+    close(ref, out, dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 64, 128), (1, 256, 64), (2, 96, 256)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_matches_jax(B, S, W, with_h0):
+    rng = np.random.RandomState(3)
+    a = (1 / (1 + np.exp(-rng.randn(B, S, W)))).astype(np.float32)
+    b = rng.randn(B, S, W).astype(np.float32)
+    h0 = rng.randn(B, W).astype(np.float32) if with_h0 else None
+    out = lru_pt.rglru_scan(torch.from_numpy(a), torch.from_numpy(b),
+                            None if h0 is None else torch.from_numpy(h0))
+    assert out.dtype == torch.float32 and out.shape == (B, S, W)
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    ref = lru_jax.rglru_scan_fwd(jnp.asarray(a), jnp.asarray(b), jh0,
+                                 interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(lru_ref_jax(jnp.asarray(a), jnp.asarray(b),
+                                            jh0)), rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_long_dependency():
+    """The state carries across the whole sequence (S > the reference's
+    256-step blocks)."""
+    B, S, W = 1, 600, 128
+    a = np.full((B, S, W), 0.999, np.float32)
+    b = np.zeros((B, S, W), np.float32)
+    b[:, 0] = 1.0
+    out = lru_pt.rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
+    ref = lru_jax.rglru_scan_fwd(jnp.asarray(a), jnp.asarray(b),
+                                 interpret=True)
+    np.testing.assert_allclose(out.numpy()[:, -1], np.asarray(ref)[:, -1],
+                               rtol=1e-5)
+    np.testing.assert_allclose(out.numpy()[0, -1, 0],
+                               np.float64(a[0, 0, 0]) ** (S - 1), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # device dispatch
 
 
@@ -220,6 +384,9 @@ def test_cuda_request_without_gpu_raises():
         model.init(0)                      # device defaults to "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         model.init_paged_cache(4, 16)
+    hybrid = build_model(get_config("recurrentgemma-9b").reduced())
+    with pytest.raises(RuntimeError, match="cuda"):
+        hybrid.init_cache(2, 16)             # device defaults to "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         from repro_torch.serving.engine import ServingEngine
         ServingEngine(model, model.init(0, device="cpu"))
@@ -228,14 +395,32 @@ def test_cuda_request_without_gpu_raises():
 def test_kernel_launch_counters_ignore_plain_path():
     """The launch counters count kernel launches only: the CPU path runs
     the plain version and leaves them alone."""
-    before = (pa_pt.paged_decode_attention.launches,
-              fa_pt.flash_attention.launches)
+    counters = (pa_pt.paged_decode_attention, fa_pt.flash_attention,
+                da_pt.decode_attention, da_pt.decode_attention_int8,
+                lru_pt.rglru_scan)
+    before = [f.launches for f in counters]
     q, kp, vp, table = _paged_case(1, 8, 2, 2, 2, 16)
     pa_pt.paged_decode_attention(
         *(torch.from_numpy(x).float() for x in (q, kp, vp)),
         torch.from_numpy(table), torch.tensor([5], dtype=torch.int32))
     x = torch.zeros(1, 8, 2, 16)
     fa_pt.flash_attention(x, x, x)
-    assert (pa_pt.paged_decode_attention.launches,
-            fa_pt.flash_attention.launches) == before
+    valid = torch.ones(1, 8, dtype=torch.bool)
+    da_pt.decode_attention(x[:, :1], x, x, valid)
+    k8 = torch.zeros(1, 8, 2, 16, dtype=torch.int8)
+    s = torch.ones(1, 8, 2)
+    da_pt.decode_attention_int8(x[:, :1], k8, k8, s, s, valid)
+    lru_pt.rglru_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8))
+    assert [f.launches for f in counters] == before
+
+
+def test_decode_split_plan_covers_the_cache():
+    """The split-K plan cuts the cache into whole tiles that cover every
+    position, aiming at two blocks per SM."""
+    for B, KVH, C, sms in [(8, 1, 2048, 132), (8, 32, 1024, 132),
+                           (1, 1, 100, 132), (2, 4, 256, 8)]:
+        chunk, n = da_pt.split_plan(B, KVH, C, sms)
+        assert chunk % da_pt.TILE == 0 and chunk * n >= C
+        assert chunk * (n - 1) < C
+    assert da_pt.split_plan(8, 1, 2048, 132) == (64, 32)
 

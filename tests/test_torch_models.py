@@ -50,7 +50,7 @@ def t(x):
 
 
 def test_configs_match_reference():
-    for name in ARCHS:
+    for name in ARCHS + ["recurrentgemma-9b"]:
         for reduce in (False, True):
             a = get_config(name)
             b = get_config_jax(name)
@@ -81,6 +81,34 @@ def test_round_trip_bit_for_bit(pair):
     assert spec_shapes(mt.schema()) == shapes
     init = mt.init(3, device="cpu")
     assert jax.tree.map(lambda x: tuple(x.shape), to_numpy(init)) == shapes
+
+
+def test_hybrid_round_trip_bit_for_bit():
+    """``from_jax`` → ``to_numpy`` on the hybrid tree: stacked
+    ``layers/b0..b2`` super-blocks plus the unrolled ``tail0``/``tail1``,
+    leaf for leaf and bit for bit, in float32 and bfloat16."""
+    cfg = get_config("recurrentgemma-9b").reduced().replace(num_layers=5)
+    mj = build_jax(get_config_jax("recurrentgemma-9b").reduced()
+                   .replace(num_layers=5))
+    params_np = jax.tree.map(np.asarray, mj.init(jax.random.PRNGKey(5)))
+    assert set(params_np["layers"]) == {"b0", "b1", "b2"}
+    assert {"tail0", "tail1"} <= set(params_np)
+    assert "rglru" in params_np["tail1"]
+    shapes = jax.tree.map(lambda a: a.shape, params_np)
+
+    def spec_shapes(tree):
+        return {k: spec_shapes(v) if isinstance(v, dict) else tuple(v.shape)
+                for k, v in tree.items()}
+    assert spec_shapes(build_model(cfg).schema()) == shapes
+    for dtype in (np.float32, jnp.bfloat16):
+        tree = jax.tree.map(lambda a: np.asarray(a, dtype), params_np)
+        back = to_numpy(from_jax(cfg, tree, device="cpu"))
+        flat_a = jax.tree_util.tree_leaves_with_path(tree)
+        flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+        assert len(flat_a) == len(flat_b)
+        for path, leaf in flat_a:
+            assert np.array_equal(flat_b[path],
+                                  np.asarray(leaf, np.float32)), path
 
 
 def test_norms_rope_mlp_match_reference(pair):
@@ -195,6 +223,8 @@ def test_decode_steps_through_shuffled_page_table(pair):
 
 
 def test_unported_families_raise():
+    """MoE, SSM, encoder-decoder and VLM models raise naming the ROADMAP
+    item that ports them; the hybrid family no longer does."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import lm
     moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
@@ -204,3 +234,14 @@ def test_unported_families_raise():
         lm.lm_schema(moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(moe).prefix_seq_axes()
+    for family in ("ssm", "enc_dec", "vlm"):
+        other = moe.replace(family=family)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm.lm_schema(other)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(other).prefix_seq_axes()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe.reduced()
+    hybrid = get_config("recurrentgemma-9b").reduced()
+    assert build_model(hybrid).prefix_seq_axes() is None
+    assert lm.lm_schema(hybrid)["layers"].keys() == {"b0", "b1", "b2"}
