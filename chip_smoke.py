@@ -9,11 +9,12 @@ Phases, each printing one JSON line:
 1. build   — compile every CUDA kernel of the port from the sources in
              this checkout (``src/repro_torch/kernels/*/csrc/*.cu``).
 2. kernels — each kernel against its plain PyTorch version on the card,
-             at the main paths' shapes (stablelm-3b, recurrentgemma-9b
-             and a GQA shape), in bf16 (tolerance 2e-2) and f32 (2e-5),
-             with its median time over CUDA events, its bound, the plain
-             version's time and a PyTorch library call's time as a
-             yardstick the port never calls.
+             at the main paths' shapes (stablelm-3b, recurrentgemma-9b,
+             mamba2-2.7b and a GQA shape), in bf16 (tolerance 2e-2) and
+             f32 (2e-5; the SSD chunk scan 2e-4), with its median time
+             over CUDA events, its bound, the plain version's time and a
+             PyTorch library call's time as a yardstick the port never
+             calls (none exists for the two scans).
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -35,6 +36,17 @@ Phases, each printing one JSON line:
              plain versions with the whole model in float32 within 1e-4
              (bf16 printed only), and a 2-token prompt's decode step
              against the full forward.
+5. serve_ssm — full-width mamba2-2.7b (64 SSD blocks, bf16, seeded
+             random weights) behind the contiguous ServingEngine: 8
+             concurrent greedy requests with 2048 … 2 prompt tokens (a
+             chunk multiple, ragged tails, one exact chunk, under one
+             chunk, and two prompts at and below the conv history), then
+             a profiled second wave.  Checks exact launch counts (64 SSD
+             chunk scans per admission, none in decode), a 2100-token
+             prefill's and the next decode step's logits against the
+             plain path with the whole model in float32 within 1e-4 (bf16
+             printed only), and a 2-token prompt's decode step against
+             the full forward.
 
 Float32 matmuls and convolutions run in full float32 here:
 ``allow_tf32`` is switched off for both cuBLAS and cuDNN, so the f32
@@ -64,13 +76,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
-PHASES = ("build", "kernels", "serve", "serve_hybrid")
+PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# the SSD chunk scan sums 128-term f32 products over 64-step chunks in
+# another order than its plain version: the tolerance of the reference's
+# own SSD test (tests/test_kernels.py)
+SSD_TOL = 2e-4
 # serve phase, whole model in float32: relative L2 error of the kernel
 # path's logits against the plain path's
 LOGITS_TOL_F32 = 1e-4
@@ -83,6 +99,7 @@ REPLACES = {
     "decode_attention_int8":
         "src/repro/kernels/decode_attention/kernel.py:143",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:47",
+    "ssd_chunk_scan": "src/repro/kernels/ssd/kernel.py:69",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -94,6 +111,7 @@ SOURCES = {
     "decode_attention_int8":
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+    "ssd_chunk_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
 # the kernels phase row that stands for each kernel in the summary line:
 # its main path's shape, in the serving dtype
@@ -106,6 +124,8 @@ SUMMARY_CASE = {
                                   dtype="bfloat16"),
     "rglru_scan": dict(shape="recurrentgemma-9b", dtype="float32",
                        h0=False),
+    "ssd_chunk_scan": dict(shape="mamba2-2.7b", dtype="float32", S=2048,
+                           h0=False, decay="init"),
 }
 
 
@@ -192,9 +212,9 @@ def paged_kv_rows(table, lengths, ps):
     return int(np.unique(np.concatenate(keys)).size)
 
 
-def check_close(name, out, ref, dtype):
+def check_close(name, out, ref, dtype, tol=None):
     err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[dtype]
+    tol = tol or TOL[dtype]
     finite = bool(torch.isfinite(out.float()).all())
     ok = finite and bool(torch.allclose(out.float(), ref.float(),
                                         rtol=tol, atol=tol))
@@ -311,7 +331,7 @@ def phase_kernels():
                     library_ms=time_ms(sdpa_flash),
                     bound_ms=b_ms, bound_by=b_by))
                 emit({"phase": "kernels", **results[-1]})
-    for row in hybrid_kernel_rows(gen):
+    for row in hybrid_kernel_rows(gen) + ssd_kernel_rows(gen):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
@@ -482,6 +502,87 @@ def hybrid_kernel_rows(gen):
     return rows
 
 
+def ssd_kernel_rows(gen):
+    """The SSD chunk scan against its plain version at mamba2-2.7b's
+    widths (H = 80 heads of P = 64, state N = 128, model chunk 256): the
+    serving prefill's S = 2048 with and without an initial state, a ragged
+    S = 2100, S = 120 (under one model chunk) and S = 2 (under one kernel
+    chunk), and a strong decay whose in-chunk cumulative log decay falls
+    below -100 (the output must stay finite).  Inputs are drawn as the
+    model makes them: dt = softplus(N(0, 1)), a_log = 1 (the init) or 2
+    for the strong decay."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    dev = "cuda"
+    H, P, N, chunk = 80, 64, 128, 256
+    rows = []
+    for S, with_h0, decay in ((2048, False, "init"), (2048, True, "init"),
+                              (2100, False, "init"), (120, False, "init"),
+                              (2, False, "init"), (2048, False, "strong")):
+        xh = torch.randn(1, S, H, P, generator=gen, device=dev)
+        dt = F.softplus(torch.randn(1, S, H, generator=gen, device=dev))
+        a_log = torch.full((H,), 1.0 if decay == "init" else 2.0,
+                           device=dev)
+        Bm = torch.randn(1, S, N, generator=gen, device=dev)
+        Cm = torch.randn(1, S, N, generator=gen, device=dev)
+        h0 = torch.randn(1, H, P, N, generator=gen, device=dev) \
+            if with_h0 else None
+        args = (xh, dt, a_log, Bm, Cm)
+        kw = dict(chunk=chunk, initial_state=h0)
+        y, hs = ssd_ops.ssd_chunked(*args, **kw)
+        yr, hr = ssd_chunked_ref(*args, **kw)
+        label = f"ssd S={S} h0={with_h0} decay={decay}"
+        err = max(check_close(label + " y", y, yr, "float32", SSD_TOL),
+                  check_close(label + " state", hs, hr, "float32", SSD_TOL))
+        Q = ssd_ops.KERNEL_CHUNK
+        da = (dt * -torch.exp(a_log))[0, :min(Q, S)]
+        min_cum = da.cumsum(0).min().item()
+        if decay == "strong" and not min_cum < -100:
+            fail(f"{label}: the in-chunk log decay only reaches {min_cum}")
+        # bytes: each input read once, y and the state written once
+        nbytes = 4 * (2 * S * H * P + S * H + H + 2 * S * N
+                      + H * P * N * (2 if with_h0 else 1))
+        b_ms, b_by = bound(nbytes, ssd_min_flops(S, H, P, N, with_h0),
+                           "float32")
+        rows.append(dict(
+            kernel="ssd_chunk_scan", shape="mamba2-2.7b", dtype="float32",
+            B=1, S=S, H=H, P=P, N=N, model_chunk=chunk, kernel_chunk=Q,
+            h0=with_h0, decay=decay, min_in_chunk_cum=min_cum,
+            max_abs_err=err, tol=SSD_TOL,
+            ms=time_ms(lambda: ssd_ops.ssd_chunked(*args, **kw)),
+            plain_ms=time_ms(lambda: ssd_chunked_ref(*args, **kw),
+                             warmup=1, reps=5),
+            library_ms=None,
+            library_note="no single PyTorch call computes a chunked scan "
+                         "with per-step decay",
+            bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def ssd_min_flops(S, H, P, N, with_h0, max_chunk=256):
+    """The fewest float32 operations of the chunked SSD scan over S steps,
+    at whichever chunk length needs fewest: the multiply-adds of its
+    products, the element-wise decays left out.  A chunk of n steps needs
+    the causal half of C.B^T once for all heads, n(n+1)N; per head the
+    masked intra-chunk product, n(n+1)P, and its state contribution,
+    2nNP; and where a state comes in (every chunk but the first, unless
+    an initial state is given) C.h_in, 2nNP, and the state's decay and
+    sum, 2NP."""
+    best = None
+    for q in range(1, min(S, max_chunk) + 1):
+        lens = [q] * (S // q) + ([S % q] if S % q else [])
+        flops = 0
+        for i, n in enumerate(lens):
+            flops += n * (n + 1) * N + H * (n * (n + 1) * P + 2 * n * N * P)
+            if i > 0 or with_h0:
+                flops += H * (2 * n * N * P + 2 * N * P)
+        best = flops if best is None else min(best, flops)
+    return best
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve full-width stablelm-3b
 
@@ -601,10 +702,10 @@ def phase_serve(seed):
     return launches
 
 
-def plain_attention():
+def plain_kernels():
     """Patch the model to call every kernel's plain version: attention
-    (flash, paged decode, contiguous decode dense and int8) and the RG-LRU
-    scan."""
+    (flash, paged decode, contiguous decode dense and int8), the RG-LRU
+    scan and the SSD chunk scan."""
     import contextlib
     from unittest import mock
 
@@ -614,6 +715,7 @@ def plain_attention():
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_ref)
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.multiple(
         "repro_torch.models.attention",
@@ -624,17 +726,28 @@ def plain_attention():
     stack.enter_context(mock.patch(
         "repro_torch.models.rglru.lru_ops",
         mock.Mock(rglru_scan=rglru_scan_ref)))
+    stack.enter_context(mock.patch(
+        "repro_torch.models.ssd.ssd_ops",
+        mock.Mock(ssd_chunked=ssd_chunked_ref)))
     return stack
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve full-width recurrentgemma-9b (contiguous engine)
+# phases 4 and 5: serve full-width recurrentgemma-9b and mamba2-2.7b
+# (contiguous engine)
 
 # prompt lengths of the hybrid wave: past the 2048 window (the prefill
 # rolls the ring; decode wraps it again), inside it, and shorter than the
 # conv history (2 < conv_width - 1 = 3)
 HYBRID_PROMPTS = (2100, 2030, 1500, 700, 300, 120, 40, 2)
 HYBRID_INT8_PROMPTS = (2100, 700, 40, 2)
+# prompt lengths of the SSM wave: a multiple of the 256-step chunk, ragged
+# tails, one exact chunk, under one chunk, at (3) and below (2) the conv
+# history of conv_width - 1 = 3 steps
+SSM_PROMPTS = (2048, 2100, 1500, 700, 256, 120, 3, 2)
+# both waves: the prompt whose prefill and next decode step are held
+# against the plain path, engine length and new tokens per request
+COMPARE_PROMPT, MAX_LEN, MAX_NEW = 2100, 2304, 32
 
 
 def serve_counted(engine, prompts, max_new, counters):
@@ -655,42 +768,79 @@ def serve_counted(engine, prompts, max_new, counters):
     return outs, {n: fn.launches for n, fn in counters.items()}, seconds
 
 
-def check_hybrid_launches(label, launches, steps, admissions, *, int8):
-    """The contiguous path's exact launch counts: one decode-attention
-    launch per attention block per decode step (the int8 kernel on an
-    int8 cache, the dense one otherwise, never both), one flash and one
-    RG-LRU scan launch per attention / recurrent block per admission."""
-    want = {"decode_attention": 0 if int8 else 12 * steps,
-            "decode_attention_int8": 12 * steps if int8 else 0,
-            "flash_attention": 12 * admissions,
-            "rglru_scan": 26 * admissions,
-            "paged_decode_attention": 0}
-    if launches != want:
-        fail(f"{label}: launches {launches} != {want} for {steps} decode "
-             f"steps and {admissions} admissions")
-
-
-def phase_serve_hybrid(seed):
-    import gc
-
-    from repro_torch.configs import get_config
+def all_counters():
+    """Every kernel wrapper of the port, by name: the contiguous phases
+    hold each one's launches, the ones their model must not run too."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.rglru import ops as lru_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"decode_attention": da_ops.decode_attention,
+            "decode_attention_int8": da_ops.decode_attention_int8,
+            "flash_attention": fa_ops.flash_attention,
+            "rglru_scan": lru_ops.rglru_scan,
+            "paged_decode_attention": pa_ops.paged_decode_attention,
+            "ssd_chunk_scan": ssd_ops.ssd_chunked}
+
+
+def check_launches(label, launches, want):
+    """``launches`` must equal ``want``, every kernel it omits at 0."""
+    want = {**dict.fromkeys(launches, 0), **want}
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want}")
+
+
+def check_contiguous_serve(label, st, outs, n_requests, vocab):
+    """The contiguous engine's stats and outputs after serving
+    ``n_requests`` concurrent greedy requests: one exact-length admission
+    and one slot copy each, MAX_NEW in-vocab tokens each."""
+    if (st["kv_layout"], st["paged"], st["prefill_shape_bound"]) \
+            != ("contiguous", False, None):
+        fail(f"{label} engine stats {st}")
+    if st["kv_admit_copies"] != n_requests \
+            or st["prefill_chunks"] != n_requests:
+        fail(f"{label}: {st['prefill_chunks']} admissions, "
+             f"{st['kv_admit_copies']} slot copies for {n_requests} requests")
+    for i, o in enumerate(outs):
+        if len(o) != MAX_NEW or not all(0 <= t < vocab for t in o):
+            fail(f"{label} request {i}: {len(o)} tokens, or one outside "
+                 f"the vocab")
+
+
+def decode_stats(engine):
+    dec = sorted(engine.decode_step_s)
+    return {"decode_steps": engine.steps,
+            "decode_step_median_ms": statistics.median(dec) * 1e3,
+            "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
+            "decode_tokens_per_s": engine.stats()["decode_tokens"]
+            / max(sum(dec), 1e-9)}
+
+
+def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
+                           vs_plain, prefill_lens, extra=None):
+    """Full-width ``cfg`` in bf16 (seeded random weights on the card)
+    behind the contiguous engine, 8 slots of MAX_LEN: 8 concurrent greedy
+    requests of ``prompt_lens`` tokens and MAX_NEW new tokens each, with
+    exact launch counts (``want_launches(steps, admissions)``, every other
+    kernel 0); ``extra(model, params, prompts, counters)`` may serve more
+    on the same weights and returns (fields to print, launches).  Then
+    the prefill time at ``prefill_lens``, a profiled second wave, the
+    COMPARE_PROMPT prefill's and next decode step's logits through the
+    kernels against the plain versions (``vs_plain(model, params, prompt,
+    max_len)``): bf16 printed, the whole model in float32 held to
+    LOGITS_TOL_F32; and the 2-token prompt's decode step against the
+    full forward.  Prints the phase's line; → launches over every
+    engine."""
+    import gc
+
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
 
     gc.collect()
     torch.cuda.empty_cache()
-    counters = {"decode_attention": da_ops.decode_attention,
-                "decode_attention_int8": da_ops.decode_attention_int8,
-                "flash_attention": fa_ops.flash_attention,
-                "rglru_scan": lru_ops.rglru_scan,
-                "paged_decode_attention": pa_ops.paged_decode_attention}
-    cfg = get_config("recurrentgemma-9b")
-    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    model, model8 = build_model(cfg), build_model(cfg8)
+    counters = all_counters()
+    model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(seed, device="cuda", dtype=torch.bfloat16)
@@ -698,106 +848,121 @@ def phase_serve_hybrid(seed):
     init_s = time.perf_counter() - t0
     rng = np.random.RandomState(seed)
     prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, size=n)]
-               for n in HYBRID_PROMPTS]
-    max_len, max_new = 2304, 32
+               for n in prompt_lens]
 
-    # -- bf16 KV: 8 concurrent requests
-    engine = ServingEngine(model, params, max_slots=8, max_len=max_len,
+    engine = ServingEngine(model, params, max_slots=8, max_len=MAX_LEN,
                            device="cuda")
-    outs, launches, serve_s = serve_counted(engine, prompts, max_new,
+    outs, launches, serve_s = serve_counted(engine, prompts, MAX_NEW,
                                             counters)
     st = engine.stats()
-    check_hybrid_launches("bf16 KV", launches, st["steps"],
-                          st["prefill_chunks"], int8=False)
-    if (st["kv_layout"], st["paged"], st["prefill_shape_bound"]) \
-            != ("contiguous", False, None):
-        fail(f"hybrid engine stats {st}")
-    if st["kv_admit_copies"] != len(prompts) \
-            or st["prefill_chunks"] != len(prompts):
-        fail(f"{st['prefill_chunks']} admissions, {st['kv_admit_copies']} "
-             f"slot copies for {len(prompts)} requests")
-    for i, o in enumerate(outs):
-        if len(o) != max_new or not all(0 <= t < cfg.vocab_size for t in o):
-            fail(f"hybrid request {i}: {len(o)} tokens, or one outside "
-                 f"the vocab")
-    dec = sorted(engine.decode_step_s)
-
-    # -- int8 KV on the same parameters: 4 requests
-    prompts8 = [prompts[HYBRID_PROMPTS.index(n)] for n in HYBRID_INT8_PROMPTS]
-    engine8 = ServingEngine(model8, params, max_slots=8, max_len=max_len,
-                            device="cuda")
-    outs8, launches8, serve8_s = serve_counted(engine8, prompts8, max_new,
-                                               counters)
-    st8 = engine8.stats()
-    check_hybrid_launches("int8 KV", launches8, st8["steps"],
-                          st8["prefill_chunks"], int8=True)
-    for i, o in enumerate(outs8):
-        if len(o) != max_new or not all(0 <= t < cfg.vocab_size for t in o):
-            fail(f"int8 request {i}: {len(o)} tokens, or one outside vocab")
-    dec8 = sorted(engine8.decode_step_s)
-    del engine8
+    check_launches(phase, launches,
+                   want_launches(st["steps"], st["prefill_chunks"]))
+    check_contiguous_serve(phase, st, outs, len(prompts), cfg.vocab_size)
+    dec = decode_stats(engine)
+    more, total = {}, dict(launches)
+    if extra is not None:
+        more, launches2 = extra(model, params, prompts, counters)
+        total = {n: total[n] + launches2[n] for n in total}
 
     with torch.no_grad():
-        toks = {n: torch.tensor([prompts[HYBRID_PROMPTS.index(n)]],
+        toks = {n: torch.tensor([prompts[prompt_lens.index(n)]],
                                 dtype=torch.int32, device="cuda")
-                for n in (2100, 300)}
+                for n in prefill_lens}
         prefill_ms = {f"{n}_tokens": time_ms(lambda n=n: model.prefill(
-            params, {"tokens": toks[n]}, capacity=max_len), warmup=1, reps=3)
+            params, {"tokens": toks[n]}, capacity=MAX_LEN), warmup=1, reps=3)
             for n in toks}
-    profile = profile_wave(engine, prompts, "serve_hybrid_profile.txt")
+    profile = profile_wave(engine, prompts, f"{phase}_profile.txt")
     del engine
-    bf16 = hybrid_kernel_vs_plain(model, model8, params, prompts[0],
-                                  max_len)
-    logits_bf16 = logits_agreement(bf16, cfg.vocab_size, None, "bf16")
-    del bf16, params
+    prompt = prompts[prompt_lens.index(COMPARE_PROMPT)]
+    logits_bf16 = logits_agreement(vs_plain(model, params, prompt, MAX_LEN),
+                                   cfg.vocab_size, None, "bf16")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     peak_bf16_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # -- the whole model in float32: kernel path vs plain path, held
     m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
-    m32_8 = build_model(dataclasses.replace(cfg8, dtype="float32"))
     params32 = m32.init(seed, device="cuda", dtype=torch.float32)
-    logits_f32 = logits_agreement(
-        hybrid_kernel_vs_plain(m32, m32_8, params32, prompts[0], max_len),
-        cfg.vocab_size, LOGITS_TOL_F32, "f32")
-    short = short_prompt_vs_forward(m32, params32, prompts[-1], max_len)
+    logits_f32 = logits_agreement(vs_plain(m32, params32, prompt, MAX_LEN),
+                                  cfg.vocab_size, LOGITS_TOL_F32, "f32")
+    short = short_prompt_vs_forward(m32, params32, prompts[-1], MAX_LEN)
     del params32
     gc.collect()
     torch.cuda.empty_cache()
 
-    emit({"phase": "serve_hybrid", "model": cfg.name,
-          "layers": cfg.num_layers, "params": model.num_params(),
-          "init_s": init_s, "serve_s": serve_s, "requests": len(prompts),
-          "prompt_tokens": list(HYBRID_PROMPTS),
-          "new_tokens": sum(len(o) for o in outs),
-          "decode_steps": st["steps"],
-          "decode_step_median_ms": statistics.median(dec) * 1e3,
-          "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
-          "decode_tokens_per_s": st["decode_tokens"]
-          / max(sum(dec), 1e-9),
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
+          "params": model.num_params(), "init_s": init_s,
+          "serve_s": serve_s, "requests": len(prompts),
+          "prompt_tokens": list(prompt_lens),
+          "new_tokens": sum(len(o) for o in outs), **dec,
           "prefill_ms": prefill_ms, "admissions": st["prefill_chunks"],
           "kv_admit_copies": st["kv_admit_copies"], "launches": launches,
-          "int8": {"requests": len(prompts8), "serve_s": serve8_s,
-                   "decode_steps": st8["steps"],
-                   "decode_step_median_ms": statistics.median(dec8) * 1e3,
-                   "launches": launches8},
+          **more,
           "logits_vs_plain": {"bfloat16": logits_bf16,
                               "float32": logits_f32},
           "short_prompt_decode_vs_forward_f32": short,
           "profiled_wave": profile, "peak_memory_gb_bf16": peak_bf16_gb,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    total = {n: launches[n] + launches8[n] for n in launches}
     return total
 
 
-def hybrid_kernel_vs_plain(model, model8, params, prompt, max_len):
+def phase_serve_hybrid(seed):
+    from repro_torch.configs import get_config
+    return serve_contiguous_phase(
+        "serve_hybrid", get_config("recurrentgemma-9b"), seed,
+        HYBRID_PROMPTS, lambda steps, adm: hybrid_launches(steps, adm,
+                                                           int8=False),
+        hybrid_kernel_vs_plain, (2100, 300), extra=hybrid_int8_wave)
+
+
+def hybrid_launches(steps, admissions, *, int8):
+    """The hybrid's exact launch counts: one decode-attention launch per
+    attention block per decode step (the int8 kernel on an int8 cache,
+    the dense one otherwise, never both), one flash and one RG-LRU scan
+    launch per attention / recurrent block per admission."""
+    return {"decode_attention_int8" if int8 else "decode_attention":
+            12 * steps, "flash_attention": 12 * admissions,
+            "rglru_scan": 26 * admissions}
+
+
+def hybrid_int8_wave(model, params, prompts, counters):
+    """An int8-KV engine on the same weights serving 4 of the wave's
+    requests; → (its line's fields, its launches)."""
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    model8 = build_model(dataclasses.replace(model.cfg,
+                                             kv_cache_dtype="int8"))
+    prompts8 = [prompts[HYBRID_PROMPTS.index(n)] for n in HYBRID_INT8_PROMPTS]
+    engine8 = ServingEngine(model8, params, max_slots=8, max_len=MAX_LEN,
+                            device="cuda")
+    outs8, launches8, serve8_s = serve_counted(engine8, prompts8, MAX_NEW,
+                                               counters)
+    st8 = engine8.stats()
+    check_launches("serve_hybrid int8 KV", launches8,
+                   hybrid_launches(st8["steps"], st8["prefill_chunks"],
+                                   int8=True))
+    check_contiguous_serve("serve_hybrid int8 KV", st8, outs8, len(prompts8),
+                           model.cfg.vocab_size)
+    dec8 = decode_stats(engine8)
+    return {"int8": {"requests": len(prompts8), "serve_s": serve8_s,
+                     "decode_steps": dec8["decode_steps"],
+                     "decode_step_median_ms": dec8["decode_step_median_ms"],
+                     "launches": launches8}}, launches8
+
+
+def hybrid_kernel_vs_plain(model, params, prompt, max_len):
     """Last logits of a full-prompt prefill (longer than the window: the
     ring rolls) and of one decode step past the wrap, through the kernels
     and through the plain versions, for the dense KV cache (``model``) and
-    the int8 one (``model8``, same parameters).  Both decode steps start
-    from a copy of the kernel path's prefill cache.
+    the int8 one (same parameters).  Both decode steps start from a copy
+    of the kernel path's prefill cache.
     → {name: (kernel logits, plain logits)}."""
+    from repro_torch.models import build_model
+
+    model8 = build_model(dataclasses.replace(model.cfg,
+                                             kv_cache_dtype="int8"))
     toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
     pos = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
     out = {}
@@ -805,14 +970,14 @@ def hybrid_kernel_vs_plain(model, model8, params, prompt, max_len):
         for tag, m in (("", model), ("_int8", model8)):
             lg_k, cache = m.prefill(params, {"tokens": toks},
                                     capacity=max_len)
-            with plain_attention():
+            with plain_kernels():
                 lg_p, _ = m.prefill(params, {"tokens": toks},
                                     capacity=max_len)
             out["prefill" + tag] = (lg_k, lg_p)
             cur = lg_k.argmax(-1).to(torch.int32)[:, None]
             copy = clone_tree(cache)
             lg_k2, _ = m.decode_step(params, cache, cur, pos)
-            with plain_attention():
+            with plain_kernels():
                 lg_p2, _ = m.decode_step(params, copy, cur, pos)
             out["decode_step" + tag] = (lg_k2, lg_p2)
             del cache, copy
@@ -845,6 +1010,35 @@ def short_prompt_vs_forward(model, params, prompt, max_len):
             "tol": LOGITS_TOL_F32}
 
 
+def phase_serve_ssm(seed):
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-2.7b")
+    # one chunk-scan launch per SSD block per admission; decode runs none
+    return serve_contiguous_phase(
+        "serve_ssm", cfg, seed, SSM_PROMPTS,
+        lambda steps, adm: {"ssd_chunk_scan": cfg.num_layers * adm},
+        ssm_kernel_vs_plain, (2048, 256))
+
+
+def ssm_kernel_vs_plain(model, params, prompt, max_len):
+    """Last logits of a full-prompt prefill through the kernels and through
+    the plain versions, and of one decode step from each path's cache with
+    the same token: the decode step has no kernel, so it compares the final
+    SSM states the two prefills left.  → {name: (kernel, plain)}."""
+    toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        lg_k, cache_k = model.prefill(params, {"tokens": toks},
+                                      capacity=max_len)
+        with plain_kernels():
+            lg_p, cache_p = model.prefill(params, {"tokens": toks},
+                                          capacity=max_len)
+        cur = lg_k.argmax(-1).to(torch.int32)[:, None]
+        lg_k2, _ = model.decode_step(params, cache_k, cur, pos)
+        lg_p2, _ = model.decode_step(params, cache_p, cur, pos)
+    return {"prefill": (lg_k, lg_p), "decode_step": (lg_k2, lg_p2)}
+
+
 def kernel_vs_plain(model, params, prompt, plen=384, pad=512, ps=16):
     """Last logits of a full-prompt prefill, of a suffix prefill over the
     prompt's first ``plen`` tokens padded to ``pad``, and of one paged
@@ -857,7 +1051,7 @@ def kernel_vs_plain(model, params, prompt, plen=384, pad=512, ps=16):
     with torch.no_grad():
         # full prompt, no prefix (flash's exact causal branch)
         lg_k, cache = model.prefill(params, {"tokens": toks}, capacity=n)
-        with plain_attention():
+        with plain_kernels():
             lg_p, _ = model.prefill(params, {"tokens": toks}, capacity=n)
         out["prefill_full"] = (lg_k, lg_p)
         # suffix over the padded prefix (the engine's branch)
@@ -869,7 +1063,7 @@ def kernel_vs_plain(model, params, prompt, plen=384, pad=512, ps=16):
         sfx[0, :n - plen] = toks[0, plen:]
         kw = dict(prefix=pfx, prefix_len=plen, last_index=n - plen - 1)
         lg_k2, _ = model.prefill(params, {"tokens": sfx}, capacity=sb, **kw)
-        with plain_attention():
+        with plain_kernels():
             lg_p2, _ = model.prefill(params, {"tokens": sfx}, capacity=sb,
                                      **kw)
         out["prefill_prefix"] = (lg_k2, lg_p2)
@@ -886,7 +1080,7 @@ def kernel_vs_plain(model, params, prompt, plen=384, pad=512, ps=16):
         cur = lg_k.argmax(-1).to(torch.int32)[:, None]
         pool2 = {nm: t.clone() for nm, t in pool.items()}
         lg_k3, _ = model.decode_step_paged(params, pool, cur, pos, table)
-        with plain_attention():
+        with plain_kernels():
             lg_p3, _ = model.decode_step_paged(params, pool2, cur, pos,
                                                table)
         out["decode_step"] = (lg_k3, lg_p3)
@@ -996,10 +1190,12 @@ def main(argv=None):
         kernel_rows = timed("kernels", phase_kernels)
     if "serve" in phases:
         launches = timed("serve", phase_serve, args.seed)
-    if "serve_hybrid" in phases:
-        hybrid = timed("serve_hybrid", phase_serve_hybrid, args.seed)
-        launches = {n: launches.get(n, 0) + hybrid.get(n, 0)
-                    for n in set(launches) | set(hybrid)}
+    for name, fn in (("serve_hybrid", phase_serve_hybrid),
+                     ("serve_ssm", phase_serve_ssm)):
+        if name in phases:
+            more = timed(name, fn, args.seed)
+            launches = {n: launches.get(n, 0) + more.get(n, 0)
+                        for n in set(launches) | set(more)}
     emit({"phase": "timing", "seconds": seconds})
 
     summary = []

@@ -97,6 +97,14 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 

@@ -11,6 +11,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclass(frozen=True)
@@ -93,6 +94,26 @@ def apply_norm(cfg, p, x):
     if cfg.norm_type == "layernorm":
         return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rmsnorm(x, p["scale"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# pieces of the recurrent blocks (RG-LRU and SSD)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (no linear cut-off)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal conv, width K: y_t = Σ_k w_k · x_{t-k}.  x [B,S,W]."""
+    K = w.shape[0]
+    S = x.shape[1]
+    y = x * w[K - 1].to(x.dtype)
+    for k in range(1, min(K, S + 1)):
+        shifted = F.pad(x[:, :S - k], (0, 0, k, 0))
+        y = y + shifted * w[K - 1 - k].to(x.dtype)
+    return y + b.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Decoder-only language model: the dense attention family and the hybrid
-RG-LRU/local-attention family.
+"""Decoder-only language model: the dense attention family, the hybrid
+RG-LRU/local-attention family and the Mamba-2 SSM family.
 
 Counterpart of ``repro/models/lm.py``.  Parameters keep the reference's
 layer grouping: ``layers/b{i}`` holds the stacked ``[n_groups, ...]``
@@ -12,8 +12,8 @@ Two cache layouts:
 - the **paged** and **prefix-aware** path of the dense family (the
   default engine path) keeps flat ``{"k", "v"}`` leaves: ``[L, B, T, KVH,
   hd]`` from :func:`prefill`, pools ``[L, P, ps, KVH, hd]``;
-- the **contiguous** path (hybrid, int8-KV and windowed models, whose
-  KV cannot be cut by position) keeps the reference's grouped tree
+- the **contiguous** path (SSM, hybrid, int8-KV and windowed models,
+  whose state cannot be cut by position) keeps the reference's grouped tree
   (:func:`init_cache`): ``{"layers": {"b{i}": leaves [n_groups, B, ...]},
   "tail{i}": leaves [B, ...]}``, with windowed attention in ring buffers
   of ``min(capacity, window)`` slots.
@@ -27,20 +27,20 @@ import torch.nn.functional as F
 from . import attention as att
 from . import mlp as mlpmod
 from . import rglru as rgmod
+from . import ssd as ssdmod
 from .common import PSpec, apply_norm, norm_schema, stack_schema
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md §A.7 (MoE)",
-    "ssm": "ROADMAP.md §A.8 (mamba2 / SSD)",
     "enc_dec": "ROADMAP.md §A.9 (encoder-decoder)",
     "vlm": "ROADMAP.md §A.9 (pixtral patch_stub)",
 }
 
 
 def check_family(cfg):
-    """The port runs the dense and hybrid families; everything else raises
-    naming the ROADMAP item that ports it."""
-    if cfg.family not in ("dense", "hybrid"):
+    """The port runs the dense, hybrid and SSM families; everything else
+    raises naming the ROADMAP item that ports it."""
+    if cfg.family not in ("dense", "hybrid", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
             f"{_NOT_PORTED.get(cfg.family, 'ROADMAP.md §A')}")
@@ -63,6 +63,8 @@ def block_kinds(cfg) -> list:
     check_family(cfg)
     if cfg.family == "dense":
         return ["attn_mlp"] * cfg.num_layers
+    if cfg.family == "ssm":
+        return ["ssd"] * cfg.num_layers
     pat = list(cfg.block_pattern)
     kinds = []
     while len(kinds) < cfg.num_layers:
@@ -89,6 +91,8 @@ def block_schema(cfg, kind: str) -> dict:
     if kind == "rglru_mlp":
         return {"ln1": norm_schema(cfg), "rglru": rgmod.rglru_schema(cfg),
                 "ln2": norm_schema(cfg), "mlp": mlpmod.mlp_schema(cfg)}
+    if kind == "ssd":   # pre-norm only: no MLP after the mixer
+        return {"ln1": norm_schema(cfg), "ssd": ssdmod.ssd_schema(cfg)}
     raise ValueError(kind)
 
 
@@ -166,19 +170,24 @@ def _window(cfg, kind):
     return cfg.attn_window if kind == "attn_mlp_local" else 0
 
 
+# recurrent block kinds → (parameter subtree, full-sequence function)
+_RECURRENT = {"rglru_mlp": ("rglru", rgmod.apply_rglru),
+              "ssd": ("ssd", ssdmod.apply_ssd)}
+
+
 def apply_block(cfg, kind, p, h, positions, *, fill=None, return_kv=False,
                 prefix_kv=None, prefix_len=0):
     """One block over a full sequence → (h, cache).  With ``fill`` (a
     cache capacity) the cache is the block's decode cache: packed K/V
     placed in ``min(fill, window)`` slots for attention, the final state
-    for RG-LRU.  With ``return_kv`` it is an attention block's raw
+    for RG-LRU and SSD.  With ``return_kv`` it is an attention block's raw
     (k, v); ``prefix_kv``/``prefix_len`` are dense prefix-aware prefill's
     (see :func:`att.full_attention`).  Otherwise it is None."""
     x = apply_norm(cfg, p["ln1"], h)
     cache = None
-    if kind == "rglru_mlp":
-        out = rgmod.apply_rglru(cfg, p["rglru"], x,
-                                return_state=fill is not None)
+    if kind in _RECURRENT:
+        name, apply = _RECURRENT[kind]
+        out = apply(cfg, p[name], x, return_state=fill is not None)
         mix, cache = out if fill is not None else (out, None)
     else:
         window = _window(cfg, kind)
@@ -192,7 +201,8 @@ def apply_block(cfg, kind, p, h, positions, *, fill=None, return_kv=False,
         elif return_kv:
             cache = kv
     h = h + mix
-    h = h + mlpmod.apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h))
+    if kind != "ssd":
+        h = h + mlpmod.apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h))
     return h, cache
 
 
@@ -226,7 +236,8 @@ def prefill(cfg, params, batch, capacity, *, prefix=None, prefix_len=None,
 
     Contiguous models (:func:`is_contiguous`): the grouped cache of
     :func:`init_cache` at ``capacity``, filled from the prompt (attention
-    K/V packed and placed in ring slots, RG-LRU final states).
+    K/V packed and placed in ring slots, RG-LRU and SSD final states with
+    their conv histories).
 
     Dense models: flat ``{"k", "v"}: [L, B, capacity, KVH, hd]``.  In
     prefix-aware mode ``prefix`` holds already-prefilled K/V ``[L, B,
@@ -293,6 +304,8 @@ def _group_caches(cfg, caches):
 def block_cache(cfg, kind, batch, capacity, dtype, device):
     if kind == "rglru_mlp":
         return rgmod.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "ssd":
+        return ssdmod.init_ssd_cache(cfg, batch, dtype, device)
     window = _window(cfg, kind)
     cap = min(capacity, window) if window else capacity
     return att.init_kv_cache(cfg, batch, cap, dtype, device)
@@ -318,6 +331,8 @@ def init_cache(cfg, batch, capacity, device):
 def decode_block(cfg, kind, p, h, cache, positions):
     """One block of one decode step; updates ``cache`` in place."""
     x = apply_norm(cfg, p["ln1"], h)
+    if kind == "ssd":
+        return h + ssdmod.decode_ssd(cfg, p["ssd"], x, cache)
     if kind == "rglru_mlp":
         h = h + rgmod.decode_rglru(cfg, p["rglru"], x, cache)
     else:

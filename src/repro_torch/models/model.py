@@ -1,5 +1,5 @@
-"""Model facade: one object per architecture config (dense and hybrid
-families)."""
+"""Model facade: one object per architecture config (dense, hybrid and
+SSM families)."""
 
 from __future__ import annotations
 

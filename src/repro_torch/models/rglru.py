@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import ops as lru_ops
 
-from .common import PSpec
+from .common import PSpec, causal_conv, softplus
 
 _C = 8.0  # Griffin's recurrence-gate temperature
 
@@ -41,30 +41,15 @@ def rglru_schema(cfg) -> dict:
     }
 
 
-def _softplus(x):
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def _gates(p, x):
     """x: [..., W] → (a, gated input) in f32."""
     xf = x.float()
     r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"].float())
     i = torch.sigmoid(xf @ p["w_x"].float() + p["b_x"].float())
-    log_a = -_C * _softplus(p["lambda_p"].float()) * r
+    log_a = -_C * softplus(p["lambda_p"].float()) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
     return a, beta * (i * xf)
-
-
-def causal_conv(x, w, b):
-    """Depthwise causal conv, width K: y_t = Σ_k w_k · x_{t-k}.  x [B,S,W]."""
-    K = w.shape[0]
-    S = x.shape[1]
-    y = x * w[K - 1].to(x.dtype)
-    for k in range(1, min(K, S + 1)):
-        shifted = F.pad(x[:, :S - k], (0, 0, k, 0))
-        y = y + shifted * w[K - 1 - k].to(x.dtype)
-    return y + b.to(x.dtype)
 
 
 def _branches(p, x):

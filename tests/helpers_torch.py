@@ -3,6 +3,7 @@ parameters in the JAX package and in the port."""
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import torch
 
 from repro.configs import get_config as get_config_jax
@@ -33,3 +34,33 @@ def build_pair(name, seed=3, **replace):
     assert all(isinstance(v, torch.Tensor)
                for v in jax.tree.leaves(params_t))
     return cfg_t, mj, params_j, mt, params_t
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+CACHE_TOL = 1e-4
+
+
+def assert_cache_close(cache_t, cache_j):
+    """Every leaf of the port's grouped cache against the reference's, of
+    the same shape, at CACHE_TOL relative and absolute; int8 leaves to one
+    quantization step in under 1% of entries (K/V that differ in the last
+    float32 bits can round the other way at a tie)."""
+    flat_j = dict(_leaves(jax.tree.map(np.asarray, cache_j)))
+    flat_t = dict(_leaves(cache_t))
+    assert flat_t.keys() == flat_j.keys()
+    for path, a in flat_j.items():
+        b = flat_t[path]
+        assert tuple(b.shape) == a.shape, path
+        if a.dtype == np.int8:
+            diff = np.abs(b.numpy().astype(np.int32) - a.astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() < 0.01, path
+        else:
+            np.testing.assert_allclose(b.float().numpy(), a, rtol=CACHE_TOL,
+                                       atol=CACHE_TOL, err_msg=str(path))

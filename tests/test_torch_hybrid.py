@@ -11,7 +11,6 @@ the ring buffer at prefill and decode wraps it.  Float32 logits agree to
 rtol = atol = 1e-4 (XLA and PyTorch sum in different orders).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +20,7 @@ torch = pytest.importorskip("torch")
 # compete with idle-spinning thread pools
 torch.set_num_threads(1)
 
-from helpers_torch import HYBRID, build_pair  # noqa: E402
+from helpers_torch import HYBRID, assert_cache_close, build_pair  # noqa: E402
 from repro.models import rglru as rglru_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -38,33 +37,6 @@ def t(x):
 def hybrid(request):
     return build_pair("recurrentgemma-9b", kv_cache_dtype=request.param,
                       **HYBRID)
-
-
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, prefix + (k,))
-    else:
-        yield prefix, tree
-
-
-def assert_cache_close(cache_t, cache_j):
-    """Every leaf of the port's grouped cache against the reference's at
-    TOL; int8 leaves to one quantization step in under 1% of entries (K/V
-    that differ in the last float32 bits can round the other way at a
-    tie)."""
-    flat_j = dict(_leaves(jax.tree.map(np.asarray, cache_j)))
-    flat_t = dict(_leaves(cache_t))
-    assert flat_t.keys() == flat_j.keys()
-    for path, a in flat_j.items():
-        b = flat_t[path]
-        assert tuple(b.shape) == a.shape, path
-        if a.dtype == np.int8:
-            diff = np.abs(b.numpy().astype(np.int32) - a.astype(np.int32))
-            assert diff.max() <= 1 and (diff > 0).mean() < 0.01, path
-        else:
-            np.testing.assert_allclose(b.float().numpy(), a, **TOL,
-                                       err_msg=str(path))
 
 
 def test_layer_grouping_is_the_reference(hybrid):

@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import ops as fa_pt  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import keep_mask  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pa_pt  # noqa: E402
 from repro_torch.kernels.rglru import ops as lru_pt  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_pt  # noqa: E402
 from repro_torch.models import attention as att_pt  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -387,6 +388,9 @@ def test_cuda_request_without_gpu_raises():
     hybrid = build_model(get_config("recurrentgemma-9b").reduced())
     with pytest.raises(RuntimeError, match="cuda"):
         hybrid.init_cache(2, 16)             # device defaults to "cuda"
+    ssm = build_model(get_config("mamba2-2.7b").reduced())
+    with pytest.raises(RuntimeError, match="cuda"):
+        ssm.init_cache(2, 16)
     with pytest.raises(RuntimeError, match="cuda"):
         from repro_torch.serving.engine import ServingEngine
         ServingEngine(model, model.init(0, device="cpu"))
@@ -397,7 +401,7 @@ def test_kernel_launch_counters_ignore_plain_path():
     the plain version and leaves them alone."""
     counters = (pa_pt.paged_decode_attention, fa_pt.flash_attention,
                 da_pt.decode_attention, da_pt.decode_attention_int8,
-                lru_pt.rglru_scan)
+                lru_pt.rglru_scan, ssd_pt.ssd_chunked)
     before = [f.launches for f in counters]
     q, kp, vp, table = _paged_case(1, 8, 2, 2, 2, 16)
     pa_pt.paged_decode_attention(
@@ -411,6 +415,9 @@ def test_kernel_launch_counters_ignore_plain_path():
     s = torch.ones(1, 8, 2)
     da_pt.decode_attention_int8(x[:, :1], k8, k8, s, s, valid)
     lru_pt.rglru_scan(torch.zeros(1, 4, 8), torch.zeros(1, 4, 8))
+    ssd_pt.ssd_chunked(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2),
+                       torch.zeros(2), torch.zeros(1, 4, 8),
+                       torch.zeros(1, 4, 8), chunk=4)
     assert [f.launches for f in counters] == before
 
 

@@ -50,7 +50,7 @@ def t(x):
 
 
 def test_configs_match_reference():
-    for name in ARCHS + ["recurrentgemma-9b"]:
+    for name in ARCHS + ["recurrentgemma-9b", "mamba2-2.7b"]:
         for reduce in (False, True):
             a = get_config(name)
             b = get_config_jax(name)
@@ -58,6 +58,7 @@ def test_configs_match_reference():
                 a, b = a.reduced(), b.reduced()
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
             assert a.vocab_padded == b.vocab_padded
+            assert (a.d_inner, a.ssm_heads) == (b.d_inner, b.ssm_heads)
             assert str(a.activation_dtype).split(".")[-1] == \
                 str(b.activation_dtype)
 
@@ -223,8 +224,8 @@ def test_decode_steps_through_shuffled_page_table(pair):
 
 
 def test_unported_families_raise():
-    """MoE, SSM, encoder-decoder and VLM models raise naming the ROADMAP
-    item that ports them; the hybrid family no longer does."""
+    """MoE, encoder-decoder and VLM models raise naming the ROADMAP item
+    that ports them; the hybrid and SSM families no longer do."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import lm
     moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
@@ -234,7 +235,7 @@ def test_unported_families_raise():
         lm.lm_schema(moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(moe).prefix_seq_axes()
-    for family in ("ssm", "enc_dec", "vlm"):
+    for family in ("enc_dec", "vlm"):
         other = moe.replace(family=family)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.lm_schema(other)
@@ -245,3 +246,6 @@ def test_unported_families_raise():
     hybrid = get_config("recurrentgemma-9b").reduced()
     assert build_model(hybrid).prefix_seq_axes() is None
     assert lm.lm_schema(hybrid)["layers"].keys() == {"b0", "b1", "b2"}
+    ssm = get_config("mamba2-2.7b").reduced()
+    assert build_model(ssm).prefix_seq_axes() is None
+    assert lm.lm_schema(ssm)["layers"]["b0"].keys() == {"ln1", "ssd"}
