@@ -7,14 +7,19 @@
 Phases, each printing one JSON line:
 
 1. build   — compile every CUDA kernel of the port from the sources in
-             this checkout (``src/repro_torch/kernels/*/csrc/*.cu``).
+             this checkout (``src/repro_torch/kernels/*/csrc/*.cu``), and
+             print each kernel's registers, shared memory, spills and (with
+             ``cuobjdump``) HMMA count; a tensor-core kernel that spills or
+             has no HMMA fails.
 2. kernels — each kernel against its plain PyTorch version on the card,
              at the main paths' shapes (stablelm-3b, recurrentgemma-9b,
              mamba2-2.7b and a GQA shape), in bf16 (tolerance 2e-2) and
-             f32 (2e-5; the SSD chunk scan 2e-4), with its median time
-             over CUDA events, its bound, the plain version's time and a
-             PyTorch library call's time as a yardstick the port never
-             calls (none exists for the two scans).
+             f32 (2e-5; the SSD chunk scan 2e-4), NaN in never-read rows
+             (flash's prefix padding, decode's invalid slots) giving a
+             bit-equal output, with its device time (:func:`time_ms`),
+             its bound, the plain version's time and a PyTorch library
+             call's time as a yardstick the port never calls (none exists
+             for the two scans).
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -82,6 +87,16 @@ PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm")
 # the float32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# kernel timing: inputs under the 50 MB L2 are cloned until the copies
+# exceed it, at most MAX_COPIES of them, so that the timed calls (a few
+# launches each) stay within the card's launch queue of ~1,000 entries
+# (the SSD rows at S = 2 and 120 reach the cap; their 2.6 MB output state
+# per call still churns the L2 between two uses of a copy); the spin
+# kernel queued ahead of the timed calls runs at up to ~2 GHz (the
+# H100's boost clock)
+L2_BYTES = 50 * 10**6
+MAX_COPIES = 128
+SPIN_CYCLES_PER_S = 2e9
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the SSD chunk scan sums 128-term f32 products over 64-step chunks in
 # another order than its plain version: the tolerance of the reference's
@@ -113,6 +128,11 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
     "ssd_chunk_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
+# the CUDA functions of the port's kernels, as the profiler names them
+PORT_KERNEL_FUNCS = ("paged_decode_kernel", "flash_fwd_kernel",
+                     "flash_mma_kernel", "decode_partial_kernel",
+                     "decode_mma_kernel", "decode_combine_kernel",
+                     "rglru_scan_kernel", "ssd_chunk_scan_kernel")
 # the kernels phase row that stands for each kernel in the summary line:
 # its main path's shape, in the serving dtype
 SUMMARY_CASE = {
@@ -137,8 +157,9 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, *, warmup=3, reps=25):
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed runs."""
+def call_ms(fn, *, warmup=3, reps=25):
+    """Median milliseconds of ``fn()`` over ``reps`` runs, one CUDA event
+    pair around each: the host work before each launch is counted too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -152,6 +173,71 @@ def time_ms(fn, *, warmup=3, reps=25):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def rotations(args):
+    """``args`` and as many clones of its tensors as it takes for all of
+    them together to exceed the L2 cache, so that a launch over one copy
+    finds it evicted by the launches over the others, as the serve path
+    finds its KV cache; just ``[args]`` where they exceed it already."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    n = 1 if nbytes >= L2_BYTES else min(MAX_COPIES,
+                                         L2_BYTES // max(nbytes, 1) + 2)
+    return [tuple(args)] + [
+        tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        for _ in range(n - 1)]
+
+
+def time_ms(fn, args, *, reps=20, repeats=3):
+    """Device milliseconds of one ``fn(*args)``: one CUDA event pair around
+    N = max(reps, copies) back-to-back calls over the rotating copies of
+    ``args``, divided by N; the median of ``repeats`` such readings.  A
+    spin kernel queued first keeps the card busy while the host enqueues
+    all N calls, so the wrappers' host work is not in the reading.
+    → (ms, queued_ahead): the latter is False if the card reached the
+    first event before the host had enqueued the last call."""
+    copies = rotations(args)
+    n = max(reps, len(copies))
+    t0 = time.perf_counter()
+    for i in range(n):                      # warm-up over every copy
+        fn(*copies[i % len(copies)])
+    torch.cuda.synchronize()
+    spin = int(2 * (time.perf_counter() - t0) * SPIN_CYCLES_PER_S)
+    readings, ahead = [], True
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for i in range(n):
+            fn(*copies[i % len(copies)])
+        end.record()
+        ahead = ahead and not start.query()
+        end.synchronize()
+        readings.append(start.elapsed_time(end) / n)
+    del copies
+    return statistics.median(readings), ahead
+
+
+def kernel_times(fn, ref_fn, lib_fn, args):
+    """A kernel row's times over ``args``: the kernel's device time
+    (``ms``) and its old single-call reading with the wrapper's host work
+    (``call_ms``), its plain version's and the library call's (``None``
+    for no library call) device times, the library call's single-call
+    reading, and for each device reading whether its calls were queued
+    ahead of the card (a plain version of thousands of small launches
+    fills the launch queue, and then reads host time)."""
+    ahead = {}
+    ms, ahead["ms"] = time_ms(fn, args)
+    plain_ms, ahead["plain_ms"] = time_ms(ref_fn, args)
+    row = dict(ms=ms, call_ms=call_ms(lambda: fn(*args)), plain_ms=plain_ms,
+               library_ms=None, library_call_ms=None)
+    if lib_fn is not None:
+        row["library_ms"], ahead["library_ms"] = time_ms(lib_fn, args)
+        row["library_call_ms"] = call_ms(lambda: lib_fn(*args))
+    row["queued_ahead"] = ahead
+    return row
 
 
 def bound(nbytes, flops, dtype):
@@ -176,9 +262,93 @@ def phase_build():
     spills = [ln.strip() for ln in ptxas.splitlines()
               if "spill" in ln and not ln.strip().startswith("0 bytes")
               and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    cuobjdump = _build.tool("cuobjdump")
+    resources = {}
+    for name, info in _build.BUILD_LOG.items():
+        hmma = hmma_counts(cuobjdump, libs[name]) if cuobjdump else {}
+        resources[name] = [{**r, "hmma": hmma.get(r["mangled"])}
+                           for r in ptxas_resources(info["ptxas"])]
+        for r in resources[name]:
+            del r["mangled"]
     emit({"phase": "build", "seconds": seconds,
           "libraries": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
-          "spill_lines": spills[:8]})
+          "spill_lines": spills[:8],
+          "cuobjdump": cuobjdump or "missing: HMMA counts not checked",
+          "kernels": resources})
+    # the tensor-core kernels: no spills, and HMMA in their SASS
+    for name, rs in resources.items():
+        for r in rs:
+            if "mma_kernel" not in r["kernel"]:
+                continue
+            if r["spill_bytes"]:
+                fail(f"{name}: {r['kernel']} spills {r['spill_bytes']} bytes")
+            if cuobjdump and not r["hmma"]:
+                fail(f"{name}: {r['kernel']} has no HMMA instruction")
+
+
+def ptxas_resources(text):
+    """Per kernel entry of an ``nvcc -Xptxas -v`` report: registers,
+    static shared memory, spill bytes (stores + loads) and its name,
+    demangled and cut at its argument list."""
+    import re
+    rows, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"mangled": m.group(1), "registers": None,
+                   "smem_bytes": 0, "spill_bytes": 0}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                cur["smem_bytes"] = int(m.group(1)) if m else 0
+    names = demangle([r["mangled"] for r in rows])
+    for r, n in zip(rows, names):
+        r["kernel"] = strip_arguments(n)
+    return rows
+
+
+def strip_arguments(name):
+    """A demangled kernel name without its return type, namespace and
+    argument list: ``flash_mma_kernel<(int)256>``."""
+    name = name.replace("(anonymous namespace)::", "").replace(
+        "<unnamed>::", "").removeprefix("void ")
+    depth = 0
+    for i, c in enumerate(name):
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0 and i > 0:
+            return name[:i]
+    return name
+
+
+def demangle(names):
+    from repro_torch.kernels import _build
+    filt = _build.tool("cu++filt") or _build.tool("c++filt")
+    if not filt or not names:
+        return names
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def hmma_counts(cuobjdump, lib):
+    """{mangled kernel name: HMMA instructions in its SASS}."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :")[1].strip()
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in ln:
+            counts[cur] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +395,6 @@ def check_close(name, out, ref, dtype, tol=None):
 
 
 def phase_kernels():
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_ref, keep_mask)
@@ -234,6 +402,7 @@ def phase_kernels():
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_ref)
 
+    check_flash_tile_plan()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     shapes = {"stablelm-3b": dict(H=32, KVH=32, d=80),
@@ -246,26 +415,22 @@ def phase_kernels():
         es = torch.finfo(dtype).bits // 8
         for sname, sh in shapes.items():
             H, KVH, d = sh["H"], sh["KVH"], sh["d"]
-            G = H // KVH
             # -- paged decode
             q, kp, vp, table, lens = paged_case(
                 gen, B=B, ps=ps, N=N, dtype=dtype, lengths=lengths,
                 **sh)
-            out = pa_ops.paged_decode_attention(q, kp, vp, table, lens)
-            ref = paged_decode_attention_ref(q, kp, vp, table, lens)
+            args = (q, kp, vp, table, lens)
+            out = pa_ops.paged_decode_attention(*args)
+            ref = paged_decode_attention_ref(*args)
             err = check_close(f"paged {sname} {dname}", out, ref, dname)
 
-            def sdpa_paged():
+            def sdpa_paged(q, kp, vp, table, lens, KVH=KVH, d=d):
                 idx = table.long()
                 k = kp[idx].reshape(B, N * ps, KVH, d).transpose(1, 2)
                 v = vp[idx].reshape(B, N * ps, KVH, d).transpose(1, 2)
-                if G > 1:
-                    k = k.repeat_interleave(G, 1)
-                    v = v.repeat_interleave(G, 1)
                 valid = torch.arange(N * ps, device="cuda")[None] \
                     < lens[:, None]
-                return F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k, v, attn_mask=valid[:, None, None])
+                return sdpa(q.transpose(1, 2), k, v, valid[:, None, None])
 
             toks = sum(min(x, N * ps) for x in lengths)
             rows = paged_kv_rows(table, lengths, ps)
@@ -277,17 +442,15 @@ def phase_kernels():
                 kernel="paged_decode_attention", shape=sname, dtype=dname,
                 B=B, H=H, KVH=KVH, d=d, ps=ps, lengths=lengths,
                 kv_rows=rows, max_abs_err=err, tol=TOL[dname],
-                ms=time_ms(lambda: pa_ops.paged_decode_attention(
-                    q, kp, vp, table, lens)),
-                plain_ms=time_ms(lambda: paged_decode_attention_ref(
-                    q, kp, vp, table, lens)),
-                library_ms=time_ms(sdpa_paged),
+                **kernel_times(pa_ops.paged_decode_attention,
+                               paged_decode_attention_ref, sdpa_paged, args),
                 bound_ms=b_ms, bound_by=b_by))
             emit({"phase": "kernels", **results[-1]})
 
-            # -- flash, exact causal and with a ragged padded prefix
+            # -- flash, exact causal and with a padded prefix: ragged, and
+            #    with no valid row
             S = 256
-            for pad, plen in ((0, 0), (512, 384)):
+            for pad, plen in ((0, 0), (512, 384), (512, 0)):
                 T = pad + S
                 q = torch.randn(1, S, H, d, generator=gen,
                                 device="cuda").to(dtype)
@@ -299,21 +462,14 @@ def phase_kernels():
                     k[:, plen:pad] = 0
                     v[:, plen:pad] = 0
                 kw = dict(causal=True, prefix_pad=pad, prefix_len=plen)
+                label = f"flash {sname} pad={pad} plen={plen} {dname}"
                 out = fa_ops.flash_attention(q, k, v, **kw)
                 ref = flash_attention_ref(q, k, v, **kw)
-                err = check_close(f"flash {sname} pad={pad} {dname}", out,
-                                  ref, dname)
+                err = check_close(label, out, ref, dname)
+                if pad:
+                    check_flash_padding_nan(label, q, k, v, kw, out)
                 keep = keep_mask(S, T, prefix_pad=pad, prefix_len=plen,
                                  device="cuda")
-
-                def sdpa_flash():
-                    kk, vv = k.transpose(1, 2), v.transpose(1, 2)
-                    if G > 1:
-                        kk = kk.repeat_interleave(G, 1)
-                        vv = vv.repeat_interleave(G, 1)
-                    return F.scaled_dot_product_attention(
-                        q.transpose(1, 2), kk, vv, attn_mask=keep)
-
                 pairs = int(keep.sum().item())
                 # K/V rows some query keeps: prefix padding is never read
                 rows = int(keep.any(0).sum().item())
@@ -324,17 +480,57 @@ def phase_kernels():
                     kernel="flash_attention", shape=sname, dtype=dname,
                     S=S, T=T, H=H, KVH=KVH, d=d, prefix_pad=pad,
                     prefix_len=plen, kv_rows=rows, max_abs_err=err,
-                    tol=TOL[dname],
-                    ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw)),
-                    plain_ms=time_ms(lambda: flash_attention_ref(
-                        q, k, v, **kw)),
-                    library_ms=time_ms(sdpa_flash),
+                    tol=TOL[dname], **flash_times(kw, keep, (q, k, v)),
                     bound_ms=b_ms, bound_by=b_by))
                 emit({"phase": "kernels", **results[-1]})
     for row in hybrid_kernel_rows(gen) + ssd_kernel_rows(gen):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
+
+
+def check_flash_tile_plan():
+    """The wrapper's tile plan (what the CPU tests hold under 227 KB)
+    must give the shared memory the CUDA source asks for, at the served
+    head dims."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    lib = _build.load("flash_attention", fa_ops._SIGNATURES)
+    plan = {}
+    for dtype, code in fa_ops._DTYPES.items():
+        for d in (80, 128, 256):
+            want = fa_ops.tile_plan(d, dtype)[2]
+            got = lib.flash_attention_smem_bytes(code, d)
+            if got != want:
+                fail(f"flash tile plan d={d} {dtype}: the wrapper plans "
+                     f"{want} bytes of shared memory, the kernel asks {got}")
+            plan[f"{str(dtype)[6:]} d={d}"] = got
+    emit({"phase": "kernels", "flash_smem_bytes": plan})
+
+
+def flash_times(kw, keep, args):
+    """:func:`kernel_times` of flash with the mask arguments ``kw``; the
+    library call is SDPA with the same mask as a boolean matrix."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    return kernel_times(
+        lambda q, k, v: fa_ops.flash_attention(q, k, v, **kw),
+        lambda q, k, v: flash_attention_ref(q, k, v, **kw),
+        lambda q, k, v: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), keep), args)
+
+
+def check_flash_padding_nan(label, q, k, v, kw, out):
+    """Prefix padding rows (``prefix_len <= j < prefix_pad``) are never
+    attended: NaN there must give the output computed over zeros there,
+    bit for bit."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    plen, pad = kw["prefix_len"], kw["prefix_pad"]
+    kn, vn = k.clone(), v.clone()
+    kn[:, plen:pad] = float("nan")
+    vn[:, plen:pad] = float("nan")
+    if not torch.equal(fa_ops.flash_attention(q, kn, vn, **kw), out):
+        fail(f"{label}: NaN in the prefix padding rows changed the output")
 
 
 def sdpa(q, k, v, mask):
@@ -428,16 +624,13 @@ def hybrid_kernel_rows(gen):
             if not torch.equal(fn(*poisoned), out):
                 fail(f"{kname} {sname} {dname}: NaN in invalid slots "
                      f"changed the output")
-            mask = valid[:, None, None, :]
-
-            def library():
-                if kname == "decode_attention":
-                    return sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), mask)
-                kd = dequantize_kv(k8, ks, dtype)
-                vd = dequantize_kv(v8, vs, dtype)
-                return sdpa(q.transpose(1, 2), kd.transpose(1, 2),
-                            vd.transpose(1, 2), mask)
+            def library(q, k, v, *rest, dtype=dtype):
+                valid = rest[-1]
+                if rest[:-1]:                      # int8: scales
+                    k = dequantize_kv(k, rest[0], dtype)
+                    v = dequantize_kv(v, rest[1], dtype)
+                return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), valid[:, None, None, :])
 
             nbytes = 2 * q.numel() * es + 2 * n_valid * KVH * d * kv_es \
                 + valid.numel()
@@ -447,9 +640,8 @@ def hybrid_kernel_rows(gen):
                 kernel=kname, shape=sname, dtype=dname, B=B, H=H, KVH=KVH,
                 d=d, C=C, positions=sh["pos"], valid_rows=n_valid,
                 max_abs_err=err, tol=TOL[dname],
-                ms=time_ms(lambda: fn(*args)),
-                plain_ms=time_ms(lambda: ref_fn(*args)),
-                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by))
+                **kernel_times(fn, ref_fn, library, args), bound_ms=b_ms,
+                bound_by=b_by))
 
         # flash at the hybrid prefill: S = T = 2100, MQA, d = 256, window
         S, H, KVH, d, W = 2100, 16, 1, 256, 2048
@@ -468,13 +660,7 @@ def hybrid_kernel_rows(gen):
             kernel="flash_attention", shape="recurrentgemma-9b", dtype=dname,
             S=S, T=S, H=H, KVH=KVH, d=d, window=W, prefix_pad=0,
             prefix_len=0, max_abs_err=err, tol=TOL[dname],
-            ms=time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True,
-                                                      window=W)),
-            plain_ms=time_ms(lambda: flash_attention_ref(
-                q, k, v, causal=True, window=W), warmup=1, reps=5),
-            library_ms=time_ms(lambda: sdpa(q.transpose(1, 2),
-                                            k.transpose(1, 2),
-                                            v.transpose(1, 2), keep)),
+            **flash_times(dict(causal=True, window=W), keep, (q, k, v)),
             bound_ms=b_ms, bound_by=b_by))
 
     # the RG-LRU scan is float32 only, as the reference kernel is
@@ -493,9 +679,8 @@ def hybrid_kernel_rows(gen):
         rows.append(dict(
             kernel="rglru_scan", shape="recurrentgemma-9b", dtype="float32",
             B=B, S=S, W=Wd, h0=with_h0, max_abs_err=err, tol=TOL["float32"],
-            ms=time_ms(lambda: lru_ops.rglru_scan(a, b, h)),
-            plain_ms=time_ms(lambda: rglru_scan_ref(a, b, h)),
-            library_ms=None,
+            **kernel_times(lru_ops.rglru_scan, rglru_scan_ref, None,
+                           (a, b, h)),
             library_note="no single PyTorch call computes a linear "
                          "recurrence with per-step coefficients",
             bound_ms=b_ms, bound_by=b_by))
@@ -552,10 +737,12 @@ def ssd_kernel_rows(gen):
             B=1, S=S, H=H, P=P, N=N, model_chunk=chunk, kernel_chunk=Q,
             h0=with_h0, decay=decay, min_in_chunk_cum=min_cum,
             max_abs_err=err, tol=SSD_TOL,
-            ms=time_ms(lambda: ssd_ops.ssd_chunked(*args, **kw)),
-            plain_ms=time_ms(lambda: ssd_chunked_ref(*args, **kw),
-                             warmup=1, reps=5),
-            library_ms=None,
+            **kernel_times(
+                lambda *a: ssd_ops.ssd_chunked(*a[:5], chunk=chunk,
+                                               initial_state=a[5]),
+                lambda *a: ssd_chunked_ref(*a[:5], chunk=chunk,
+                                           initial_state=a[5]),
+                None, (*args, h0)),
             library_note="no single PyTorch call computes a chunked scan "
                          "with per-step decay",
             bound_ms=b_ms, bound_by=b_by))
@@ -650,10 +837,10 @@ def phase_serve(seed):
     with torch.no_grad():
         # prefill-chunk times at the serve phase's shapes
         chunk_ms = {
-            "cold_256": time_ms(lambda: model.prefill(
+            "cold_256": call_ms(lambda: model.prefill(
                 params, {"tokens": inp["tokens"][:, :256]}, capacity=256),
                 warmup=1, reps=5),
-            "prefix512_suffix128": time_ms(lambda: model.prefill(
+            "prefix512_suffix128": call_ms(lambda: model.prefill(
                 params, {"tokens": inp["suffix"]}, capacity=128,
                 **inp["prefix_kw"]), warmup=1, reps=5),
         }
@@ -868,7 +1055,7 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
         toks = {n: torch.tensor([prompts[prompt_lens.index(n)]],
                                 dtype=torch.int32, device="cuda")
                 for n in prefill_lens}
-        prefill_ms = {f"{n}_tokens": time_ms(lambda n=n: model.prefill(
+        prefill_ms = {f"{n}_tokens": call_ms(lambda n=n: model.prefill(
             params, {"tokens": toks[n]}, capacity=MAX_LEN), warmup=1, reps=3)
             for n in toks}
     profile = profile_wave(engine, prompts, f"{phase}_profile.txt")
@@ -1149,7 +1336,12 @@ def profile_wave(engine, prompts, table):
             "prefill_chunks": engine.prefill_chunks - chunks0,
             "top_kernels": [{"name": key[:80], "ms": dev / 1e3,
                              "share_of_busy": dev / busy, "count": cnt}
-                            for dev, cnt, key in rows[:8]]}
+                            for dev, cnt, key in rows[:8]],
+            "port_kernels": [{"name": key[:120], "ms": dev / 1e3,
+                              "share_of_busy": dev / busy, "count": cnt,
+                              "per_call_ms": dev / 1e3 / cnt}
+                             for dev, cnt, key in rows
+                             if any(f in key for f in PORT_KERNEL_FUNCS)]}
 
 
 def main(argv=None):

@@ -3,10 +3,13 @@
 Every ``kernels/<name>/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C interface, and loaded with
 ``ctypes``; no PyTorch headers are included, so a build takes seconds.
+Headers shared between kernels (``kernels/*.cuh``) are on the include
+path.
 Nothing is built at import time: the first launch builds every source at
 once (one ``nvcc`` process each, all started together) into
 ``kernels/build/`` (listed in ``.gitignore``).  Libraries are named by a
-hash of their source, so an edited source is never served a stale build.
+hash of their source and the shared headers, so an edited source is
+never served a stale build.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0 (a refused launch never runs, and
@@ -27,7 +30,8 @@ from pathlib import Path
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(KERNELS_DIR)]
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -40,17 +44,30 @@ def sources() -> dict:
             for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def tool(name: str):
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``, ...), on
+    the PATH or in the toolkit's ``bin/``; None where it is missing."""
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                       "machine with the CUDA toolkit")
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = tool("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """The library of ``src``, named by a hash of it and of the shared
+    headers it may include."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(KERNELS_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict:

@@ -17,9 +17,11 @@ from repro_torch.kernels import _build
 
 from .ref import decode_attention_int8_ref, decode_attention_ref
 
-MAX_GROUP = 16    # q heads per kv head the kernel accumulates in registers
+MAX_GROUP = 16    # q heads per kv head: the 16 rows of the mma A tile
 MAX_HEAD_DIM = 256
-TILE = 32         # cache positions per shared-memory tile (one per lane)
+TILE = 32         # f32/int8 kernel: cache positions per tile (one a lane)
+MMA_TILE = 64     # bf16 kernel: cache positions per tile (16 a warp)
+MMA_K = 16        # bf16 kernel's mma k-step: d must be a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 7 + [_F, _P]   # B, C, H, KVH, d, chunk, n_split, scale, stream
@@ -29,12 +31,14 @@ _SIGNATURES = {
 }
 
 
-def split_plan(B, KVH, C, num_sms):
+def split_plan(B, KVH, C, num_sms, *, tile=MMA_TILE, blocks_per_sm=1):
     """(chunk, n_split): the cache length is cut into ``n_split`` chunks
-    of ``chunk`` positions (a multiple of TILE), one block each per
-    (b, kv head), aiming at two blocks per SM."""
-    n = max(1, min(-(-2 * num_sms // (B * KVH)), -(-C // TILE)))
-    chunk = -(-(-(-C // n)) // TILE) * TILE
+    of ``chunk`` positions (a multiple of ``tile``), one block each per
+    (b, kv head), aiming at ``blocks_per_sm`` blocks per SM: one for the
+    bf16 tensor-core kernel (whose double-buffered 64-position tiles fill
+    an SM's shared memory at d = 256), two for the f32/int8 kernel."""
+    n = max(1, min(-(-blocks_per_sm * num_sms // (B * KVH)), -(-C // tile)))
+    chunk = -(-(-(-C // n)) // tile) * tile
     return chunk, -(-C // chunk)
 
 
@@ -63,18 +67,33 @@ def _check(q, k, v, valid, kv_dtype, scales=()):
     if H % KVH or H // KVH > MAX_GROUP or d > MAX_HEAD_DIM:
         raise ValueError(f"H={H}, KVH={KVH}, d={d}: the kernel takes "
                          f"H/KVH <= {MAX_GROUP} and d <= {MAX_HEAD_DIM}")
+    mma = _uses_mma(q.dtype, kv_dtype)
+    if mma and d % MMA_K:
+        raise ValueError(f"d={d}: the bfloat16 kernel takes d a multiple "
+                         f"of {MMA_K}")
     for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid),
                     *(("scale", s) for s in scales)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if mma and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start 16-byte aligned (the bf16 "
+                         "kernel copies rows 16 bytes at a time)")
+
+
+def _uses_mma(q_dtype, kv_dtype):
+    """Dense bf16 runs the tensor-core kernel; f32 and int8 K/V the CUDA
+    cores."""
+    return q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
 
 
 def _launch(fn, q, k, tensors):
     B, _, H, d = q.shape
     C, KVH = k.shape[1], k.shape[2]
+    plan = {} if _uses_mma(q.dtype, k.dtype) else dict(tile=TILE,
+                                                      blocks_per_sm=2)
     chunk, n_split = split_plan(
         B, KVH, C, torch.cuda.get_device_properties(q.device)
-        .multi_processor_count)
+        .multi_processor_count, **plan)
     out = torch.empty_like(q)
     part_acc = torch.empty(B * H * n_split * d, dtype=torch.float32,
                            device=q.device)

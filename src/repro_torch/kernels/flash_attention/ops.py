@@ -20,10 +20,25 @@ from repro_torch.kernels import _build
 from .ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
+MMA_K = 16        # the bf16 kernel's mma k-step: d must be a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention_fwd":
-               [_I, _P, _P, _P, _P] + [_I] * 10 + [_F, _P]}
+               [_I, _P, _P, _P, _P] + [_I] * 10 + [_F, _P],
+               "flash_attention_smem_bytes": [_I, _I]}
+
+
+def tile_plan(d, dtype):
+    """(queries per block, keys per K/V tile, dynamic shared memory bytes)
+    of the kernel at head dim ``d``: bf16 stages a 64-query tile and two
+    K and two V tiles of 64 keys (32 at d > 128) in rows padded by 16
+    bytes; f32 a 32-query tile and one K (padded by one float) and one V
+    tile of 32 keys.  ``flash_attention_smem_bytes`` in the CUDA source
+    gives the same bytes."""
+    if dtype == torch.bfloat16:
+        bq, bk = 64, (64 if d <= 128 else 32)
+        return bq, bk, (bq + 4 * bk) * (d + 8) * 2
+    return 32, 32, (32 * d + 32 * (d + 1) + 32 * d) * 4
 
 
 def _check(q, k, v):
@@ -42,9 +57,16 @@ def _check(q, k, v):
     if H % KVH or d > MAX_HEAD_DIM:
         raise ValueError(f"H={H}, KVH={KVH}, d={d}: the kernel takes "
                          f"H % KVH == 0 and d <= {MAX_HEAD_DIM}")
+    mma = q.dtype == torch.bfloat16
+    if mma and d % MMA_K:
+        raise ValueError(f"d={d}: the bfloat16 kernel takes d a multiple "
+                         f"of {MMA_K}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if mma and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the "
+                             f"bf16 kernel copies rows 16 bytes at a time)")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,

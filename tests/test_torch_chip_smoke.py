@@ -1,0 +1,84 @@
+"""The parts of ``chip_smoke.py`` that run without a card: the rotation of
+timed inputs past the L2 cache, and the build report's parse of the
+ptxas output, the kernel names and the HMMA counts of the SASS."""
+
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 239 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3barPf
+    24 bytes stack frame, 16 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 72 registers, 4096 bytes smem, 384 bytes cmem[0]
+"""
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _Z3fooPf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
+\t\tFunction : _Z3barPf
+        /*0000*/                   FFMA R1, R2, R3, R1 ;
+"""
+
+
+def test_rotations_exceed_the_l2():
+    """Inputs under the L2 are cloned until all copies together exceed
+    it; other arguments are passed through as they are."""
+    x = torch.zeros(1000, 1000)                     # 4 MB
+    copies = chip_smoke.rotations((x, None, 3))
+    assert sum(c[0].numel() * 4 for c in copies) > chip_smoke.L2_BYTES
+    assert copies[0][0] is x
+    assert all(c[0] is not x for c in copies[1:])
+    assert all(c[1] is None and c[2] == 3 for c in copies)
+
+
+def test_rotations_leave_inputs_past_the_l2_alone():
+    x = torch.zeros(13_000_000)                     # 52 MB
+    assert len(chip_smoke.rotations((x,))) == 1
+
+
+def test_rotations_stop_at_the_cap():
+    """Tiny inputs stop at MAX_COPIES, so the timed calls stay within the
+    card's launch queue."""
+    assert len(chip_smoke.rotations((torch.zeros(4),))) \
+        == chip_smoke.MAX_COPIES
+
+
+def test_ptxas_resources_per_kernel(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "demangle", lambda names: names)
+    rows = chip_smoke.ptxas_resources(PTXAS)
+    assert [(r["mangled"], r["registers"], r["smem_bytes"], r["spill_bytes"])
+            for r in rows] == [("_Z3fooPf", 239, 0, 0),
+                               ("_Z3barPf", 72, 4096, 40)]
+
+
+def test_hmma_counts_per_kernel(monkeypatch):
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=SASS))
+    assert chip_smoke.hmma_counts("cuobjdump", "lib.so") \
+        == {"_Z3fooPf": 2, "_Z3barPf": 0}
+
+
+@pytest.mark.parametrize("name,want", [
+    ("void <unnamed>::decode_mma_kernel<(int)256>(__nv_bfloat16 const*, int)",
+     "decode_mma_kernel<(int)256>"),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 3>(float const*)",
+     "flash_fwd_kernel<float, 3>"),
+    ("(anonymous namespace)::rglru_scan_kernel(float const*, int)",
+     "rglru_scan_kernel"),
+    ("_Z3fooPf", "_Z3fooPf"),
+])
+def test_strip_arguments(name, want):
+    assert chip_smoke.strip_arguments(name) == want

@@ -423,11 +423,76 @@ def test_kernel_launch_counters_ignore_plain_path():
 
 def test_decode_split_plan_covers_the_cache():
     """The split-K plan cuts the cache into whole tiles that cover every
-    position, aiming at two blocks per SM."""
+    position: the bf16 tensor-core kernel's 64-position tiles at about one
+    block per SM, the f32/int8 kernel's 32-position tiles at two."""
     for B, KVH, C, sms in [(8, 1, 2048, 132), (8, 32, 1024, 132),
                            (1, 1, 100, 132), (2, 4, 256, 8)]:
-        chunk, n = da_pt.split_plan(B, KVH, C, sms)
-        assert chunk % da_pt.TILE == 0 and chunk * n >= C
-        assert chunk * (n - 1) < C
-    assert da_pt.split_plan(8, 1, 2048, 132) == (64, 32)
+        for tile, per_sm in ((da_pt.MMA_TILE, 1), (da_pt.TILE, 2)):
+            chunk, n = da_pt.split_plan(B, KVH, C, sms, tile=tile,
+                                        blocks_per_sm=per_sm)
+            assert chunk % tile == 0 and chunk * n >= C
+            assert chunk * (n - 1) < C
+    assert da_pt.split_plan(8, 1, 2048, 132, tile=da_pt.TILE,
+                            blocks_per_sm=2) == (64, 32)
+
+
+@pytest.mark.parametrize("B,KVH,C", [(8, 1, 2048), (8, 8, 1024),
+                                     (1, 1, 2048), (4, 1, 300)])
+def test_decode_mma_split_plan_one_block_per_sm(B, KVH, C):
+    """The bf16 kernel's plan: chunks that are whole 64-position tiles and
+    cover the cache exactly (no chunk empty), about one block per SM where
+    the cache is long enough, and at recurrentgemma-9b's ring (B = 8,
+    KVH = 1, 2048 slots) half the old plan's partials or fewer."""
+    sms = 132
+    chunk, n = da_pt.split_plan(B, KVH, C, sms)
+    assert chunk % da_pt.MMA_TILE == 0 and chunk % da_pt.MMA_K == 0
+    assert chunk * (n - 1) < C <= chunk * n
+    blocks = B * KVH * n
+    if C >= sms // (B * KVH) * 2 * da_pt.MMA_TILE:
+        assert 0.9 * sms <= blocks < 2 * sms, (chunk, n)
+    if (B, KVH, C) == (8, 1, 2048):
+        assert (chunk, n) == (128, 16)
+        old_chunk, old_n = da_pt.split_plan(B, KVH, C, sms, tile=da_pt.TILE,
+                                            blocks_per_sm=2)
+        assert n * 2 <= old_n
+
+
+@pytest.mark.parametrize("d", [80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_tile_plan_fits_shared_memory(d, dtype):
+    """Every served head dim's tiles fit the 227 KB of shared memory a
+    block may use on an H100; bf16's fit two blocks an SM."""
+    bq, bk, smem = fa_pt.tile_plan(d, dtype)
+    assert smem <= 227 * 1024
+    if dtype == torch.bfloat16:
+        assert bq == 64 and bk in (32, 64)
+        assert smem == (bq + 4 * bk) * (d + 8) * 2
+        assert 2 * smem <= 228 * 1024
+
+
+@pytest.mark.parametrize("d", [72, 88, 100])
+def test_bf16_kernels_reject_head_dim_off_the_mma_step(d):
+    """The bf16 tensor-core kernels take d a multiple of 16: the wrappers'
+    checks raise for any other d, with no fallback; f32 and int8 take it."""
+    q = torch.zeros(1, 4, 2, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa_pt._check(q, q, q)
+    fa_pt._check(q.float(), q.float(), q.float())
+    valid = torch.ones(1, 4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        da_pt._check(q[:, :1], q, q, valid, torch.bfloat16)
+    da_pt._check(q[:, :1].float(), q.float(), q.float(), valid, torch.float32)
+    k8 = torch.zeros(1, 4, 2, d, dtype=torch.int8)
+    s = torch.ones(1, 4, 2)
+    da_pt._check(q[:, :1], k8, k8, valid, torch.int8, (s, s))
+
+
+def test_bf16_kernels_take_served_head_dims():
+    """d = 80, 128 and 256 (stablelm-3b, the GQA shape, recurrentgemma-9b)
+    pass the bf16 checks."""
+    valid = torch.ones(1, 4, dtype=torch.bool)
+    for d in (80, 128, 256):
+        q = torch.zeros(1, 4, 2, d, dtype=torch.bfloat16)
+        fa_pt._check(q, q, q)
+        da_pt._check(q[:, :1], q, q, valid, torch.bfloat16)
 
