@@ -19,7 +19,10 @@ Phases, each printing one JSON line:
              bit-equal output, with its device time (:func:`time_ms`),
              its bound, the plain version's time and a PyTorch library
              call's time as a yardstick the port never calls (none exists
-             for the two scans).
+             for the two scans).  Paged decode also runs page sizes 8 and
+             32, a window that starts inside a page and an empty row, with
+             NaN in every pool row no kept position reads (the timed case:
+             bit-equal).
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -34,13 +37,13 @@ Phases, each printing one JSON line:
              concurrent greedy requests with 2100 … 2 prompt tokens (the
              ring rolls at prefill and wraps in decode; the shortest is
              below the conv history), then an int8-KV engine on the same
-             weights serving 4 of them.  Checks exact launch counts
-             (12 decode-attention launches per step, 12 flash and 26
-             RG-LRU scans per admission), and a 2100-token prefill's and
-             one decode step's logits, dense and int8 KV, against the
-             plain versions with the whole model in float32 within 1e-4
-             (bf16 printed only), and a 2-token prompt's decode step
-             against the full forward.
+             weights serving 4 of them, and those 4 again profiled.
+             Checks exact launch counts (12 decode-attention launches
+             per step, 12 flash and 26 RG-LRU scans per admission), and a
+             2100-token prefill's and one decode step's logits, dense and
+             int8 KV, against the plain versions with the whole model in
+             float32 within 1e-4 (bf16 printed only), and a 2-token
+             prompt's decode step against the full forward.
 5. serve_ssm — full-width mamba2-2.7b (64 SSD blocks, bf16, seeded
              random weights) behind the contiguous ServingEngine: 8
              concurrent greedy requests with 2048 … 2 prompt tokens (a
@@ -129,9 +132,10 @@ SOURCES = {
     "ssd_chunk_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
 }
 # the CUDA functions of the port's kernels, as the profiler names them
-PORT_KERNEL_FUNCS = ("paged_decode_kernel", "flash_fwd_kernel",
-                     "flash_mma_kernel", "decode_partial_kernel",
-                     "decode_mma_kernel", "decode_combine_kernel",
+PORT_KERNEL_FUNCS = ("paged_decode_kernel", "paged_mma_kernel",
+                     "flash_fwd_kernel", "flash_mma_kernel",
+                     "decode_partial_kernel", "decode_mma_kernel",
+                     "decode_int8_mma_kernel", "decode_combine_kernel",
                      "rglru_scan_kernel", "ssd_chunk_scan_kernel")
 # the kernels phase row that stands for each kernel in the summary line:
 # its main path's shape, in the serving dtype
@@ -370,16 +374,67 @@ def paged_case(gen, *, B, H, KVH, d, ps, N, dtype, lengths):
     return q, kp, vp, table, lens
 
 
-def paged_kv_rows(table, lengths, ps):
-    """Distinct (page, offset) K/V rows that the lengths reach through
-    the page table: the rows the function must read, each once.  A
-    retired row (table all page 0) reaches at most the scratch page."""
+def paged_kv_keys(table, lengths, ps, window=0):
+    """Distinct pool rows (page * ps + offset) that the kept positions
+    ``[max(0, len - window), min(len, N * ps))`` reach through the page
+    table: the rows the function must read, each once.  A retired row
+    (table all page 0) reaches at most the scratch page."""
     t = table.cpu().numpy().astype(np.int64)
     keys = []
     for b, n in enumerate(lengths):
-        pos = np.arange(min(n, t.shape[1] * ps))
+        start = max(0, n - window) if window > 0 else 0
+        pos = np.arange(start, min(n, t.shape[1] * ps))
         keys.append(t[b, pos // ps] * ps + pos % ps)
-    return int(np.unique(np.concatenate(keys)).size)
+    return np.unique(np.concatenate(keys))
+
+
+def paged_nan_elsewhere(kp, vp, table, lengths, window=0):
+    """Copies of the pools with NaN in every row no kept position reads
+    (stale pages, positions before the window, unused pages)."""
+    P, ps = kp.shape[:2]
+    unread = torch.ones(P * ps, dtype=torch.bool)
+    unread[torch.from_numpy(paged_kv_keys(table, lengths, ps, window))] = False
+    unread = unread.to(kp.device)
+    out = []
+    for t in (kp, vp):
+        t = t.clone()
+        t.view(P * ps, *t.shape[2:])[unread] = float("nan")
+        out.append(t)
+    return out
+
+
+def check_paged_cases(gen, sname, sh, dname, dtype, out, args):
+    """The paged kernel beyond the timed row: NaN in every unread pool
+    row of the timed case must give its output bit for bit, and page
+    sizes 8 and 32 (a 64-position tile spans 8 or 2 pages) and a window
+    that starts inside a page, over lengths with an empty row, must agree
+    with the plain version, each with NaN in its unread rows.  → the
+    cases' errors."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+    q, kp, vp, table, lens = args
+    lengths = lens.tolist()
+    if not torch.equal(pa_ops.paged_decode_attention(
+            q, *paged_nan_elsewhere(kp, vp, table, lengths), table, lens),
+            out):
+        fail(f"paged {sname} {dname}: NaN in unread pool rows changed the "
+             f"output")
+    cases = []
+    lengths2 = [1000, 0, 513, 257, 65, 64, 3, 600]   # last: retired slot
+    for ps, N, window in ((8, 128, 0), (32, 32, 0), (16, 64, 300)):
+        q, kp, vp, table, lens = paged_case(
+            gen, B=len(lengths2), ps=ps, N=N, dtype=dtype, lengths=lengths2,
+            **sh)
+        label = f"paged {sname} {dname} ps={ps} window={window}"
+        kn, vn = paged_nan_elsewhere(kp, vp, table, lengths2, window)
+        err = check_close(label, pa_ops.paged_decode_attention(
+            q, kn, vn, table, lens, window=window),
+            paged_decode_attention_ref(q, kp, vp, table, lens,
+                                       window=window), dname)
+        cases.append(dict(ps=ps, N=N, window=window, lengths=lengths2,
+                          max_abs_err=err))
+    return cases
 
 
 def check_close(name, out, ref, dtype, tol=None):
@@ -432,8 +487,10 @@ def phase_kernels():
                     < lens[:, None]
                 return sdpa(q.transpose(1, 2), k, v, valid[:, None, None])
 
+            cases = check_paged_cases(gen, sname, sh, dname, dtype, out,
+                                      args)
             toks = sum(min(x, N * ps) for x in lengths)
-            rows = paged_kv_rows(table, lengths, ps)
+            rows = int(paged_kv_keys(table, lengths, ps).size)
             nbytes = 2 * q.numel() * es + 2 * rows * KVH * d * es \
                 + table.numel() * 4 + lens.numel() * 4
             flops = 4 * toks * H * d
@@ -444,7 +501,9 @@ def phase_kernels():
                 kv_rows=rows, max_abs_err=err, tol=TOL[dname],
                 **kernel_times(pa_ops.paged_decode_attention,
                                paged_decode_attention_ref, sdpa_paged, args),
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by, chunk=pa_ops.CHUNK,
+                nan_unread_bit_equal=True,
+                more_cases=cases))
             emit({"phase": "kernels", **results[-1]})
 
             # -- flash, exact causal and with a padded prefix: ragged, and
@@ -1115,7 +1174,8 @@ def hybrid_launches(steps, admissions, *, int8):
 
 def hybrid_int8_wave(model, params, prompts, counters):
     """An int8-KV engine on the same weights serving 4 of the wave's
-    requests; → (its line's fields, its launches)."""
+    requests, then the same 4 again under the profiler; → (its line's
+    fields, the counted wave's launches)."""
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
 
@@ -1133,10 +1193,12 @@ def hybrid_int8_wave(model, params, prompts, counters):
     check_contiguous_serve("serve_hybrid int8 KV", st8, outs8, len(prompts8),
                            model.cfg.vocab_size)
     dec8 = decode_stats(engine8)
+    profile8 = profile_wave(engine8, prompts8, "serve_hybrid_int8_profile.txt")
     return {"int8": {"requests": len(prompts8), "serve_s": serve8_s,
                      "decode_steps": dec8["decode_steps"],
                      "decode_step_median_ms": dec8["decode_step_median_ms"],
-                     "launches": launches8}}, launches8
+                     "launches": launches8,
+                     "profiled_wave": profile8}}, launches8
 
 
 def hybrid_kernel_vs_plain(model, params, prompt, max_len):

@@ -1,5 +1,6 @@
-// The tensor-core attention tile shared by the bf16 flash-attention and
-// contiguous decode-attention kernels (sm_90a).
+// The tensor-core attention tile shared by the bf16 flash-attention,
+// contiguous decode-attention (bf16 and int8 K/V) and paged
+// decode-attention kernels (sm_90a).
 //
 // One warp owns 16 query rows -- 16 queries of a flash q tile, or the G
 // query heads of one kv head in decode, zero-padded to 16 -- and walks K/V
@@ -18,6 +19,10 @@
 //     multiplied.  A row that no query may see is copied with src-size 0:
 //     shared memory holds zeros and global memory is never read for it, so
 //     a NaN there cannot reach the output through 0 * V;
+//   * int8 K/V rows are staged as bytes and converted to bf16 in shared
+//     memory, exactly (|x| <= 127 fits bf16's 8-bit significand); their
+//     per-key scales stay out of the operands and are applied to S's
+//     columns (k) and to P before it is rounded to bf16 (v);
 //   * softmax is online in f32 and in log2 units (scores are scaled by
 //     scale * log2(e) and exponentiated with exp2f).  Each lane holds two
 //     rows (g = lane / 4 and g + 8); a row's max and sum are reduced across
@@ -40,6 +45,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace attn_tile {
 
@@ -47,6 +53,17 @@ constexpr int kPad = 8;          // bf16 elements of padding per smem row
 constexpr float kMasked = -INFINITY;   // the score of a masked key
 
 __host__ __device__ constexpr int row_stride(int D) { return D + kPad; }
+
+// Let `kern` take `smem` bytes of dynamic shared memory (above 48 KB it
+// must ask first).
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   (int)smem)
+             : cudaSuccess;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -57,6 +74,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared (through L1: .cg takes 16 bytes only);
+// src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
@@ -127,6 +153,87 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, Src src,
     cp_async16(dst + r * LD + c * 8, (row ? row : any_row) + c * 8,
                row ? 16 : 0);
   }
+}
+
+// Stage NROWS int8 rows of D bytes (row stride D) with NTHREADS
+// threads, as load_rows does for bf16 rows.
+template <int D, int NROWS, int NTHREADS, typename Src>
+__device__ __forceinline__ void load_rows_i8(int8_t* dst, Src src,
+                                             const int8_t* any_row, int tid) {
+  constexpr int kChunks = D / 16;  // 16-byte chunks per row
+#pragma unroll 4
+  for (int idx = tid; idx < NROWS * kChunks; idx += NTHREADS) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const int8_t* row = src(r);
+    cp_async16(dst + r * D + c * 16, (row ? row : any_row) + c * 16,
+               row ? 16 : 0);
+  }
+}
+
+// 4 int8 (one word) -> 4 bf16 (two words), exactly: x + 128 goes into
+// the low byte of 2^23's f32 significand, 2^23 + 128 is subtracted (an
+// exact f32 difference), and the f32's upper half is the bf16 (x has at
+// most 8 significant bits, so its lower half is zero).
+__device__ __forceinline__ float i8_byte_to_f32(uint32_t biased, int i) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + i)) -
+         8388736.f;  // 2^23 + 128
+}
+__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  const uint32_t f0 = __float_as_uint(i8_byte_to_f32(u, 0));
+  const uint32_t f1 = __float_as_uint(i8_byte_to_f32(u, 1));
+  const uint32_t f2 = __float_as_uint(i8_byte_to_f32(u, 2));
+  const uint32_t f3 = __float_as_uint(i8_byte_to_f32(u, 3));
+  return make_uint2(__byte_perm(f0, f1, 0x7632), __byte_perm(f2, f3, 0x7632));
+}
+
+// dst [NROWS][LD] bf16 = src [NROWS][D] int8, with NTHREADS threads, 16
+// values a step.
+template <int D, int NROWS, int NTHREADS>
+__device__ __forceinline__ void convert_rows_i8(__nv_bfloat16* dst,
+                                                const int8_t* src, int tid) {
+  constexpr int kChunks = D / 16;
+  constexpr int LD = row_stride(D);
+#pragma unroll 4
+  for (int idx = tid; idx < NROWS * kChunks; idx += NTHREADS) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + r * D + c * 16);
+    const uint2 a = i8x4_to_bf16x4(w.x), b = i8x4_to_bf16x4(w.y);
+    const uint2 e = i8x4_to_bf16x4(w.z), f = i8x4_to_bf16x4(w.w);
+    uint4* out = reinterpret_cast<uint4*>(dst + r * LD + c * 16);
+    out[0] = make_uint4(a.x, a.y, b.x, b.y);
+    out[1] = make_uint4(e.x, e.y, f.x, f.y);
+  }
+}
+
+// The key (column) of a warp's 16-key score tile that fragment entry
+// s[n][e] holds.
+__device__ __forceinline__ int key_of(int n, int e, int lane) {
+  return n * 8 + 2 * (lane & 3) + (e & 1);
+}
+
+// Scores of the keys whose bit in `keep` is unset become -inf.
+template <int NS>
+__device__ __forceinline__ void mask_keys(float (&s)[NS][4], unsigned keep,
+                                          int lane) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!((keep >> key_of(n, e, lane)) & 1u)) s[n][e] = kMasked;
+}
+
+// s[n][e] *= f[key]: a per-key factor (f: the warp's keys' factors in
+// shared memory), the int8 path's k scale on S and v scale on P.
+template <int NS>
+__device__ __forceinline__ void scale_keys(float (&s)[NS][4], const float* f,
+                                           int lane) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] *= f[key_of(n, e, lane)];
 }
 
 // s = Q K^T for the warp's 16 query rows (q_rows, stride LD) against NKEY
@@ -228,6 +335,132 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[D / 8][4],
       mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The decode kernels' block loop (contiguous bf16, contiguous int8 and
+// paged bf16): a block of 4 warps, the G query heads of one kv head as
+// the 16 A rows, 64-position K/V tiles staged by cp.async in a double
+// buffer, warp w taking positions 16w .. 16w+15 of each tile.
+
+constexpr int kDecodeWarps = 4;
+constexpr int kDecodeThreads = kDecodeWarps * 32;
+constexpr int kDecodeTile = kDecodeWarps * 16;  // positions per K/V tile
+
+// Shared memory of decode_tiles for K/V of type T: q [16][LD] and, for
+// bf16, two K and two V tiles [64][LD]; for int8, one bf16 K and V tile
+// [64][LD], two int8 K and V staging tiles [64][D] and two k and v scale
+// rows [64].  Once the loop is done all of it is free: store_partial's
+// merge of 4 warps' O [16][D] in f32 fits from its start.
+template <int D, typename T>
+__host__ __device__ constexpr size_t decode_smem_bytes() {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  return (size_t)(16 + (kInt8 ? 2 : 4) * kDecodeTile) * row_stride(D) *
+             sizeof(__nv_bfloat16) +
+         (kInt8 ? (size_t)2 * 2 * kDecodeTile * (D + 4) : 0);
+}
+
+// Attend the G query rows qb [G][D] to the kept positions of the tiles
+// [t0, t_end) (t0 on the caller's tile grid) and leave each warp's online
+// softmax state over its own keys in (o, m, l), as softmax_step keeps it.
+// keep(j) says whether position j is read, and row(j), asked only where
+// it is, gives its row of K and V (in rows of D elements; for int8 also
+// its scales' index).  A position not kept has its rows and scales never
+// loaded (zeros arrive) and its score -inf, and a warp with no kept
+// position in a tile skips it.  int8 rows are staged as bytes and
+// converted to one bf16 tile exactly; k_scale multiplies S's columns
+// before the softmax, v_scale multiplies P before its bf16 rounding, and
+// l sums the unscaled P.  Every thread of the block calls it; on return
+// all copies have landed and smem is free.
+template <int D, typename T, typename Keep, typename Row>
+__device__ __forceinline__ void decode_tiles(
+    unsigned char* smem, const __nv_bfloat16* qb, int G, const T* k,
+    const T* v, const float* k_scale, const float* v_scale, Keep keep,
+    Row row, int t0, int t_end, float scale_log2, float (&o)[D / 8][4],
+    float (&m)[2], float (&l)[2]) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  static_assert(kInt8 || std::is_same<T, __nv_bfloat16>::value,
+                "K/V: bf16 or int8");
+  static_assert(D % 16 == 0 && D <= 256, "d: a multiple of 16 up to 256");
+  constexpr int LD = row_stride(D);
+  constexpr int kT = kDecodeTile;
+  constexpr int kBufs = kInt8 ? 1 : 2;  // bf16 K/V tiles
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* k_s = q_s + 16 * LD;          // [kBufs][kT][LD]
+  __nv_bfloat16* v_s = k_s + kBufs * kT * LD;  // [kBufs][kT][LD]
+  int8_t* k8_s = reinterpret_cast<int8_t*>(v_s + kBufs * kT * LD);
+  int8_t* v8_s = k8_s + 2 * kT * D;            // int8: both [2][kT][D]
+  float* ks_s = reinterpret_cast<float*>(v8_s + 2 * kT * D);
+  float* vs_s = ks_s + 2 * kT;                 // int8: both [2][kT]
+
+  auto src = [&](const T* t, int j) -> const T* {
+    return keep(j) ? t + row(j) * D : nullptr;
+  };
+  auto stage = [&](int t, int buf) {
+    if constexpr (kInt8) {
+      load_rows_i8<D, kT, kDecodeThreads>(
+          k8_s + buf * kT * D, [&](int r) { return src(k, t + r); }, k, tid);
+      load_rows_i8<D, kT, kDecodeThreads>(
+          v8_s + buf * kT * D, [&](int r) { return src(v, t + r); }, v, tid);
+      // threads 0-63 the k scales of the tile's positions, 64-127 the v
+      static_assert(kDecodeThreads == 2 * kT, "one thread a scale");
+      const int r = tid & (kT - 1);
+      const bool is_k = tid < kT;
+      const float* sc = is_k ? k_scale : v_scale;
+      const bool ok = keep(t + r);
+      cp_async4((is_k ? ks_s : vs_s) + buf * kT + r,
+                ok ? sc + row(t + r) : sc, ok ? 4 : 0);
+    } else {
+      load_rows<D, kT, kDecodeThreads>(
+          k_s + buf * kT * LD, [&](int r) { return src(k, t + r); }, k, tid);
+      load_rows<D, kT, kDecodeThreads>(
+          v_s + buf * kT * LD, [&](int r) { return src(v, t + r); }, v, tid);
+    }
+  };
+
+  load_rows<D, 16, kDecodeThreads>(
+      q_s, [&](int r) { return r < G ? qb + (size_t)r * D : nullptr; }, qb,
+      tid);
+  if (t0 < t_end) stage(t0, 0);
+  cp_async_commit();
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  m[0] = m[1] = kMasked;
+  l[0] = l[1] = 0.f;
+
+  int buf = 0;
+  for (; t0 < t_end; t0 += kT, buf ^= 1) {
+    if (t0 + kT < t_end) stage(t0 + kT, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // the current tile (and q) have landed
+    __syncthreads();
+    const int tb = kInt8 ? 0 : buf * kT * LD;  // the bf16 tiles
+    if constexpr (kInt8) {
+      convert_rows_i8<D, kT, kDecodeThreads>(k_s, k8_s + buf * kT * D, tid);
+      convert_rows_i8<D, kT, kDecodeThreads>(v_s, v8_s + buf * kT * D, tid);
+      __syncthreads();
+    }
+    // this warp's 16 positions: which are kept (lanes 0-15 ask)
+    const unsigned ok = __ballot_sync(
+        0xffffffffu, lane < 16 && keep(t0 + warp * 16 + lane));
+    if (ok != 0u) {  // warp-uniform
+      const int kw = buf * kT + warp * 16;  // the warp's scales
+      float s[2][4];
+      scores<D, 16>(s, q_s, k_s + tb + warp * 16 * LD, lane);
+      if constexpr (kInt8) scale_keys(s, ks_s + kw, lane);
+      mask_keys(s, ok, lane);
+      softmax_step(s, m, l, o, scale_log2);
+      if constexpr (kInt8) scale_keys(s, vs_s + kw, lane);
+      accumulate_pv<D, 16>(o, s, v_s + tb + warp * 16 * LD, lane);
+    }
+    __syncthreads();  // everyone is done with buf before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 }  // namespace attn_tile

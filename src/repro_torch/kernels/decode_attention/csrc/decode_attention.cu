@@ -30,34 +30,51 @@
 // positions 16w .. 16w+15 of each tile and runs S = Q K^T and O += P V
 // with mma over them, keeping its own (m, l, O).  At the end the block
 // merges its 4 warps' states in shared memory and writes one partial per
-// split.  The wrapper sizes the chunks for about one block per SM, in
-// multiples of the 64-position tile (ops.py:split_plan).  A slot with
-// valid[b, j] unset is never read: its rows are copied with src-size 0
-// (zeros in shared memory) and its scores are -inf, so a NaN in an
-// unwritten or stale slot cannot poison the output, and a 16-slot group
-// with no valid slot is skipped by its warp.  d must be a multiple of 16
-// up to 256; the wrapper raises for any other d.
+// split (../../_attn_split.cuh, which also holds the combine kernel).  The
+// wrapper sizes the chunks for about one block per SM, in multiples of
+// the 64-position tile (ops.py:split_plan).  A slot with valid[b, j]
+// unset is never read: its rows are copied with src-size 0 (zeros in
+// shared memory) and its scores are -inf, so a NaN in an unwritten or
+// stale slot cannot poison the output, and a 16-slot group with no valid
+// slot is skipped by its warp.  d must be a multiple of 16 up to 256; the
+// wrapper raises for any other d.
 //
-// f32 and int8 (decode_partial_kernel), on the CUDA cores: inside a block
-// the G query heads share every K/V tile: for each tile of 32 positions,
-// warps take rows round robin, lanes split the head dimension (a
-// coalesced row load), the row's V goes to shared memory and its G scores
-// come from warp reductions against q in shared memory; one warp per query
-// head then updates the online softmax over the tile, and every thread
-// folds the tile into its (head, dim) slice of the accumulator.  Rows
-// with valid[b, j] unset are never loaded: their V row in shared memory
-// is zero and their probability an explicit 0.  The int8 entry point is
-// the same kernel reading int8 rows and one f32 scale per (position,
-// head), dequantized in registers: the cache is read as int8.  Its chunks
-// aim at two blocks per SM, in multiples of its 32-position tile.
+// int8 K/V under bf16 q, the served int8 path (decode_int8_mma_kernel):
+// the same tile, split plan and merge.  A tile's int8 rows (d bytes each)
+// and their scales are staged by cp.async in turns, as bytes, then
+// converted to one bf16 tile in shared memory; the conversion is exact
+// (|x| <= 127 fits bf16's significand), so the scales stay out of the
+// operands: k_scale multiplies S's columns before the softmax, v_scale
+// multiplies P before it is rounded to bf16 for P V (the dense path's one
+// rounding), and l sums the unscaled P.  An invalid slot's scales are
+// never loaded (zeros arrive), so a NaN scale there cannot reach the
+// output through 0 * NaN.  At d = 256 a block holds 139 KB of shared
+// memory: one block an SM, as the plan assumes.  Both kernels run one
+// block body over the tile's loop (attn_tile::decode_tiles), which the
+// paged kernel shares; they differ only in the K/V type.
+//
+// f32 q, dense or int8 K/V (decode_partial_kernel), the serve phases'
+// check path, on the CUDA cores: inside a block the G query heads share
+// every K/V tile: for each tile of 32 positions, warps take rows round
+// robin, lanes split the head dimension (a coalesced row load), the row's
+// V goes to shared memory and its G scores come from warp reductions
+// against q in shared memory; one warp per query head then updates the
+// online softmax over the tile, and every thread folds the tile into its
+// (head, dim) slice of the accumulator.  Rows with valid[b, j] unset are
+// never loaded: their V row in shared memory is zero and their
+// probability an explicit 0.  int8 rows and their f32 scale per
+// (position, head) are dequantized in registers: the cache is read as
+// int8.  Its chunks aim at two blocks per SM, in multiples of its
+// 32-position tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
-#include "_attn_tile.cuh"
+#include "_attn_split.cuh"
 
 namespace {
 
@@ -69,19 +86,8 @@ constexpr float kNegInf = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -251,201 +257,70 @@ decode_partial_kernel(const Tq* __restrict__ q, const Tkv* __restrict__ k,
   }
 }
 
-// Merge the n_split chunks' (m, l, acc) of one (head, b).  A chunk that
-// saw no valid row holds m = -1e30, l = 0, acc = 0 and weighs nothing.
-template <typename Tq>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml, Tq* __restrict__ out,
-                      int H, int d, int n_split) {
-  const size_t row = (size_t)blockIdx.y * H + blockIdx.x;
-  const float* ml = part_ml + row * n_split * 2;
-  float mx = kNegInf;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ml[2 * s]);
-  for (int e = threadIdx.x; e < d; e += kThreads) {
-    float lsum = 0.f, o = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float c = expf(ml[2 * s] - mx);
-      lsum += ml[2 * s + 1] * c;
-      o += part_acc[(row * n_split + s) * d + e] * c;
-    }
-    out[row * d + e] = from_f<Tq>(o / fmaxf(lsum, 1e-30f));
-  }
-}
-
 // ---------------------------------------------------------------------------
-// dense bf16 on the tensor cores
+// bf16 q on the tensor cores: dense bf16 and int8 K/V, one block body
+// over attn_tile::decode_tiles
 
-constexpr int kMmaTile = 64;   // cache positions per block tile: 16 a warp
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  // q [16][LD] + two K and two V tiles [kMmaTile][LD], bf16; the merge
-  // reuses the K/V tiles for 4 warps' O [16][D] in f32
-  return (size_t)(16 + 4 * kMmaTile) * attn_tile::row_stride(D) *
-         sizeof(__nv_bfloat16);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const uint8_t* __restrict__ valid,
-                  float* __restrict__ part_acc, float* __restrict__ part_ml,
-                  int C, int H, int KVH, int chunk, int n_split,
-                  float scale_log2) {
+// Block (split, kv head, b) attends the positions [split * chunk,
+// min(C, split * chunk + chunk)) of row b with valid[b, j] set, and
+// writes its partial per query head.
+template <int D, typename T>
+__device__ __forceinline__ void decode_block(
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const uint8_t* __restrict__ valid,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int C, int H,
+    int KVH, int chunk, int n_split, float scale_log2) {
   using namespace attn_tile;
-  constexpr int LD = row_stride(D);
-  static_assert(D % 16 == 0 && D <= 256, "d: a multiple of 16 up to 256");
-  static_assert(kMmaTile == kWarps * 16, "16 positions a warp");
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / KVH;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int j0 = split * chunk;
   const int j1 = min(C, j0 + chunk);
-
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + 16 * LD;             // [2][kMmaTile][LD]
-  __nv_bfloat16* v_s = k_s + 2 * kMmaTile * LD;   // [2][kMmaTile][LD]
 
   const uint8_t* vb = valid + (size_t)b * C;
-  const size_t row0 = (size_t)b * C * KVH + kvh;  // K/V row of slot 0
-  auto slot_ok = [&](int j) { return j < j1 && vb[j] != 0; };
-  auto load_tile = [&](int t0, int buf) {
-    load_rows<D, kMmaTile, kThreads>(
-        k_s + buf * kMmaTile * LD,
-        [&](int r) {
-          const int j = t0 + r;
-          return slot_ok(j) ? k + (row0 + (size_t)j * KVH) * D : nullptr;
-        },
-        k, tid);
-    load_rows<D, kMmaTile, kThreads>(
-        v_s + buf * kMmaTile * LD,
-        [&](int r) {
-          const int j = t0 + r;
-          return slot_ok(j) ? v + (row0 + (size_t)j * KVH) * D : nullptr;
-        },
-        v, tid);
-  };
-
-  const __nv_bfloat16* qb = q + ((size_t)b * H + (size_t)kvh * G) * D;
-  load_rows<D, 16, kThreads>(
-      q_s, [&](int r) { return r < G ? qb + (size_t)r * D : nullptr; }, qb,
-      tid);
-  if (j0 < j1) load_tile(j0, 0);
-  cp_async_commit();
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
-
-  int buf = 0;
-  for (int t0 = j0; t0 < j1; t0 += kMmaTile, buf ^= 1) {
-    if (t0 + kMmaTile < j1) load_tile(t0 + kMmaTile, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // the current tile (and q) have landed
-    __syncthreads();
-    // this warp's 16 slots: which are valid (lanes 0-15 ask)
-    const int jw = t0 + warp * 16;
-    const unsigned ok =
-        __ballot_sync(0xffffffffu, lane < 16 && slot_ok(jw + lane));
-    if (ok != 0u) {  // warp-uniform
-      float s[2][4];
-      scores<D, 16>(s, q_s, k_s + (buf * kMmaTile + warp * 16) * LD, lane);
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!((ok >> (n * 8 + 2 * t + (e & 1))) & 1u)) s[n][e] = kMasked;
-      softmax_step(s, m, l, o, scale_log2);
-      accumulate_pv<D, 16>(o, s, v_s + (buf * kMmaTile + warp * 16) * LD,
-                           lane);
-    }
-    __syncthreads();  // everyone is done with buf before it is refilled
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // merge the 4 warps' (m, l, O) through shared memory (over the K/V
-  // tiles), then write this split's partial per query head
-  float* o_s = reinterpret_cast<float*>(k_s);   // [kWarps][16][D]
-  float* ml_s = o_s + kWarps * 16 * D;          // [kWarps][16][2]
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  float* ow = o_s + warp * 16 * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    *reinterpret_cast<float2*>(ow + g * D + c) = make_float2(o[n][0], o[n][1]);
-    *reinterpret_cast<float2*>(ow + (g + 8) * D + c) =
-        make_float2(o[n][2], o[n][3]);
-  }
-  if (t == 0) {
-    float* mlw = ml_s + warp * 32;
-    mlw[2 * g] = m[0];
-    mlw[2 * g + 1] = l[0];
-    mlw[2 * (g + 8)] = m[1];
-    mlw[2 * (g + 8) + 1] = l[1];
-  }
-  __syncthreads();
-  constexpr float kLn2 = 0.6931471805599453f;
-  for (int idx = tid; idx < G * D; idx += kThreads) {
-    const int r = idx / D;
-    const int e = idx - r * D;
-    float mx = kMasked;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ml_s[w * 32 + 2 * r]);
-    float lsum = 0.f, acc = 0.f;
-    if (mx != kMasked) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float c = exp2f(ml_s[w * 32 + 2 * r] - mx);
-        lsum += ml_s[w * 32 + 2 * r + 1] * c;
-        acc += o_s[(w * 16 + r) * D + e] * c;
-      }
-    }
-    const size_t prow = ((size_t)b * H + (size_t)kvh * G + r) * n_split + split;
-    part_acc[prow * D + e] = acc;
-    if (e == 0) {
-      // the combine kernel works in natural-log units; a split that saw
-      // no valid slot weighs nothing (m = -1e30, l = 0, acc = 0)
-      part_ml[prow * 2] = mx != kMasked ? mx * kLn2 : kNegInf;
-      part_ml[prow * 2 + 1] = lsum;
-    }
-  }
+  const long long row0 = (long long)b * C * KVH + kvh;  // row of slot 0
+  auto keep = [&](int j) { return j < j1 && vb[j] != 0; };
+  auto row = [&](int j) { return row0 + (long long)j * KVH; };
+  float o[D / 8][4], m[2], l[2];
+  decode_tiles<D, T>(smem_raw, q + ((size_t)b * H + (size_t)kvh * G) * D,
+                     G, k, v, k_scale, v_scale, keep, row, j0, j1,
+                     scale_log2, o, m, l);
+  store_partial<D, kDecodeWarps>(o, m, l, reinterpret_cast<float*>(smem_raw),
+                                 G, (size_t)b * H + (size_t)kvh * G, n_split,
+                                 split, part_acc, part_ml, threadIdx.x);
 }
 
-#define DECODE_D_CASES(X)                                                  \
-  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)  \
-  X(192) X(208) X(224) X(240) X(256)
+template <int D>
+__global__ void __launch_bounds__(attn_tile::kDecodeThreads)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
+                  const uint8_t* __restrict__ valid,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  int C, int H, int KVH, int chunk, int n_split,
+                  float scale_log2) {
+  decode_block<D>(q, k, v, k_scale, v_scale, valid, part_acc, part_ml, C, H,
+                  KVH, chunk, n_split, scale_log2);
+}
 
 template <int D>
-cudaError_t launch_mma_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                         const __nv_bfloat16* v, const uint8_t* valid,
-                         float* part_acc, float* part_ml, int B, int C, int H,
-                         int KVH, int chunk, int n_split, float scale,
-                         cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  decode_mma_kernel<D><<<dim3(n_split, KVH, B), kThreads, smem, stream>>>(
-      q, k, v, valid, part_acc, part_ml, C, H, KVH, chunk, n_split,
-      scale * 1.4426950408889634f);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(attn_tile::kDecodeThreads)
+decode_int8_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const int8_t* __restrict__ k,
+                       const int8_t* __restrict__ v,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
+                       const uint8_t* __restrict__ valid,
+                       float* __restrict__ part_acc,
+                       float* __restrict__ part_ml, int C, int H, int KVH,
+                       int chunk, int n_split, float scale_log2) {
+  decode_block<D>(q, k, v, k_scale, v_scale, valid, part_acc, part_ml, C, H,
+                  KVH, chunk, n_split, scale_log2);
 }
 
 struct Args {
@@ -457,27 +332,61 @@ struct Args {
   cudaStream_t stream;
 };
 
+#define DECODE_D_CASES(X)                                                  \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)  \
+  X(192) X(208) X(224) X(240) X(256)
+
+// Merge the splits' partials into out (every split wrote one).
+template <typename Tq>
+cudaError_t combine(const Args& a) {
+  attn_tile::decode_combine_kernel<Tq>
+      <<<dim3(a.H, a.B), attn_tile::kCombineThreads, 0, a.stream>>>(
+          a.part_acc, a.part_ml, static_cast<Tq*>(a.out), a.H, a.d,
+          a.n_split, nullptr, 0, 0, 1);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+auto mma_kernel() {
+  if constexpr (std::is_same<T, int8_t>::value)
+    return decode_int8_mma_kernel<D>;
+  else
+    return decode_mma_kernel<D>;
+}
+
+template <int D, typename T>
+cudaError_t launch_mma_d(const Args& a) {
+  constexpr size_t smem = attn_tile::decode_smem_bytes<D, T>();
+  const auto kern = mma_kernel<D, T>();
+  const cudaError_t err = attn_tile::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(a.n_split, a.KVH, a.B), attn_tile::kDecodeThreads, smem,
+         a.stream>>>(static_cast<const __nv_bfloat16*>(a.q),
+                     static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+                     static_cast<const float*>(a.k_scale),
+                     static_cast<const float*>(a.v_scale),
+                     static_cast<const uint8_t*>(a.valid), a.part_acc,
+                     a.part_ml, a.C, a.H, a.KVH, a.chunk, a.n_split,
+                     a.scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <typename Tq, typename Tkv, bool kQuant, int E>
 cudaError_t launch_e(const Args& a) {
   const int G = a.H / a.KVH;
   const size_t smem = smem_bytes(G, a.d);
   auto kern = decode_partial_kernel<Tq, Tkv, kQuant, E>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = attn_tile::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
   kern<<<dim3(a.n_split, a.KVH, a.B), kThreads, smem, a.stream>>>(
       static_cast<const Tq*>(a.q), static_cast<const Tkv*>(a.k),
       static_cast<const Tkv*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale),
       static_cast<const uint8_t*>(a.valid), a.part_acc, a.part_ml, a.C, a.H,
       a.KVH, a.d, a.chunk, a.n_split, a.scale);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<Tq><<<dim3(a.H, a.B), kThreads, 0, a.stream>>>(
-      a.part_acc, a.part_ml, static_cast<Tq*>(a.out), a.H, a.d, a.n_split);
-  return cudaGetLastError();
+  return combine<Tq>(a);
 }
 
 template <typename Tq, typename Tkv, bool kQuant>
@@ -500,18 +409,13 @@ cudaError_t launch(const Args& a) {
   }
 }
 
+template <typename T>
 cudaError_t launch_mma(const Args& a) {
-  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
-  const auto* k = static_cast<const __nv_bfloat16*>(a.k);
-  const auto* v = static_cast<const __nv_bfloat16*>(a.v);
-  const auto* valid = static_cast<const uint8_t*>(a.valid);
   cudaError_t err;
   switch (a.d) {
-#define DECODE_MMA_CASE(D_)                                                 \
-  case D_:                                                                  \
-    err = launch_mma_d<D_>(q, k, v, valid, a.part_acc, a.part_ml, a.B, a.C, \
-                           a.H, a.KVH, a.chunk, a.n_split, a.scale,         \
-                           a.stream);                                       \
+#define DECODE_MMA_CASE(D_)        \
+  case D_:                         \
+    err = launch_mma_d<D_, T>(a);  \
     break;
     DECODE_D_CASES(DECODE_MMA_CASE)
 #undef DECODE_MMA_CASE
@@ -519,11 +423,7 @@ cudaError_t launch_mma(const Args& a) {
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<__nv_bfloat16>
-      <<<dim3(a.H, a.B), kThreads, 0, a.stream>>>(
-          a.part_acc, a.part_ml, static_cast<__nv_bfloat16*>(a.out), a.H,
-          a.d, a.n_split);
-  return cudaGetLastError();
+  return combine<__nv_bfloat16>(a);
 }
 
 bool bad_args(const Args& a) {
@@ -550,7 +450,9 @@ extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
   if (dtype == 0) {
     err = launch<float, float, false>(a);
   } else if (dtype == 1) {
-    err = a.chunk % kMmaTile != 0 ? cudaErrorInvalidValue : launch_mma(a);
+    err = a.chunk % attn_tile::kDecodeTile != 0
+              ? cudaErrorInvalidValue
+              : launch_mma<__nv_bfloat16>(a);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -572,7 +474,9 @@ extern "C" int decode_attention_int8_fwd(
   if (dtype == 0) {
     err = launch<float, int8_t, true>(a);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16, int8_t, true>(a);
+    err = a.chunk % attn_tile::kDecodeTile != 0
+              ? cudaErrorInvalidValue
+              : launch_mma<int8_t>(a);
   } else {
     err = cudaErrorInvalidValue;
   }

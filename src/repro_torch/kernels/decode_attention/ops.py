@@ -20,8 +20,8 @@ from .ref import decode_attention_int8_ref, decode_attention_ref
 MAX_GROUP = 16    # q heads per kv head: the 16 rows of the mma A tile
 MAX_HEAD_DIM = 256
 TILE = 32         # f32/int8 kernel: cache positions per tile (one a lane)
-MMA_TILE = 64     # bf16 kernel: cache positions per tile (16 a warp)
-MMA_K = 16        # bf16 kernel's mma k-step: d must be a multiple
+MMA_TILE = 64     # bf16-q kernels: cache positions per tile (16 a warp)
+MMA_K = 16        # bf16-q kernels' mma k-step: d must be a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 7 + [_F, _P]   # B, C, H, KVH, d, chunk, n_split, scale, stream
@@ -35,8 +35,8 @@ def split_plan(B, KVH, C, num_sms, *, tile=MMA_TILE, blocks_per_sm=1):
     """(chunk, n_split): the cache length is cut into ``n_split`` chunks
     of ``chunk`` positions (a multiple of ``tile``), one block each per
     (b, kv head), aiming at ``blocks_per_sm`` blocks per SM: one for the
-    bf16 tensor-core kernel (whose double-buffered 64-position tiles fill
-    an SM's shared memory at d = 256), two for the f32/int8 kernel."""
+    bf16-q tensor-core kernels (whose double-buffered 64-position tiles
+    fill an SM's shared memory at d = 256), two for the f32-q kernel."""
     n = max(1, min(-(-blocks_per_sm * num_sms // (B * KVH)), -(-C // tile)))
     chunk = -(-(-(-C // n)) // tile) * tile
     return chunk, -(-C // chunk)
@@ -81,9 +81,10 @@ def _check(q, k, v, valid, kv_dtype, scales=()):
 
 
 def _uses_mma(q_dtype, kv_dtype):
-    """Dense bf16 runs the tensor-core kernel; f32 and int8 K/V the CUDA
-    cores."""
-    return q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+    """bf16 q runs the tensor-core kernels (dense bf16 or int8 K/V); f32 q,
+    the check path, the CUDA cores."""
+    return q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16,
+                                                      torch.int8)
 
 
 def _launch(fn, q, k, tensors):
@@ -123,8 +124,9 @@ def decode_attention(q, k, v, valid):
 
 def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, valid):
     """The same over int8 K/V [B,C,KVH,d] with f32 scales [B,C,KVH] per
-    (position, head), dequantized in registers: the cache is read as
-    int8."""
+    (position, head): the cache is read as int8 (bf16 q: converted to bf16
+    in shared memory, the scales applied to the scores and probabilities;
+    f32 q: dequantized in registers)."""
     if q.device.type == "cpu":
         return decode_attention_int8_ref(q, k_q, v_q, k_scale, v_scale,
                                          valid)

@@ -82,3 +82,37 @@ def test_hmma_counts_per_kernel(monkeypatch):
 ])
 def test_strip_arguments(name, want):
     assert chip_smoke.strip_arguments(name) == want
+
+
+def test_paged_kv_keys_count_the_kept_rows():
+    """The pool rows the paged bound counts: each kept position's row
+    once, through the table, from the window's start (counted from the
+    uncapped length) to the table's reach; a retired row (all page 0)
+    reaches only the scratch page."""
+    table = torch.tensor([[3, 1], [0, 0]], dtype=torch.int32)
+    keys = chip_smoke.paged_kv_keys(table, [6, 9], ps=4)
+    assert keys.tolist() == [0, 1, 2, 3, 4, 5, 12, 13, 14, 15]
+    keys = chip_smoke.paged_kv_keys(table, [6, 0], ps=4, window=3)
+    assert keys.tolist() == [4, 5, 15]
+    assert chip_smoke.paged_kv_keys(table, [10, 0], ps=4,
+                                    window=3).tolist() == [7]
+    assert chip_smoke.paged_kv_keys(table, [10, 0], ps=4,
+                                    window=1).tolist() == []
+
+
+def test_paged_nan_elsewhere_leaves_read_rows_alone():
+    """NaN lands in every pool row that no kept position reads, and
+    nowhere else."""
+    P, ps = 4, 4
+    kp = torch.arange(P * ps * 2 * 3, dtype=torch.float32).reshape(
+        P, ps, 2, 3)
+    table = torch.tensor([[3, 1]], dtype=torch.int32)
+    kn, vn = chip_smoke.paged_nan_elsewhere(kp, kp.clone(), table, [6],
+                                            window=4)
+    read = torch.zeros(P * ps, dtype=torch.bool)
+    read[[14, 15, 4, 5]] = True
+    for t in (kn, vn):
+        flat = t.view(P * ps, -1)
+        assert torch.equal(flat[read], kp.view(P * ps, -1)[read])
+        assert flat[~read].isnan().all()
+    assert not kp.isnan().any()

@@ -472,8 +472,9 @@ def test_flash_tile_plan_fits_shared_memory(d, dtype):
 
 @pytest.mark.parametrize("d", [72, 88, 100])
 def test_bf16_kernels_reject_head_dim_off_the_mma_step(d):
-    """The bf16 tensor-core kernels take d a multiple of 16: the wrappers'
-    checks raise for any other d, with no fallback; f32 and int8 take it."""
+    """The bf16 tensor-core kernels (bf16 q: flash, dense and int8 decode,
+    paged decode) take d a multiple of 16: the wrappers' checks raise for
+    any other d, with no fallback; the f32 kernels take it."""
     q = torch.zeros(1, 4, 2, d, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         fa_pt._check(q, q, q)
@@ -484,15 +485,47 @@ def test_bf16_kernels_reject_head_dim_off_the_mma_step(d):
     da_pt._check(q[:, :1].float(), q.float(), q.float(), valid, torch.float32)
     k8 = torch.zeros(1, 4, 2, d, dtype=torch.int8)
     s = torch.ones(1, 4, 2)
-    da_pt._check(q[:, :1], k8, k8, valid, torch.int8, (s, s))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        da_pt._check(q[:, :1], k8, k8, valid, torch.int8, (s, s))
+    da_pt._check(q[:, :1].float(), k8, k8, valid, torch.int8, (s, s))
+    pool = torch.zeros(3, 8, 2, d, dtype=torch.bfloat16)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pa_pt._check(q[:, :1], pool, pool, table, lens)
+    pa_pt._check(q[:, :1].float(), pool.float(), pool.float(), table, lens)
 
 
 def test_bf16_kernels_take_served_head_dims():
     """d = 80, 128 and 256 (stablelm-3b, the GQA shape, recurrentgemma-9b)
-    pass the bf16 checks."""
+    pass the bf16 checks, int8 K/V under bf16 q and paged decode too."""
     valid = torch.ones(1, 4, dtype=torch.bool)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
     for d in (80, 128, 256):
         q = torch.zeros(1, 4, 2, d, dtype=torch.bfloat16)
         fa_pt._check(q, q, q)
         da_pt._check(q[:, :1], q, q, valid, torch.bfloat16)
+        k8 = torch.zeros(1, 4, 2, d, dtype=torch.int8)
+        s = torch.ones(1, 4, 2)
+        da_pt._check(q[:, :1], k8, k8, valid, torch.int8, (s, s))
+        pool = torch.zeros(3, 8, 2, d, dtype=torch.bfloat16)
+        pa_pt._check(q[:, :1], pool, pool, table, lens)
+
+
+@pytest.mark.parametrize("dtype,G,ok", [
+    (torch.float32, 8, True), (torch.float32, 16, False),
+    (torch.bfloat16, 16, True), (torch.bfloat16, 32, False)])
+def test_paged_group_limit_per_dtype(dtype, G, ok):
+    """The f32 paged kernel holds at most 8 query heads per kv head in
+    registers; the bf16 one the 16 rows of its mma tile."""
+    q = torch.zeros(1, 1, 2 * G, 16, dtype=dtype)
+    pool = torch.zeros(3, 8, 2, 16, dtype=dtype)
+    args = (q, pool, pool, torch.zeros(1, 2, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32))
+    if ok:
+        pa_pt._check(*args)
+    else:
+        with pytest.raises(ValueError, match="H/KVH"):
+            pa_pt._check(*args)
 
