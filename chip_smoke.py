@@ -22,7 +22,13 @@ Phases, each printing one JSON line:
              for the two scans).  Paged decode also runs page sizes 8 and
              32, a window that starts inside a page and an empty row, with
              NaN in every pool row no kept position reads (the timed case:
-             bit-equal).
+             bit-equal).  The RG-LRU scan runs 2100 steps with and
+             without a carried state, 37 steps, one step and two batch
+             rows; the SSD scan's S = 2048 row also gives the device time
+             of each of its three CUDA functions (``functions_ms``).  Its
+             bound counts only the products the row's own decays leave
+             nonzero (``needed_flops``), at the f32 rate and, as
+             ``bound_3xtf32_ms``, at the 3xTF32 rate.
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -73,6 +79,7 @@ import argparse
 import asyncio
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -90,6 +97,11 @@ PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm")
 # the float32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the float32 exponential of a log below ln 2^-150 rounds to 0
+LOG_F32_UNDERFLOW = math.log(2.0 ** -150)
+# the TF32 tensor-core peak; the SSD scan's 3xTF32 form runs three TF32
+# products for each float32 one
+TF32_FLOPS = 495e12
 # kernel timing: inputs under the 50 MB L2 are cloned until the copies
 # exceed it, at most MAX_COPIES of them, so that the timed calls (a few
 # launches each) stay within the card's launch queue of ~1,000 entries
@@ -101,7 +113,7 @@ L2_BYTES = 50 * 10**6
 MAX_COPIES = 128
 SPIN_CYCLES_PER_S = 2e9
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-# the SSD chunk scan sums 128-term f32 products over 64-step chunks in
+# the SSD chunk scan sums 128-term f32 products over 128-step chunks in
 # another order than its plain version: the tolerance of the reference's
 # own SSD test (tests/test_kernels.py)
 SSD_TOL = 2e-4
@@ -136,7 +148,12 @@ PORT_KERNEL_FUNCS = ("paged_decode_kernel", "paged_mma_kernel",
                      "flash_fwd_kernel", "flash_mma_kernel",
                      "decode_partial_kernel", "decode_mma_kernel",
                      "decode_int8_mma_kernel", "decode_combine_kernel",
-                     "rglru_scan_kernel", "ssd_chunk_scan_kernel")
+                     "rglru_tile_scan_kernel", "ssd_state_mma_kernel",
+                     "ssd_pass_kernel", "ssd_out_mma_kernel")
+# wrappers that launch more than one CUDA function a call: the profile
+# reports their device time a call as the sum over those functions
+WRAPPER_FUNCS = {"ssd_chunk_scan": ("ssd_state_mma_kernel", "ssd_pass_kernel",
+                                    "ssd_out_mma_kernel")}
 # the kernels phase row that stands for each kernel in the summary line:
 # its main path's shape, in the serving dtype
 SUMMARY_CASE = {
@@ -147,7 +164,7 @@ SUMMARY_CASE = {
     "decode_attention_int8": dict(shape="recurrentgemma-9b",
                                   dtype="bfloat16"),
     "rglru_scan": dict(shape="recurrentgemma-9b", dtype="float32",
-                       h0=False),
+                       B=1, S=2100, h0=False),
     "ssd_chunk_scan": dict(shape="mamba2-2.7b", dtype="float32", S=2048,
                            h0=False, decay="init"),
 }
@@ -242,6 +259,49 @@ def kernel_times(fn, ref_fn, lib_fn, args):
         row["library_call_ms"] = call_ms(lambda: lib_fn(*args))
     row["queued_ahead"] = ahead
     return row
+
+
+def function_times(fn, args, funcs, *, reps=10):
+    """Device ms a call of each CUDA function in ``funcs`` that ``fn(*args)``
+    launches, from ``torch.profiler`` over ``reps`` calls; None where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    hits = by_function(device_rows(prof), funcs)
+    return {f: dev / 1e3 / reps for f, (dev, _) in hits.items()} or None
+
+
+def device_rows(prof):
+    """(device µs, count, name) of each CUDA entry of a profile that took
+    device time, the most first."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:                      # older profilers
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((dev, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def by_function(rows, funcs):
+    """{f: (device µs, launches)} summed over the ``device_rows`` whose name
+    holds f, for each f of ``funcs`` that some row holds."""
+    out = {}
+    for dev, cnt, key in rows:
+        f = next((f for f in funcs if f in key), None)
+        if f is not None:
+            d, n = out.get(f, (0.0, 0))
+            out[f] = (d + dev, n + cnt)
+    return out
 
 
 def bound(nbytes, flops, dtype):
@@ -722,15 +782,18 @@ def hybrid_kernel_rows(gen):
             **flash_times(dict(causal=True, window=W), keep, (q, k, v)),
             bound_ms=b_ms, bound_by=b_by))
 
-    # the RG-LRU scan is float32 only, as the reference kernel is
-    B, S, Wd = 1, 2100, 4096
-    a = torch.sigmoid(torch.randn(B, S, Wd, generator=gen, device=dev))
-    b = torch.randn(B, S, Wd, generator=gen, device=dev)
-    h0 = torch.randn(B, Wd, generator=gen, device=dev)
-    for with_h0 in (False, True):
-        h = h0 if with_h0 else None
+    # the RG-LRU scan is float32 only, as the reference kernel is: the
+    # prefill's 2100 steps, a length inside one tile (37) and a single
+    # step, and two batch rows (blocks slice the channels of one row)
+    Wd = 4096
+    for B, S, with_h0 in ((1, 2100, False), (1, 2100, True), (1, 37, True),
+                          (1, 1, False), (2, 2100, True)):
+        a = torch.sigmoid(torch.randn(B, S, Wd, generator=gen, device=dev))
+        b = torch.randn(B, S, Wd, generator=gen, device=dev)
+        h = torch.randn(B, Wd, generator=gen, device=dev) \
+            if with_h0 else None
         out = lru_ops.rglru_scan(a, b, h)
-        err = check_close(f"rglru_scan h0={with_h0}", out,
+        err = check_close(f"rglru_scan B={B} S={S} h0={with_h0}", out,
                           rglru_scan_ref(a, b, h), "float32")
         # one entry per read of a and b and per write of h; 2 flops each
         b_ms, b_by = bound(3 * a.numel() * 4 + (B * Wd * 4 if with_h0 else 0),
@@ -786,16 +849,20 @@ def ssd_kernel_rows(gen):
         min_cum = da.cumsum(0).min().item()
         if decay == "strong" and not min_cum < -100:
             fail(f"{label}: the in-chunk log decay only reaches {min_cum}")
-        # bytes: each input read once, y and the state written once
+        # bytes: each input read once, y and the state written once;
+        # operations: only those this run's decays leave nonzero
         nbytes = 4 * (2 * S * H * P + S * H + H + 2 * S * N
                       + H * P * N * (2 if with_h0 else 1))
-        b_ms, b_by = bound(nbytes, ssd_min_flops(S, H, P, N, with_h0),
-                           "float32")
+        flops = ssd_needed_flops((dt * -torch.exp(a_log))[0], with_h0, N, P)
+        b_ms, b_by = bound(nbytes, flops, "float32")
         rows.append(dict(
             kernel="ssd_chunk_scan", shape="mamba2-2.7b", dtype="float32",
             B=1, S=S, H=H, P=P, N=N, model_chunk=chunk, kernel_chunk=Q,
             h0=with_h0, decay=decay, min_in_chunk_cum=min_cum,
             max_abs_err=err, tol=SSD_TOL,
+            needed_flops=flops,
+            bound_3xtf32_ms=max(nbytes / HBM_BYTES_PER_S,
+                                flops / (TF32_FLOPS / 3)) * 1e3,
             **kernel_times(
                 lambda *a: ssd_ops.ssd_chunked(*a[:5], chunk=chunk,
                                                initial_state=a[5]),
@@ -804,8 +871,44 @@ def ssd_kernel_rows(gen):
                 None, (*args, h0)),
             library_note="no single PyTorch call computes a chunked scan "
                          "with per-step decay",
+            functions_ms=function_times(
+                lambda *a: ssd_ops.ssd_chunked(*a[:5], chunk=chunk,
+                                               initial_state=a[5]),
+                (*args, h0), WRAPPER_FUNCS["ssd_chunk_scan"])
+            if S == 2048 and decay == "init" else None,
             bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def ssd_needed_flops(da, with_h0, N, P):
+    """The fewest float32 operations of the SSD scan at the log decays
+    ``da`` [S, H] of one batch row: the fewer of the chunked form's
+    (:func:`ssd_min_flops`, every product) and the quadratic form's over
+    only the terms whose decay weight is not 0 in float32 (exp of a log
+    decay under ``LOG_F32_UNDERFLOW``).  The quadratic form takes, for each
+    step t and each s <= t with a nonzero weight exp(sum_{s<k<=t} da_k),
+    C_t.B_s once for all heads (2N, over the pairs any head keeps) and its
+    weighted xdt_s in each head that keeps the pair (2P); each step with a
+    nonzero weight into the final state (2NP a head); and with an initial
+    state, each step it still reaches (C_t.h0, 2NP a head) and its decay
+    into the final state (2NP).  Counted in float64."""
+    S, H = da.shape
+    cum = da.double().cumsum(0)                       # [S, H]
+    causal = torch.ones(S, S, dtype=torch.bool, device=da.device).tril()
+    pairs = torch.zeros_like(causal)
+    flops = 0
+    for h in range(H):
+        c = cum[:, h]
+        keep = causal & (c[:, None] - c[None, :] > LOG_F32_UNDERFLOW)
+        pairs |= keep
+        n = int(keep.sum()) * 2 * P
+        n += int((c[-1] - c > LOG_F32_UNDERFLOW).sum()) * 2 * N * P
+        if with_h0:
+            n += int((c > LOG_F32_UNDERFLOW).sum()) * 2 * N * P
+            n += 2 * N * P if c[-1] > LOG_F32_UNDERFLOW else 0
+        flops += n
+    flops += int(pairs.sum()) * 2 * N
+    return min(flops, ssd_min_flops(S, H, P, N, with_h0))
 
 
 def ssd_min_flops(S, H, P, N, with_h0, max_chunk=256):
@@ -1376,16 +1479,7 @@ def profile_wave(engine, prompts, table):
         asyncio.run(wave())
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((dev, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / table).write_text("".join(
@@ -1403,7 +1497,22 @@ def profile_wave(engine, prompts, table):
                               "share_of_busy": dev / busy, "count": cnt,
                               "per_call_ms": dev / 1e3 / cnt}
                              for dev, cnt, key in rows
-                             if any(f in key for f in PORT_KERNEL_FUNCS)]}
+                             if any(f in key for f in PORT_KERNEL_FUNCS)],
+            "wrappers": wrapper_times(rows)}
+
+
+def wrapper_times(rows):
+    """Device ms a call of each wrapper that launches several CUDA
+    functions: the sum over its functions, over its calls (the count of
+    the function launched most)."""
+    out = {}
+    for name, funcs in WRAPPER_FUNCS.items():
+        hits = by_function(rows, funcs)
+        if hits:
+            calls = max(n for _, n in hits.values())
+            out[name] = {"calls": calls, "per_call_ms": sum(
+                d for d, _ in hits.values()) / 1e3 / calls}
+    return out
 
 
 def main(argv=None):

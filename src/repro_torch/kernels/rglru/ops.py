@@ -2,8 +2,11 @@
 
 Replaces ``repro/kernels/rglru/kernel.py::rglru_scan_fwd`` (Pallas
 ``_rglru_kernel``).  CPU tensors take the plain version (:mod:`.ref`);
-CUDA tensors launch ``csrc/rglru.cu`` or raise.  Inference only: the
-reference's recompute VJP waits for the training slice.
+CUDA tensors launch ``csrc/rglru.cu`` or raise.  The kernel gives each
+block ``CHANNELS`` channels of one batch row and walks the sequence in
+tiles of ``TILE`` steps, one segment of ``SEGMENT`` steps a warp; every
+length and width runs it.  Inference only: the reference's recompute VJP
+waits for the training slice.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ import torch
 from repro_torch.kernels import _build
 
 from .ref import rglru_scan_ref
+
+CHANNELS = 32     # csrc/rglru.cu kChannels
+TILE = 128        # csrc/rglru.cu kTile
+SEGMENT = 16      # csrc/rglru.cu kSeg = kTile / kWarps
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"rglru_scan_fwd": [_P, _P, _P, _P, _I, _I, _I, _P]}

@@ -5,14 +5,17 @@ Replaces ``repro/kernels/ssd/kernel.py::ssd_chunk_scan_fwd`` (Pallas
 ``repro/kernels/ssd/ops.py::ssd_chunked``.  CPU tensors take the plain
 version (:mod:`.ref`); CUDA tensors launch ``csrc/ssd.cu`` or raise.
 
-As the reference wrapper does, the inputs are pre-scaled here (``xdt =
-x·dt`` and ``da = dt·A``, in float32) and the state goes to the kernel as
-``[b, H, N, P]``.  Unlike it, every sequence length runs the kernel: the
+The kernel works on ``xdt = x·dt`` and ``da = dt·A`` in float32, as the
+reference wrapper does, but forms them itself as it loads a chunk (each
+one rounding, as there); the state goes to the kernel as ``[b, H, N,
+P]``.  Unlike it, every sequence length runs the kernel: the
 kernel masks a ragged tail itself, where the reference sent it to the
 plain path.  The kernel walks the sequence in chunks of its own
 (``KERNEL_CHUNK``); the result does not depend on the chunk beyond
-rounding, so ``chunk`` only sets the plain version's.  Inference only:
-the reference's recompute VJP waits for the training slice.
+rounding, so ``chunk`` only sets the plain version's.  The wrapper
+allocates the kernel's scratch: the chunk states, the chunks' total log
+decays and the chunks' ``C·Bᵀ``.  Inference only: the reference's
+recompute VJP waits for the training slice.
 """
 
 from __future__ import annotations
@@ -25,12 +28,12 @@ from repro_torch.kernels import _build
 
 from .ref import ssd_chunked_ref
 
-KERNEL_CHUNK = 64     # csrc/ssd.cu kQ
+KERNEL_CHUNK = 128    # csrc/ssd.cu kQ
 MAX_HEADDIM = 64      # csrc/ssd.cu kP
 MAX_STATE = 128       # csrc/ssd.cu kN
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"ssd_chunk_scan_fwd": [_P] * 7 + [_I] * 5 + [_P]}
+_SIGNATURES = {"ssd_chunk_scan_fwd": [_P] * 11 + [_I] * 5 + [_P]}
 
 
 def _check(xh, dt, a_log, B, C, initial_state):
@@ -79,24 +82,29 @@ def ssd_chunked(xh, dt, a_log, B, C, *, chunk, initial_state=None):
         raise ValueError(f"the kernel takes head_dim P <= {MAX_HEADDIM} and "
                          f"state N <= {MAX_STATE}, multiples of 4; got "
                          f"P={P}, N={N}")
-    dt = dt.to(torch.float32)
-    A = -torch.exp(a_log.to(torch.float32))
-    da = (dt * A).contiguous()                            # [b,S,H]
-    xdt = (xh.to(torch.float32) * dt[..., None]).contiguous()
+    xf, dtf, af = _f32(xh), _f32(dt), _f32(a_log)
     Bf, Cf = _f32(B), _f32(C)
     h0 = None if initial_state is None \
         else _f32(initial_state.transpose(-1, -2))       # → [b,H,N,P]
-    y = torch.empty_like(xdt)
+    y = torch.empty_like(xf)
     hout = torch.empty(b, H, N, P, dtype=torch.float32, device=xh.device)
-    for name, t in (("xdt", xdt), ("B", Bf), ("C", Cf), ("y", y),
+    nc = -(-S // KERNEL_CHUNK)
+    states = torch.empty(b, nc, H, N, P, dtype=torch.float32,
+                         device=xh.device)
+    tot = torch.empty(b, nc, H, dtype=torch.float32, device=xh.device)
+    cb = torch.empty(b, nc, KERNEL_CHUNK, KERNEL_CHUNK, dtype=torch.float32,
+                     device=xh.device)
+    for name, t in (("xh", xf), ("B", Bf), ("C", Cf), ("y", y),
                     ("h0", h0), ("hout", hout)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     lib = _build.load("ssd", _SIGNATURES)
     err = lib.ssd_chunk_scan_fwd(
-        xdt.data_ptr(), da.data_ptr(), Bf.data_ptr(), Cf.data_ptr(),
+        xf.data_ptr(), dtf.data_ptr(), af.data_ptr(), Bf.data_ptr(),
+        Cf.data_ptr(),
         h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-        hout.data_ptr(), b, S, H, P, N, _build.stream_ptr(xh.device))
+        hout.data_ptr(), states.data_ptr(), tot.data_ptr(), cb.data_ptr(),
+        b, S, H, P, N, _build.stream_ptr(xh.device))
     _build.check(err, "ssd_chunk_scan")
     ssd_chunked.launches += 1
     return y, hout.transpose(-1, -2)                      # → [b,H,P,N]

@@ -15,13 +15,17 @@ def filter_logits(logits, *, temperature, top_k=0, top_p=0.0):
     everything outside the top-k / top-p set to -inf (the reference's
     masks, tie handling included)."""
     logits = logits / temperature
+    V = logits.shape[-1]
     if top_k > 0:
-        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        # top_k >= V keeps every logit, as the reference's clamped index
+        kth = torch.sort(logits, dim=-1).values[:, -min(top_k, V)][:, None]
         logits = torch.where(logits < kth, float("-inf"), logits)
     if top_p > 0.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-        cutoff_idx = (cum < top_p).sum(-1)
+        # a cumsum that ends below top_p keeps every logit, as the
+        # reference's out-of-range cutoff (NaN) does
+        cutoff_idx = (cum < top_p).sum(-1).clamp(max=V - 1)
         cutoff = torch.gather(sorted_logits, 1, cutoff_idx[:, None])
         logits = torch.where(logits < cutoff, float("-inf"), logits)
     return logits

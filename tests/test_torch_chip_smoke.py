@@ -116,3 +116,68 @@ def test_paged_nan_elsewhere_leaves_read_rows_alone():
         assert torch.equal(flat[read], kp.view(P * ps, -1)[read])
         assert flat[~read].isnan().all()
     assert not kp.isnan().any()
+
+
+def test_wrapper_times_sum_a_wrappers_functions():
+    """A wrapper that launches several CUDA functions a call is reported as
+    the sum of their device time over its calls; other kernels stay out."""
+    rows = [(100.0, 4, "void (anonymous namespace)::ssd_state_mma_kernel("
+                       "float const*)"),
+            (50.0, 4, "ssd_pass_kernel(float const*)"),
+            (200.0, 4, "ssd_out_mma_kernel(float const*)"),
+            (10.0, 3, "flash_mma_kernel<128>(float const*)")]
+    got = chip_smoke.wrapper_times(rows)
+    assert got == {"ssd_chunk_scan": {"calls": 4,
+                                      "per_call_ms": 350.0 / 1e3 / 4}}
+    assert chip_smoke.wrapper_times(rows[3:]) == {}
+
+
+def test_device_rows_read_either_profiler_field():
+    """Only CUDA entries with device time, from the newer field or the
+    older one, the most first."""
+    def entry(key, dev_type, count, **dev):
+        return types.SimpleNamespace(key=key, count=count,
+                                     device_type=dev_type, **dev)
+    prof = types.SimpleNamespace(key_averages=lambda: [
+        entry("a_kernel", "DeviceType.CUDA", 2, self_device_time_total=5.0),
+        entry("b_kernel", "DeviceType.CUDA", 1, self_cuda_time_total=9.0),
+        entry("cudaLaunchKernel", "DeviceType.CPU", 3,
+              self_device_time_total=0.0),
+        entry("idle_kernel", "DeviceType.CUDA", 4,
+              self_device_time_total=0.0)])
+    assert chip_smoke.device_rows(prof) == [(9.0, 1, "b_kernel"),
+                                            (5.0, 2, "a_kernel")]
+
+
+def test_by_function_counts_each_row_once():
+    rows = [(10.0, 2, "ssd_out_mma_kernel(float)"),
+            (4.0, 2, "ssd_out_mma_kernel(int)"),
+            (1.0, 1, "other_kernel")]
+    assert chip_smoke.by_function(rows, ("ssd_out_mma_kernel",
+                                         "ssd_out")) == {
+        "ssd_out_mma_kernel": (14.0, 4)}
+
+
+def test_ssd_needed_flops_counts_the_nonzero_band():
+    """A log decay of -30 a step leaves weights nonzero in float32 for
+    segments of at most 3 steps (-90 > ln 2^-150 > -120): each step pairs
+    with itself and the 3 before it, 4 steps reach the final state, and
+    an initial state reaches the first 3 steps only."""
+    S, H, N, P = 16, 2, 4, 2
+    da = torch.full((S, H), -30.0)
+    pairs = sum(min(t + 1, 4) for t in range(S))           # 58
+    want = H * (pairs * 2 * P + 4 * 2 * N * P) + pairs * 2 * N
+    assert chip_smoke.ssd_needed_flops(da, False, N, P) == want
+    assert chip_smoke.ssd_needed_flops(da, True, N, P) \
+        == want + H * 3 * 2 * N * P
+    assert want < chip_smoke.ssd_min_flops(S, H, P, N, False)
+
+
+def test_ssd_needed_flops_takes_the_chunked_form_under_weak_decay():
+    """With no decay every pair counts, and the chunked form needs fewer
+    operations than the quadratic one."""
+    S, H, N, P = 64, 2, 8, 4
+    for with_h0 in (False, True):
+        assert chip_smoke.ssd_needed_flops(
+            torch.zeros(S, H), with_h0, N, P) \
+            == chip_smoke.ssd_min_flops(S, H, P, N, with_h0)

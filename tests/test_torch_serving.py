@@ -189,13 +189,29 @@ def test_port_engine_behind_local_backend_through_poppy(served):
 # sampler and tokenizer
 
 
-@pytest.mark.parametrize("top_k,top_p", [(0, 0.0), (3, 0.0), (0, 0.7),
-                                         (4, 0.9)])
-def test_sampling_masks_equal_jax(monkeypatch, top_k, top_p):
+def _sampling_logits(kind):
+    if kind == "3x11":
+        logits = np.random.RandomState(5).randn(3, 11).astype(np.float32)
+        logits[1, 4] = logits[1, 7]  # a tie at a top-k boundary candidate
+        return logits
+    return (np.random.default_rng(0).standard_normal((2, 512)) * 3) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("top_k,top_p,kind", [
+    pytest.param(k, p, kind, id=f"{k}-{p}") for k, p, kind in (
+        (0, 0.0, "3x11"), (3, 0.0, "3x11"), (0, 0.7, "3x11"),
+        (4, 0.9, "3x11"),
+        # top_k above the vocabulary: the reference clamps the index and
+        # masks nothing
+        (12, 0.0, "3x11"),
+        # top_p above any mass: the reference's cutoff index is V (a NaN
+        # cutoff) and masks nothing
+        (0, 1.5, "2x512"))])
+def test_sampling_masks_equal_jax(monkeypatch, top_k, top_p, kind):
     """The logits the draw samples from — temperature-scaled, top-k and
     top-p masked — equal the reference's before the draw."""
-    logits = np.random.RandomState(5).randn(3, 11).astype(np.float32)
-    logits[1, 4] = logits[1, 7]      # a tie at a top-k boundary candidate
+    logits = _sampling_logits(kind)
     seen = {}
 
     def capture(rng, lg, axis=-1):
@@ -209,8 +225,26 @@ def test_sampling_masks_equal_jax(monkeypatch, top_k, top_p):
                                  top_k=top_k, top_p=top_p).numpy()
     ref = seen["logits"]
     assert np.array_equal(np.isinf(mine), np.isinf(ref))
+    if top_k >= logits.shape[-1] or top_p > 1.0:
+        assert not np.isinf(mine).any()
     fin = np.isfinite(ref)
     np.testing.assert_allclose(mine[fin], ref[fin], rtol=1e-6, atol=1e-6)
+
+
+def test_sampling_top_p_one_keeps_rows_below_full_mass():
+    """At top_p = 1.0 a row whose float32 cumsum ends below 1.0 has no
+    cutoff inside the row: it keeps every logit instead of raising.  Which
+    rows end below 1.0 depends on the summation order, so the rows are
+    found with the port's own cumsum."""
+    logits = torch.from_numpy(
+        (np.random.default_rng(0).standard_normal((200, 512)) * 3)
+        .astype(np.float32))
+    ordered = torch.sort(logits, dim=-1, descending=True).values
+    short = torch.cumsum(torch.softmax(ordered, dim=-1), dim=-1)[:, -1] < 1.0
+    assert short.any()
+    mine = sampler.filter_logits(logits, temperature=1.0, top_p=1.0)
+    assert torch.isfinite(mine[short]).all()
+    torch.testing.assert_close(mine[short], logits[short], rtol=0, atol=0)
 
 
 def test_sampling_frequencies_follow_softmax():
