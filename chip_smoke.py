@@ -38,6 +38,14 @@ Phases, each printing one JSON line:
              step's logits against the same model run through the plain
              versions: with the whole model in float32 within 1e-4
              relative L2 error (bf16's reading is printed, not held).
+             A profiled second wave, and a third under
+             ``repro_torch.obs.tracing()`` (one ``decode.step`` span per
+             step).  Then the same fan-out through a second engine on the
+             same weights with ``kv_layout="contiguous"`` (4 slots of
+             1024): exact launches (contiguous decode attention per
+             layer per step, flash per layer per chunk, no paged decode),
+             one KV splice per admission, the prefix reused; its tokens'
+             agreement with the paged engine's is printed.
 4. serve_hybrid — full-width recurrentgemma-9b (38 blocks, bf16, seeded
              random weights) behind the contiguous ServingEngine: 8
              concurrent greedy requests with 2100 … 2 prompt tokens (the
@@ -61,6 +69,13 @@ Phases, each printing one JSON line:
              plain path with the whole model in float32 within 1e-4 (bf16
              printed only), and a 2-token prompt's decode step against
              the full forward.
+
+Every serve engine replays its decode step as one CUDA graph, captured
+after the eager first step.  Each serve phase checks, per engine, one
+capture and a replay for every later step, each replay counting one
+eager step's launches (``graph``), and holds one replay against one
+eager step on a clone of the engine's state: logits and every updated
+tensor bit-equal (``graph.vs_eager``).
 
 Float32 matmuls and convolutions run in full float32 here:
 ``allow_tf32`` is switched off for both cuBLAS and cuDNN, so the f32
@@ -938,9 +953,8 @@ def ssd_min_flops(S, H, P, N, with_h0, max_chunk=256):
 
 def phase_serve(seed):
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
     from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config("stablelm-3b")
@@ -960,22 +974,11 @@ def phase_serve(seed):
                                                      size=n)]
                for n in suf_lens]
 
-    async def serve():
-        await engine.warm_prefix(prefix)
-        outs = await asyncio.gather(*[
-            engine.generate(p, max_new_tokens=32) for p in prompts])
-        await engine.stop()
-        return outs
-
-    pa_ops.paged_decode_attention.launches = 0
-    fa_ops.flash_attention.launches = 0
-    t0 = time.perf_counter()
-    outs = asyncio.run(serve())
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {"paged_decode_attention":
-                pa_ops.paged_decode_attention.launches,
-                "flash_attention": fa_ops.flash_attention.launches}
+    counters = launch_counters()
+    outs, launches, serve_s = serve_counted(engine, prompts, 32, counters,
+                                            warm=prefix)
+    launches = {n: launches[n] for n in ("paged_decode_attention",
+                                         "flash_attention")}
 
     st = engine.stats()
     L = cfg.num_layers
@@ -992,6 +995,8 @@ def phase_serve(seed):
     if launches["flash_attention"] != L * st["prefill_chunks"]:
         fail(f"flash launched {launches['flash_attention']} times for "
              f"{st['prefill_chunks']} prefill chunks of {L} layers")
+    graph = check_graph("serve", st["decode_graph"], st["steps"],
+                        {"paged_decode_attention": L})
 
     # -- one prefill and one decode step, kernels vs plain versions
     prompt = prompts[-1]
@@ -1011,7 +1016,14 @@ def phase_serve(seed):
     wave = [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size,
                                                   size=n)]
             for n in suf_lens]
+    first_wave = decode_stats(engine)
     profile = profile_wave(engine, wave, "serve_profile.txt")
+    dec = sorted(engine.decode_step_s)
+    traced = traced_wave(engine, prefix, [
+        prefix + [int(t) for t in rng.randint(0, cfg.vocab_size, size=n)]
+        for n in suf_lens])
+    graph["vs_eager"] = graph_vs_eager("serve", engine, seed)
+    del engine
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # bf16, information only: kernel and plain version round attention
@@ -1028,8 +1040,9 @@ def phase_serve(seed):
         kernel_vs_plain(model32, params32, prompt)[0], cfg.vocab_size,
         LOGITS_TOL_F32, "f32")
     del params32
+    contiguous = contiguous_opt_out(model, params, prefix, prompts, outs,
+                                    counters)
 
-    dec = sorted(engine.decode_step_s)
     emit({"phase": "serve", "model": cfg.name, "layers": L,
           "params": model.num_params(), "init_s": init_s,
           "serve_s": serve_s, "requests": len(prompts),
@@ -1037,18 +1050,164 @@ def phase_serve(seed):
           "decode_steps": st["steps"],
           "decode_step_median_ms": statistics.median(dec) * 1e3,
           "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
-          "decode_tokens_per_s": st["decode_tokens"]
-          / max(sum(engine.decode_step_s), 1e-9),
+          "decode_tokens_per_s": st["decode_tokens"] / max(sum(dec), 1e-9),
+          "decode_s": first_wave["decode_s"],
+          "first_step_ms": first_wave["first_step_ms"],
           "prefill_chunks": st["prefill_chunks"],
           "prefill_chunk_ms": chunk_ms,
           "prefill_tokens_computed": st["prefill_tokens_computed"],
           "prefill_tokens_reused": st["prefill_tokens_reused"],
           "kv_admit_copies": st["kv_admit_copies"],
-          "paged": st["paged"], "launches": launches,
+          "paged": st["paged"], "launches": launches, "graph": graph,
           "logits_vs_plain": {"bfloat16": logits_bf16,
                               "float32": logits_f32},
-          "profiled_wave": profile, "peak_memory_gb": peak_gb})
+          "profiled_wave": profile, "traced_wave": traced,
+          "contiguous": contiguous, "peak_memory_gb": peak_gb})
     return launches
+
+
+def contiguous_opt_out(model, params, prefix, prompts, paged_outs,
+                       counters):
+    """The dense model on the contiguous layout it may opt into
+    (``kv_layout="contiguous"``, 4 slots of 1024 positions, a radix trie
+    of KV segments): the same warm-prefix fan-out, with exact launches
+    (contiguous decode attention per layer per step, flash per layer per
+    prefill chunk, no paged decode), one KV splice per admission and the
+    prefix reused.  Its tokens' agreement with the paged engine's is
+    printed, not held: the two layouts run different decode kernels and
+    round bf16 differently."""
+    from repro_torch.serving.engine import ServingEngine
+
+    L = model.cfg.num_layers
+    engine = ServingEngine(model, params, max_slots=4, max_len=1024,
+                           kv_layout="contiguous", prefill_chunk=256,
+                           prefix_cache_budget=256 << 20, device="cuda")
+    outs, launches, serve_s = serve_counted(engine, prompts, 32, counters,
+                                            warm=prefix)
+    st = engine.stats()
+    check_launches("serve contiguous", launches, {
+        "decode_attention": L * st["steps"],
+        "flash_attention": L * st["prefill_chunks"]})
+    if st["kv_admit_copies"] != len(prompts):
+        fail(f"serve contiguous: {st['kv_admit_copies']} KV splices for "
+             f"{len(prompts)} admissions")
+    if st["prefill_tokens_reused"] <= 0:
+        fail("serve contiguous: the shared prefix was not reused")
+    for i, o in enumerate(outs):
+        if len(o) != 32 or not all(0 <= t < model.cfg.vocab_size
+                                   for t in o):
+            fail(f"serve contiguous request {i}: {len(o)} tokens, or one "
+                 f"outside the vocab")
+    graph = check_graph("serve contiguous", st["decode_graph"], st["steps"],
+                        {"decode_attention": L})
+    dec = decode_stats(engine)
+    graph["vs_eager"] = graph_vs_eager("serve contiguous", engine, 1)
+    same = sum(a == b for o, p in zip(outs, paged_outs)
+               for a, b in zip(o, p))
+    return {"requests": len(prompts), "serve_s": serve_s, **dec,
+            "prefill_chunks": st["prefill_chunks"],
+            "prefill_tokens_reused": st["prefill_tokens_reused"],
+            "kv_admit_copies": st["kv_admit_copies"],
+            "prefix_cache": st["prefix_cache"], "launches": launches,
+            "graph": graph,
+            "tokens_equal_to_paged": same / sum(map(len, outs)),
+            "requests_equal_to_paged": sum(
+                o == p for o, p in zip(outs, paged_outs))}
+
+
+def traced_wave(engine, prefix, prompts):
+    """One more warm-prefix fan-out under ``repro_torch.obs.tracing()``:
+    one ``decode.step`` span per decode step served; → span counts by
+    name."""
+    from collections import Counter
+
+    from repro_torch import obs
+
+    async def wave():
+        await engine.warm_prefix(prefix)
+        outs = await asyncio.gather(*[
+            engine.generate(p, max_new_tokens=32) for p in prompts])
+        await engine.stop()
+        return outs
+
+    steps0 = engine.steps
+    t0 = time.perf_counter()
+    with obs.tracing() as trz:
+        asyncio.run(wave())
+    seconds = time.perf_counter() - t0
+    counts = Counter(s.name for s in trz.spans + trz.instants)
+    steps = engine.steps - steps0
+    if counts["decode.step"] != steps:
+        fail(f"traced wave: {counts['decode.step']} decode.step spans for "
+             f"{steps} decode steps")
+    return {"decode_steps": steps, "seconds": seconds,
+            "spans": dict(sorted(counts.items()))}
+
+
+def check_graph(label, graph, steps, per_step):
+    """The engine's decode graph after its first ``steps`` decode steps:
+    captured once, right after the first step (which ran eagerly),
+    replayed for every later step, each replay counting the launches of
+    one eager step (``per_step``; kernels it omits or gives 0 launch
+    nothing).  → the graph's stats."""
+    want = {n: k for n, k in per_step.items() if k}
+    if graph is None or graph["captures"] != 1 \
+            or graph["replays"] != steps - 1 \
+            or graph["launches_per_replay"] != want:
+        fail(f"{label}: decode graph {graph} after {steps} steps; want one "
+             f"capture, {steps - 1} replays of {want} launches each")
+    return dict(graph)
+
+
+def graph_vs_eager(label, engine, seed):
+    """One replay of the engine's captured decode step on its own state
+    against one eager step of the same inputs on a clone of that state:
+    the logits and every cache, pool and input tensor must be bit-equal
+    (the same kernels at the same shapes).  The inputs put every slot at
+    a random token and position, each slot on pages of its own."""
+    from repro_torch.serving.decode_graph import tensors
+
+    gen = np.random.RandomState(seed)
+    S = engine.max_slots
+    engine._cur_tokens[:, 0] = gen.randint(0, engine.cfg.vocab_size, S)
+    engine._positions[:] = gen.randint(1, engine.max_len - 1, S)
+    if engine.paged_kv:
+        pps = engine.pages_per_slot
+        engine._page_table[:] = 1 + np.arange(S * pps).reshape(S, pps) \
+            % engine.num_pages
+        engine._table_dirty = True
+    engine._upload_step_inputs()
+    state = engine._step_state()
+    clone = clone_tree(state)
+    with torch.no_grad():
+        if engine.paged_kv:
+            eager, _ = engine.model.decode_step_paged(engine.params, *clone)
+        else:
+            eager, _ = engine.model.decode_step(engine.params, *clone)
+    replay = engine._graph.replay()
+    torch.cuda.synchronize()
+    return hold_bit_equal(label, [("logits", replay, eager)] + [
+        (f"state{i}", a, b)
+        for i, (a, b) in enumerate(zip(tensors(state), tensors(clone)))])
+
+
+def hold_bit_equal(label, pairs):
+    """Each (name, a, b) must agree exactly (NaN where both hold NaN);
+    → the largest difference and the count of tensors held."""
+    worst = 0.0
+    for name, a, b in pairs:
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{label} {name}: {a.dtype}{tuple(a.shape)} against "
+                 f"{b.dtype}{tuple(b.shape)}")
+        if a.is_floating_point() and not torch.equal(a.isnan(), b.isnan()):
+            fail(f"{label} {name}: NaN in different places")
+        d = 0.0 if torch.equal(a, b) or not a.numel() else \
+            (a.double() - b.double()).nan_to_num(0.0).abs().max().item()
+        if d != 0:
+            fail(f"{label} {name}: graph replay differs from the eager step "
+                 f"by up to {d}")
+        worst = max(worst, d)
+    return {"max_abs_diff": worst, "tensors": len(pairs)}
 
 
 def plain_kernels():
@@ -1099,10 +1258,13 @@ SSM_PROMPTS = (2048, 2100, 1500, 700, 256, 120, 3, 2)
 COMPARE_PROMPT, MAX_LEN, MAX_NEW = 2100, 2304, 32
 
 
-def serve_counted(engine, prompts, max_new, counters):
-    """Serve ``prompts`` concurrently with every launch counter set to 0
-    just before; → (outputs, {name: launches}, seconds)."""
+def serve_counted(engine, prompts, max_new, counters, warm=None):
+    """Serve ``prompts`` concurrently (after warming the prefix ``warm``,
+    if given) with every launch counter set to 0 just before; →
+    (outputs, {name: launches}, seconds)."""
     async def go():
+        if warm is not None:
+            await engine.warm_prefix(warm)
         outs = await asyncio.gather(*[
             engine.generate(p, max_new_tokens=max_new) for p in prompts])
         await engine.stop()
@@ -1115,22 +1277,6 @@ def serve_counted(engine, prompts, max_new, counters):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return outs, {n: fn.launches for n, fn in counters.items()}, seconds
-
-
-def all_counters():
-    """Every kernel wrapper of the port, by name: the contiguous phases
-    hold each one's launches, the ones their model must not run too."""
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.rglru import ops as lru_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    return {"decode_attention": da_ops.decode_attention,
-            "decode_attention_int8": da_ops.decode_attention_int8,
-            "flash_attention": fa_ops.flash_attention,
-            "rglru_scan": lru_ops.rglru_scan,
-            "paged_decode_attention": pa_ops.paged_decode_attention,
-            "ssd_chunk_scan": ssd_ops.ssd_chunked}
 
 
 def check_launches(label, launches, want):
@@ -1158,12 +1304,16 @@ def check_contiguous_serve(label, st, outs, n_requests, vocab):
 
 
 def decode_stats(engine):
+    """The engine's decode steps so far: median and p90 ms, their sum
+    (``decode_s``) and the first step's ms (eager, before the capture)."""
     dec = sorted(engine.decode_step_s)
     return {"decode_steps": engine.steps,
             "decode_step_median_ms": statistics.median(dec) * 1e3,
             "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
             "decode_tokens_per_s": engine.stats()["decode_tokens"]
-            / max(sum(dec), 1e-9)}
+            / max(sum(dec), 1e-9),
+            "decode_s": sum(dec),
+            "first_step_ms": engine.decode_step_s[0] * 1e3}
 
 
 def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
@@ -1184,11 +1334,12 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
     import gc
 
     from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
     from repro_torch.serving.engine import ServingEngine
 
     gc.collect()
     torch.cuda.empty_cache()
-    counters = all_counters()
+    counters = launch_counters()
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1207,6 +1358,8 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
     check_launches(phase, launches,
                    want_launches(st["steps"], st["prefill_chunks"]))
     check_contiguous_serve(phase, st, outs, len(prompts), cfg.vocab_size)
+    graph = check_graph(phase, st["decode_graph"], st["steps"],
+                        want_launches(1, 0))
     dec = decode_stats(engine)
     more, total = {}, dict(launches)
     if extra is not None:
@@ -1221,6 +1374,7 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
             params, {"tokens": toks[n]}, capacity=MAX_LEN), warmup=1, reps=3)
             for n in toks}
     profile = profile_wave(engine, prompts, f"{phase}_profile.txt")
+    graph["vs_eager"] = graph_vs_eager(phase, engine, seed)
     del engine
     prompt = prompts[prompt_lens.index(COMPARE_PROMPT)]
     logits_bf16 = logits_agreement(vs_plain(model, params, prompt, MAX_LEN),
@@ -1247,7 +1401,7 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
           "new_tokens": sum(len(o) for o in outs), **dec,
           "prefill_ms": prefill_ms, "admissions": st["prefill_chunks"],
           "kv_admit_copies": st["kv_admit_copies"], "launches": launches,
-          **more,
+          "graph": graph, **more,
           "logits_vs_plain": {"bfloat16": logits_bf16,
                               "float32": logits_f32},
           "short_prompt_decode_vs_forward_f32": short,
@@ -1295,12 +1449,16 @@ def hybrid_int8_wave(model, params, prompts, counters):
                                    int8=True))
     check_contiguous_serve("serve_hybrid int8 KV", st8, outs8, len(prompts8),
                            model.cfg.vocab_size)
+    graph8 = check_graph("serve_hybrid int8 KV", st8["decode_graph"],
+                         st8["steps"], hybrid_launches(1, 0, int8=True))
     dec8 = decode_stats(engine8)
     profile8 = profile_wave(engine8, prompts8, "serve_hybrid_int8_profile.txt")
+    graph8["vs_eager"] = graph_vs_eager("serve_hybrid int8 KV", engine8, 1)
     return {"int8": {"requests": len(prompts8), "serve_s": serve8_s,
                      "decode_steps": dec8["decode_steps"],
                      "decode_step_median_ms": dec8["decode_step_median_ms"],
-                     "launches": launches8,
+                     "decode_step_p90_ms": dec8["decode_step_p90_ms"],
+                     "launches": launches8, "graph": graph8,
                      "profiled_wave": profile8}}, launches8
 
 
@@ -1337,8 +1495,12 @@ def hybrid_kernel_vs_plain(model, params, prompt, max_len):
 
 
 def clone_tree(tree):
-    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
-            for k, v in tree.items()}
+    """A copy of every tensor of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
 
 
 def short_prompt_vs_forward(model, params, prompt, max_len):
@@ -1462,9 +1624,13 @@ def logits_agreement(comparisons, vocab, tol, label):
 def profile_wave(engine, prompts, table):
     """Serve ``prompts`` under ``torch.profiler``: the device's busy share
     of the wall time and device time by kernel (the full table goes to
-    ``chiprun_out/<table>``).  None where the profiler saw no device
-    time."""
+    ``OUT_DIR / table``), beside the kernel wrappers' launch counts
+    in the wave (the decode steps replay a CUDA graph: the profiler must
+    see its kernels for the busy share to hold them).  None where the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.decode_graph import launch_counters
 
     async def wave():
         outs = await asyncio.gather(*[
@@ -1473,6 +1639,8 @@ def profile_wave(engine, prompts, table):
         return outs
 
     steps0, chunks0 = engine.steps, engine.prefill_chunks
+    counters = launch_counters()
+    launches0 = {n: c.launches for n, c in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1490,6 +1658,9 @@ def profile_wave(engine, prompts, table):
             "device_busy_share": busy / wall_us,
             "decode_steps": engine.steps - steps0,
             "prefill_chunks": engine.prefill_chunks - chunks0,
+            "wrapper_launches": {n: c.launches - launches0[n]
+                                 for n, c in counters.items()
+                                 if c.launches != launches0[n]},
             "top_kernels": [{"name": key[:80], "ms": dev / 1e3,
                              "share_of_busy": dev / busy, "count": cnt}
                             for dev, cnt, key in rows[:8]],

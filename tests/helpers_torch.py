@@ -64,3 +64,30 @@ def assert_cache_close(cache_t, cache_j):
         else:
             np.testing.assert_allclose(b.float().numpy(), a, rtol=CACHE_TOL,
                                        atol=CACHE_TOL, err_msg=str(path))
+
+
+# the serving scenarios both engines run on reduced stablelm-3b
+
+def _rand_prompts(seed, n, length, lo=1, hi=200):
+    rng = np.random.RandomState(seed)
+    return [[int(t) for t in rng.randint(lo, hi, size=length)]
+            for _ in range(n)]
+
+
+PREFIX = list(range(40, 72))   # page-aligned 32-token shared prefix
+
+# name -> (engine kwargs, prompts, max_new, warm prefix)
+SCENARIOS = {
+    "single": (dict(max_slots=4, max_len=64), [[5, 17, 31]], 8, None),
+    "concurrent": (dict(max_slots=4, max_len=64),
+                   [[1, 2, 3], [9, 8, 7], [42, 5, 6], [3, 1, 4]], 4, None),
+    "more_than_slots": (dict(max_slots=2, max_len=64),
+                        [[i, i + 1] for i in range(5)], 4, None),
+    "shared_prefix": (dict(max_slots=4, max_len=96),
+                      [PREFIX + [100 + i, 7, 9 + i] for i in range(3)], 6,
+                      PREFIX),
+    "chunked": (dict(max_slots=2, max_len=64, prefill_chunk=8),
+                [list(range(3, 23)), list(range(50, 80))], 5, None),
+    "backpressure": (dict(max_slots=4, max_len=64, page_size=16,
+                          num_pages=8), _rand_prompts(3, 4, 40), 8, None),
+}

@@ -1,6 +1,8 @@
 """The parts of ``chip_smoke.py`` that run without a card: the rotation of
-timed inputs past the L2 cache, and the build report's parse of the
-ptxas output, the kernel names and the HMMA counts of the SASS."""
+timed inputs past the L2 cache, the build report's parse of the ptxas
+output, the kernel names and the HMMA counts of the SASS, and the serve
+phases' checks of the decode graph (its launch tally and the bit-equal
+replay against an eager step)."""
 
 import types
 
@@ -181,3 +183,72 @@ def test_ssd_needed_flops_takes_the_chunked_form_under_weak_decay():
         assert chip_smoke.ssd_needed_flops(
             torch.zeros(S, H), with_h0, N, P) \
             == chip_smoke.ssd_min_flops(S, H, P, N, with_h0)
+
+
+def _graph(replays, per_replay, captures=1):
+    return {"captures": captures, "replays": replays,
+            "launches_per_replay": per_replay, "capture_ms": 50.0}
+
+
+def test_check_graph_holds_the_launch_tally():
+    """After ``steps`` decode steps the graph was captured once, after the
+    eager first step, and replayed for the rest, each replay counting one
+    eager step's launches: with the first step's L that is L × steps, the
+    serve phases' exact counts."""
+    L, steps = 32, 38
+    got = chip_smoke.check_graph("serve", _graph(steps - 1,
+                                                 {"paged": L}),
+                                 steps, {"paged": L, "flash": 0})
+    assert got["replays"] * got["launches_per_replay"]["paged"] + L \
+        == L * steps
+    # a model whose decode runs no kernel replays an empty tally
+    chip_smoke.check_graph("ssm", _graph(steps - 1, {}), steps,
+                           {"ssd_chunk_scan": 0})
+    for bad in (None, _graph(steps, {"paged": L}),
+                _graph(steps - 1, {"paged": L - 1}),
+                _graph(steps - 1, {"paged": L}, captures=2),
+                _graph(steps - 1, {"paged": L, "flash": 1})):
+        with pytest.raises(SystemExit, match="decode graph"):
+            chip_smoke.check_graph("serve", bad, steps, {"paged": L})
+
+
+def test_hold_bit_equal_fails_on_a_differing_tensor():
+    """The graph-vs-eager check passes equal tensors (NaN where both have
+    NaN) and fails on one differing element, a NaN in one place only, or
+    a shape or dtype that differs."""
+    a = torch.arange(12, dtype=torch.bfloat16).reshape(3, 4)
+    a[1, 2] = float("nan")
+    i8 = torch.arange(6, dtype=torch.int8)
+    assert chip_smoke.hold_bit_equal("x", [("a", a, a.clone()),
+                                           ("i8", i8, i8.clone())]) \
+        == {"max_abs_diff": 0.0, "tensors": 2}
+    b = a.clone()
+    b[2, 3] += 1
+    with pytest.raises(SystemExit, match="differs .* by up to 1.0"):
+        chip_smoke.hold_bit_equal("x", [("a", a, a.clone()), ("b", a, b)])
+    c = a.clone()
+    c[0, 0] = float("nan")
+    with pytest.raises(SystemExit, match="NaN"):
+        chip_smoke.hold_bit_equal("x", [("c", a, c)])
+    j8 = i8.clone()
+    j8[5] = 7
+    with pytest.raises(SystemExit, match="differs"):
+        chip_smoke.hold_bit_equal("x", [("i8", i8, j8)])
+    for other in (a.float(), a[:2]):
+        with pytest.raises(SystemExit):
+            chip_smoke.hold_bit_equal("x", [("a", a, other)])
+
+
+def test_clone_tree_copies_dicts_and_tuples():
+    """The graph check's clone of an engine's state (cache tree and input
+    buffers) copies every tensor and keeps the tree's shape."""
+    from repro_torch.serving.decode_graph import tensors
+
+    state = ({"layers": {"b0": {"k": torch.zeros(2), "v": torch.ones(2)}}},
+             torch.full((3,), 2.0))
+    copy = chip_smoke.clone_tree(state)
+    assert isinstance(copy, tuple)
+    flat, flat_copy = tensors(state), tensors(copy)
+    assert [t.tolist() for t in flat] == [t.tolist() for t in flat_copy] \
+        == [[0.0, 0.0], [1.0, 1.0], [2.0, 2.0, 2.0]]
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(flat, flat_copy))

@@ -8,6 +8,7 @@ wrappers take their plain versions.
 """
 
 import asyncio
+import types
 
 import jax
 import numpy as np
@@ -23,11 +24,16 @@ from repro.models import build_model as build_jax  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro.serving.sampler import sample_tokens as sample_jax  # noqa: E402
 from repro.serving.tokenizer import ByteTokenizer as TokJax  # noqa: E402
+from helpers_torch import PREFIX, SCENARIOS  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import from_jax  # noqa: E402
+from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.serving import sampler  # noqa: E402
+from repro_torch.serving.decode_graph import (  # noqa: E402
+    DecodeGraph, LaunchTally, leaf_ptrs)
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.prefix_cache import PrefixCache  # noqa: E402
 from repro_torch.serving.tokenizer import ByteTokenizer  # noqa: E402
 
 
@@ -41,31 +47,6 @@ def served():
     params_t = from_jax(cfg, jax.tree.map(np.asarray, params_j),
                         device="cpu")
     return (mj, params_j), (mt, params_t)
-
-
-def _rand_prompts(seed, n, length, lo=1, hi=200):
-    rng = np.random.RandomState(seed)
-    return [[int(t) for t in rng.randint(lo, hi, size=length)]
-            for _ in range(n)]
-
-
-PREFIX = list(range(40, 72))   # page-aligned 32-token shared prefix
-
-# name -> (engine kwargs, prompts, max_new, warm prefix)
-SCENARIOS = {
-    "single": (dict(max_slots=4, max_len=64), [[5, 17, 31]], 8, None),
-    "concurrent": (dict(max_slots=4, max_len=64),
-                   [[1, 2, 3], [9, 8, 7], [42, 5, 6], [3, 1, 4]], 4, None),
-    "more_than_slots": (dict(max_slots=2, max_len=64),
-                        [[i, i + 1] for i in range(5)], 4, None),
-    "shared_prefix": (dict(max_slots=4, max_len=96),
-                      [PREFIX + [100 + i, 7, 9 + i] for i in range(3)], 6,
-                      PREFIX),
-    "chunked": (dict(max_slots=2, max_len=64, prefill_chunk=8),
-                [list(range(3, 23)), list(range(50, 80))], 5, None),
-    "backpressure": (dict(max_slots=4, max_len=64, page_size=16,
-                          num_pages=8), _rand_prompts(3, 4, 40), 8, None),
-}
 
 
 async def _serve(engine, prompts, max_new, warm):
@@ -143,13 +124,20 @@ def test_cancellation_returns_pages(served):
 
 
 def test_unsupported_engine_options_raise(served):
+    """Only ``mesh=`` is still refused; ``kv_layout="contiguous"`` and
+    ``metrics=`` build engines, and requests that could never be admitted
+    are refused at submission."""
     _, (mt, pt) = served
-    for kw in (dict(kv_layout="contiguous"), dict(mesh=object()),
-               dict(metrics=object())):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(mt, pt, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ServingEngine(mt, pt, device="cpu", mesh=object())
+    registry = MetricsRegistry()
+    eng = ServingEngine(mt, pt, device="cpu", kv_layout="contiguous",
+                        metrics=registry)
+    assert eng.kv_layout == "contiguous" and eng.metrics is registry
+    assert isinstance(eng.prefix_cache, PrefixCache)
     eng = ServingEngine(mt, pt, max_slots=2, max_len=64, page_size=16,
-                        num_pages=2, device="cpu")
+                        num_pages=2, device="cpu", metrics=registry)
+    assert registry.snapshot()["serving_pages_free"]["value"] == 2
 
     async def go():
         with pytest.raises(ValueError, match="pages"):
@@ -157,6 +145,77 @@ def test_unsupported_engine_options_raise(served):
         with pytest.raises(ValueError, match="max_len"):
             await eng.generate(list(range(64)), max_new_tokens=1)
     asyncio.run(go())
+
+
+def test_decode_inputs_are_static_buffers(served):
+    """On the CPU every decode step runs eagerly over the static input
+    buffers a CUDA engine's graph replays: tokens and positions are copied
+    in each step, the page table only when a slot's row changed, and no
+    buffer or pool leaf moves."""
+    _, (mt, pt) = served
+    et = ServingEngine(mt, pt, max_slots=4, max_len=64, device="cpu")
+    ptrs = leaf_ptrs(et._step_state())
+    seen = []
+    step = et._decode_step
+
+    def spy():
+        seen.append(np.array_equal(et._tokens_dev.numpy(), et._cur_tokens)
+                    and np.array_equal(et._positions_dev.numpy(),
+                                       et._positions)
+                    and np.array_equal(et._table_dev.numpy(),
+                                       et._page_table))
+        return step()
+
+    et._decode_step = spy
+    prompts = [[1, 2, 3], [9, 8, 7], [42, 5, 6], [3, 1, 4]]
+    asyncio.run(_serve(et, prompts, 12, None))
+    assert len(seen) == et.steps >= 12 and all(seen)
+    assert 0 < et.table_uploads < et.steps
+    assert et.stats()["paged"]["table_uploads"] == et.table_uploads
+    assert leaf_ptrs(et._step_state()) == ptrs
+    assert et.stats()["decode_graph"] is None
+
+
+def test_launch_tally_counts_each_replay_as_an_eager_step():
+    """The capture counts no launch, each replay adds what one eager step
+    counts, and a failed capture leaves the counters as they were."""
+    counters = {n: types.SimpleNamespace(launches=k)
+                for n, k in (("paged", 5), ("flash", 2), ("ssd", 0))}
+
+    def step():                      # one eager step's launches
+        counters["paged"].launches += 3
+        counters["ssd"].launches += 1
+
+    def counts():
+        return {n: c.launches for n, c in counters.items()}
+
+    tally = LaunchTally(counters)
+    step()                           # the eager warm-up step counts
+    with tally.capturing():
+        step()
+    assert counts() == {"paged": 8, "flash": 2, "ssd": 1}
+    assert tally.per_replay == {"paged": 3, "ssd": 1}
+    for _ in range(4):
+        tally.replayed()
+    assert counts() == {"paged": 8 + 4 * 3, "flash": 2, "ssd": 1 + 4}
+    with pytest.raises(RuntimeError), tally.capturing():
+        step()
+        raise RuntimeError("capture failed")
+    assert counts() == {"paged": 20, "flash": 2, "ssd": 5}
+
+
+def test_decode_graph_refuses_a_moved_cache():
+    """A replay after a cache leaf was rebound raises instead of writing
+    into the memory the graph captured."""
+    state = {"k": torch.zeros(4), "v": torch.zeros(4)}
+    graph = DecodeGraph(lambda: None, lambda: state, counters={})
+    graph.graph = types.SimpleNamespace(replay=lambda: None)
+    graph._ptrs = leaf_ptrs(state)
+    graph.replay()
+    assert graph.stats()["replays"] == 1
+    state["v"] = torch.zeros(4)
+    with pytest.raises(RuntimeError, match="moved"):
+        graph.replay()
 
 
 def test_port_engine_behind_local_backend_through_poppy(served):
