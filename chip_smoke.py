@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
              of each of its three CUDA functions (``functions_ms``).  Its
              bound counts only the products the row's own decays leave
              nonzero (``needed_flops``), at the f32 rate and, as
-             ``bound_3xtf32_ms``, at the 3xTF32 rate.
+             ``bound_3xtf32_ms``, at the 3xTF32 rate.  Paged decode and
+             flash also run at olmoe-1b-7b's shape (16 heads of 128).
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -69,6 +70,21 @@ Phases, each printing one JSON line:
              plain path with the whole model in float32 within 1e-4 (bf16
              printed only), and a 2-token prompt's decode step against
              the full forward.
+6. serve_moe — full-width olmoe-1b-7b (16 layers of 16 heads of 128,
+             64 experts, top-8, capacity factor 1.25; 6.92 B parameters,
+             bf16, seeded random weights) behind the paged ServingEngine
+             with the ``serve`` phase's engine and traffic.  Checks the
+             same outputs, launch counts (16 paged decode launches a step,
+             16 flash launches a chunk) and decode graph, prints the
+             assignments the capacity bound drops in a 256-token chunk
+             and the step's byte floor (every weight but the embedding
+             table: the expert products run over all 64 experts' capacity
+             buffers), and holds the kernel path against the plain path
+             with the whole model in float32 within 1e-4 relative L2 (bf16
+             printed only) with each layer's routing recorded on both:
+             where a router near-tie tips, the differing positions and
+             their probability gaps are printed and the logits are held
+             only before the first of them (:func:`moe_vs_plain`).
 
 Every serve engine replays its decode step as one CUDA graph, captured
 after the eager first step.  Each serve phase checks, per engine, one
@@ -106,7 +122,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
-PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm")
+PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
+          "serve_moe")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -536,7 +553,8 @@ def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     shapes = {"stablelm-3b": dict(H=32, KVH=32, d=80),
-              "gqa-40:8": dict(H=40, KVH=8, d=128)}
+              "gqa-40:8": dict(H=40, KVH=8, d=128),
+              "olmoe-1b-7b": dict(H=16, KVH=16, d=128)}
     B, ps, N = 8, 16, 64
     lengths = [1024, 777, 512, 300, 129, 64, 1, 600]   # last: retired slot
     results = []
@@ -951,6 +969,16 @@ def ssd_min_flops(S, H, P, N, with_h0, max_chunk=256):
 # phase 3: serve full-width stablelm-3b
 
 
+# the paged serve phases' engine and traffic: a 384-token shared prefix,
+# then 8 concurrent requests with these suffix lengths and 32 new tokens
+# each
+SERVE_ENGINE = dict(max_slots=8, max_len=1024, page_size=16,
+                    prefill_chunk=256, prefix_cache_budget=256 << 20,
+                    device="cuda")
+SERVE_PREFIX = 384
+SERVE_SUFFIXES = (32, 41, 50, 59, 68, 77, 86, 96)
+
+
 def phase_serve(seed):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -964,12 +992,11 @@ def phase_serve(seed):
     params = model.init(seed, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    engine = ServingEngine(model, params, max_slots=8, max_len=1024,
-                           page_size=16, prefill_chunk=256,
-                           prefix_cache_budget=256 << 20, device="cuda")
+    engine = ServingEngine(model, params, **SERVE_ENGINE)
     rng = np.random.RandomState(seed)
-    prefix = [int(t) for t in rng.randint(0, cfg.vocab_size, size=384)]
-    suf_lens = [32, 41, 50, 59, 68, 77, 86, 96]
+    prefix = [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                          size=SERVE_PREFIX)]
+    suf_lens = SERVE_SUFFIXES
     prompts = [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size,
                                                      size=n)]
                for n in suf_lens]
@@ -982,35 +1009,12 @@ def phase_serve(seed):
 
     st = engine.stats()
     L = cfg.num_layers
-    for i, o in enumerate(outs):
-        if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
-            fail(f"request {i}: {len(o)} tokens, or a token outside the vocab")
-    if st["prefill_tokens_reused"] <= 0:
-        fail("the shared prefix was not reused")
-    if st["kv_admit_copies"] != 0:
-        fail(f"kv_admit_copies {st['kv_admit_copies']} != 0")
-    if launches["paged_decode_attention"] != L * st["steps"]:
-        fail(f"paged decode launched {launches['paged_decode_attention']} "
-             f"times for {st['steps']} decode steps of {L} layers")
-    if launches["flash_attention"] != L * st["prefill_chunks"]:
-        fail(f"flash launched {launches['flash_attention']} times for "
-             f"{st['prefill_chunks']} prefill chunks of {L} layers")
-    graph = check_graph("serve", st["decode_graph"], st["steps"],
-                        {"paged_decode_attention": L})
+    graph = check_paged_serve("serve", cfg, st, outs, launches)
 
     # -- one prefill and one decode step, kernels vs plain versions
     prompt = prompts[-1]
     comparisons, inp = kernel_vs_plain(model, params, prompt)
-    with torch.no_grad():
-        # prefill-chunk times at the serve phase's shapes
-        chunk_ms = {
-            "cold_256": call_ms(lambda: model.prefill(
-                params, {"tokens": inp["tokens"][:, :256]}, capacity=256),
-                warmup=1, reps=5),
-            "prefix512_suffix128": call_ms(lambda: model.prefill(
-                params, {"tokens": inp["suffix"]}, capacity=128,
-                **inp["prefix_kw"]), warmup=1, reps=5),
-        }
+    chunk_ms = prefill_chunk_ms(model, params, inp)
 
     # a second wave of requests over the warm prefix, under the profiler
     wave = [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size,
@@ -1064,6 +1068,47 @@ def phase_serve(seed):
           "profiled_wave": profile, "traced_wave": traced,
           "contiguous": contiguous, "peak_memory_gb": peak_gb})
     return launches
+
+
+def prefill_chunk_ms(model, params, inp):
+    """Milliseconds of a cold 256-token prefill chunk and of a 128-token
+    suffix over a 512-padded prefix, host work included (``inp`` from
+    :func:`kernel_vs_plain`)."""
+    with torch.no_grad():
+        return {
+            "cold_256": call_ms(lambda: model.prefill(
+                params, {"tokens": inp["tokens"][:, :256]}, capacity=256),
+                warmup=1, reps=5),
+            "prefix512_suffix128": call_ms(lambda: model.prefill(
+                params, {"tokens": inp["suffix"]}, capacity=128,
+                **inp["prefix_kw"]), warmup=1, reps=5),
+        }
+
+
+def check_paged_serve(label, cfg, st, outs, launches):
+    """A paged engine's first warm-prefix fan-out: 32 in-vocab tokens a
+    request, the prefix reused, no KV copied at admission, one paged
+    decode launch per layer per decode step and one flash launch per
+    layer per prefill chunk, and the decode graph (:func:`check_graph`).
+    → the graph's stats."""
+    L = cfg.num_layers
+    for i, o in enumerate(outs):
+        if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
+            fail(f"{label} request {i}: {len(o)} tokens, or a token outside "
+                 f"the vocab")
+    if st["prefill_tokens_reused"] <= 0:
+        fail(f"{label}: the shared prefix was not reused")
+    if st["kv_admit_copies"] != 0:
+        fail(f"{label}: kv_admit_copies {st['kv_admit_copies']} != 0")
+    if launches["paged_decode_attention"] != L * st["steps"]:
+        fail(f"{label}: paged decode launched "
+             f"{launches['paged_decode_attention']} times for "
+             f"{st['steps']} decode steps of {L} layers")
+    if launches["flash_attention"] != L * st["prefill_chunks"]:
+        fail(f"{label}: flash launched {launches['flash_attention']} times "
+             f"for {st['prefill_chunks']} prefill chunks of {L} layers")
+    return check_graph(label, st["decode_graph"], st["steps"],
+                       {"paged_decode_attention": L})
 
 
 def contiguous_opt_out(model, params, prefix, prompts, paged_outs,
@@ -1686,6 +1731,193 @@ def wrapper_times(rows):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serve full-width olmoe-1b-7b (paged engine, MoE)
+
+def phase_serve_moe(seed):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("olmoe-1b-7b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, params, **SERVE_ENGINE)
+    rng = np.random.RandomState(seed)
+    prefix = [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                          size=SERVE_PREFIX)]
+
+    def wave():
+        return [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                      size=n)]
+                for n in SERVE_SUFFIXES]
+    prompts = wave()
+    counters = launch_counters()
+    outs, launches, serve_s = serve_counted(engine, prompts, 32, counters,
+                                            warm=prefix)
+    launches = {n: launches[n] for n in ("paged_decode_attention",
+                                         "flash_attention")}
+    st = engine.stats()
+    graph = check_paged_serve("serve_moe", cfg, st, outs, launches)
+    first_wave = decode_stats(engine)
+
+    # one prefill and one decode step, kernels vs plain versions (bf16,
+    # printed only), with each layer's routing on both paths
+    bf16 = moe_vs_plain(model, params, prompts[-1], None, "bf16")
+    inp = bf16.pop("inputs")
+    chunk_ms = prefill_chunk_ms(model, params, inp)
+    # the assignments the capacity bound drops in one 256-token chunk
+    log = []
+    with torch.no_grad(), record_routing(log):
+        model.prefill(params, {"tokens": inp["tokens"][:, :256]},
+                      capacity=256)
+    K = cfg.num_experts_per_tok
+    chunk_drops = {"tokens": 256, "capacity": moe.expert_capacity(cfg, 256),
+                   "assignments_per_layer": 256 * K,
+                   "dropped_per_layer": [r["dropped"] for r in log],
+                   "max_load_per_layer": [r["max_load"] for r in log],
+                   "dropped": sum(r["dropped"] for r in log)}
+
+    profile = profile_wave(engine, wave(), "serve_moe_profile.txt")
+    dec = sorted(engine.decode_step_s)
+    graph["vs_eager"] = graph_vs_eager("serve_moe", engine, seed)
+    del engine, params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same model in float32 (27.7 GB): the kernel path must match the
+    # plain one at positions before any routing near-tie tips
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = model32.init(seed, device="cuda", dtype=torch.float32)
+    f32 = moe_vs_plain(model32, params32, prompts[-1], LOGITS_TOL_F32,
+                       "f32")
+    f32.pop("inputs")
+    del params32
+    # every weight but the embedding table, read once a decode step
+    weight_bytes = 2 * (model.num_params() - cfg.vocab_padded * cfg.d_model)
+
+    emit({"phase": "serve_moe", "model": cfg.name,
+          "layers": cfg.num_layers, "experts": cfg.num_experts,
+          "top_k": K, "capacity_factor": cfg.moe_capacity_factor,
+          "params": model.num_params(), "init_s": init_s,
+          "serve_s": serve_s, "requests": len(prompts),
+          "new_tokens": sum(len(o) for o in outs),
+          "decode_steps": st["steps"],
+          "decode_step_median_ms": statistics.median(dec) * 1e3,
+          "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
+          "decode_step_byte_floor_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+          "decode_tokens_per_s": st["decode_tokens"] / max(sum(dec), 1e-9),
+          "decode_s": first_wave["decode_s"],
+          "first_step_ms": first_wave["first_step_ms"],
+          "prefill_chunks": st["prefill_chunks"],
+          "prefill_chunk_ms": chunk_ms,
+          "prefill_tokens_computed": st["prefill_tokens_computed"],
+          "prefill_tokens_reused": st["prefill_tokens_reused"],
+          "kv_admit_copies": st["kv_admit_copies"],
+          "paged": st["paged"], "launches": launches, "graph": graph,
+          "chunk_drops": chunk_drops,
+          "vs_plain": {"bfloat16": bf16, "float32": f32},
+          "profiled_wave": profile, "peak_memory_gb": peak_gb})
+    return launches
+
+
+def record_routing(log):
+    """Patch the MoE layer to append, for each call, the experts each
+    token chose (as a sorted set), the gap between each token's K-th and
+    (K+1)-th router probability, the assignments the capacity bound
+    dropped and the most any expert was sent.  → the patch, a context
+    manager."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+    apply = moe.apply_moe
+
+    def recorded(cfg, p, x):
+        K = cfg.num_experts_per_tok
+        probs, _, idx = moe.route(cfg, p, x.reshape(-1, x.shape[-1]))
+        top = probs.topk(K + 1, dim=-1).values
+        keep = moe.queue_positions(idx, cfg.num_experts) \
+            < moe.expert_capacity(cfg, idx.shape[0])
+        log.append({"experts": idx.sort(-1).values,
+                    "gap": top[:, K - 1] - top[:, K],
+                    "dropped": int((~keep).sum()),
+                    "max_load": int(torch.bincount(
+                        idx.reshape(-1), minlength=cfg.num_experts).max())})
+        return apply(cfg, p, x)
+    return mock.patch.object(moe, "apply_moe", recorded)
+
+
+def routing_diffs(kern, plain):
+    """The tokens whose expert set differs between two runs' routing logs
+    (:func:`record_routing`, one entry per layer): (position, layer, the
+    plain run's K-th − (K+1)-th probability gap there), by position."""
+    diffs = []
+    for layer, (a, b) in enumerate(zip(kern, plain)):
+        rows = (a["experts"] != b["experts"]).any(-1).nonzero()[:, 0]
+        diffs += [(int(j), layer, float(b["gap"][j])) for j in rows]
+    return sorted(diffs)
+
+
+# the cases of moe_vs_plain, in the order they call the model (each
+# through the kernels, then through the plain versions)
+MOE_CASES = ("prefill_full", "prefill_prefix", "decode_step", "forward")
+
+
+def moe_vs_plain(model, params, prompt, tol, label, plen=384):
+    """:func:`kernel_vs_plain` for an MoE model plus the full forward's
+    logits at every position, with each layer's routing recorded on both
+    paths.  Where the paths' last-bit differences tip a router near-tie,
+    a token's top-k set differs: its output changes by a whole expert,
+    and so do the later tokens (through attention and the capacity
+    queue).  So the logits are held (``tol``; None prints only) at the
+    positions before the first token whose set differs in any layer: the
+    forward's rows before it, and a last-position case only if its
+    position comes before it.  → a report per case: the agreement, the
+    positions held, and the differing (layer, position, K-th − (K+1)-th
+    probability gap), the first 8; plus ``inputs`` for the caller."""
+    L = model.cfg.num_layers
+    n = len(prompt)
+    log = []
+    with record_routing(log):
+        comparisons, inp = kernel_vs_plain(model, params, prompt, plen=plen)
+        with torch.no_grad():
+            lf_k, _ = model.forward(params, {"tokens": inp["tokens"]})
+            with plain_kernels():
+                lf_p, _ = model.forward(params, {"tokens": inp["tokens"]})
+    comparisons["forward"] = (lf_k[0], lf_p[0])
+    if len(log) != 2 * len(MOE_CASES) * L:
+        fail(f"{label}: {len(log)} MoE calls recorded, want "
+             f"{2 * len(MOE_CASES) * L}")
+    last = {"prefill_full": n - 1, "prefill_prefix": n - plen - 1,
+            "decode_step": 0}
+    report = {}
+    for c, name in enumerate(MOE_CASES):
+        diffs = routing_diffs(log[2 * c * L:(2 * c + 1) * L],
+                              log[(2 * c + 1) * L:(2 * c + 2) * L])
+        first = diffs[0][0] if diffs else None
+        a, b = comparisons[name]
+        if name == "forward":
+            held = n if first is None else first
+            if held == 0:
+                fail(f"{label} forward: routing differs at position 0")
+            a, b = a[:held], b[:held]
+        else:
+            held = int(first is None or last[name] < first)
+        agree = logits_agreement({name: (a, b)}, model.cfg.vocab_size,
+                                 tol, label)[name] if held else None
+        report[name] = {"logits": agree, "positions_held": held,
+                        "routing_diffs": len(diffs),
+                        "first_diffs": [
+                            {"position": j, "layer": layer, "gap": gap}
+                            for j, layer, gap in diffs[:8]]}
+    report["inputs"] = inp
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1725,7 +1957,8 @@ def main(argv=None):
     if "serve" in phases:
         launches = timed("serve", phase_serve, args.seed)
     for name, fn in (("serve_hybrid", phase_serve_hybrid),
-                     ("serve_ssm", phase_serve_ssm)):
+                     ("serve_ssm", phase_serve_ssm),
+                     ("serve_moe", phase_serve_moe)):
         if name in phases:
             more = timed(name, fn, args.seed)
             launches = {n: launches.get(n, 0) + more.get(n, 0)

@@ -113,12 +113,13 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """A tiny same-family config for CPU tests: the reference's
-        ``reduced()`` (float32, d_model 64; hybrid configs keep one
-        (rglru, rglru, attn) super-block at lru_width 64, ssm configs drop
-        the attention heads).  Families the port does not run yet raise."""
-        if self.family not in ("dense", "hybrid", "ssm"):
+        ``reduced()`` (float32, d_model 64; MoE configs keep 8 experts at a
+        dropless capacity factor of 8.0, hybrid configs one (rglru, rglru,
+        attn) super-block at lru_width 64, ssm configs drop the attention
+        heads).  Families the port does not run yet raise."""
+        if self.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"{self.family} configs wait for ROADMAP.md §A.7-A.9")
+                f"{self.family} configs wait for ROADMAP.md §A.9")
         kw = dict(
             num_layers=2,
             d_model=64,
@@ -131,8 +132,10 @@ class ModelConfig:
             ssm_state=16 if self.ssm_state else 0,
             ssm_headdim=16 if self.ssm_state else 64,
             ssm_chunk=8,
-            moe_capacity_factor=1.25,
+            num_experts=8 if self.num_experts else 0,
             num_experts_per_tok=min(self.num_experts_per_tok, 2),
+            # dropless at smoke scale: capacity >= any expert's load
+            moe_capacity_factor=8.0 if self.num_experts else 1.25,
             dtype="float32",
             remat="none",
         )

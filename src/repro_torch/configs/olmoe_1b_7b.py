@@ -1,0 +1,19 @@
+"""OLMoE-1B-7B — MoE decoder, 64 experts top-8, qk-norm.
+d_ff=1024 is the per-expert intermediate size. [arXiv:2409.02060; hf]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    num_layers=16,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=128,
+    d_ff=1024,
+    vocab_size=50304,
+    qk_norm=True,
+    num_experts=64,
+    num_experts_per_tok=8,
+)

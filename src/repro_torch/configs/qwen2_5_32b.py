@@ -1,0 +1,18 @@
+"""Qwen2.5-32B — dense GQA decoder with QKV bias.
+[hf:Qwen/Qwen2.5 family; hf-verified]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    num_layers=64,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=27648,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)

@@ -1,5 +1,6 @@
-"""Decoder-only language model: the dense attention family, the hybrid
-RG-LRU/local-attention family and the Mamba-2 SSM family.
+"""Decoder-only language model: the dense attention family, the MoE
+family, the hybrid RG-LRU/local-attention family and the Mamba-2 SSM
+family.
 
 Counterpart of ``repro/models/lm.py``.  Parameters keep the reference's
 layer grouping: ``layers/b{i}`` holds the stacked ``[n_groups, ...]``
@@ -9,9 +10,10 @@ and ``tail{i}`` the unrolled remainder blocks; layers run in a Python loop
 in that order.
 
 Two cache layouts:
-- the **paged** and **prefix-aware** path of the dense family (the
-  default engine path) keeps flat ``{"k", "v"}`` leaves: ``[L, B, T, KVH,
-  hd]`` from :func:`prefill`, pools ``[L, P, ps, KVH, hd]``;
+- the **paged** and **prefix-aware** path of the attention-only families
+  (dense and MoE; the default engine path) keeps flat ``{"k", "v"}``
+  leaves: ``[L, B, T, KVH, hd]`` from :func:`prefill`, pools ``[L, P,
+  ps, KVH, hd]``;
 - the **contiguous** path (SSM, hybrid, int8-KV and windowed models,
   whose state cannot be cut by position) keeps the reference's grouped tree
   (:func:`init_cache`): ``{"layers": {"b{i}": leaves [n_groups, B, ...]},
@@ -26,21 +28,25 @@ import torch.nn.functional as F
 
 from . import attention as att
 from . import mlp as mlpmod
+from . import moe as moemod
 from . import rglru as rgmod
 from . import ssd as ssdmod
 from .common import PSpec, apply_norm, norm_schema, stack_schema
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md §A.7 (MoE)",
     "enc_dec": "ROADMAP.md §A.9 (encoder-decoder)",
     "vlm": "ROADMAP.md §A.9 (pixtral patch_stub)",
 }
 
 
+# families whose every block is global attention plus a feed-forward
+ATTENTION_ONLY = ("dense", "moe")
+
+
 def check_family(cfg):
-    """The port runs the dense, hybrid and SSM families; everything else
-    raises naming the ROADMAP item that ports it."""
-    if cfg.family not in ("dense", "hybrid", "ssm"):
+    """The port runs the dense, MoE, hybrid and SSM families; everything
+    else raises naming the ROADMAP item that ports it."""
+    if cfg.family not in ATTENTION_ONLY + ("hybrid", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
             f"{_NOT_PORTED.get(cfg.family, 'ROADMAP.md §A')}")
@@ -50,8 +56,8 @@ def is_contiguous(cfg) -> bool:
     """True when the serving cache cannot be cut by position (recurrent
     state, ring buffers, int8 KV): such models use the grouped contiguous
     cache and exact-length prefill."""
-    return (cfg.family != "dense" or cfg.kv_cache_dtype == "int8"
-            or bool(cfg.attn_window))
+    return (cfg.family not in ATTENTION_ONLY
+            or cfg.kv_cache_dtype == "int8" or bool(cfg.attn_window))
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +69,8 @@ def block_kinds(cfg) -> list:
     check_family(cfg)
     if cfg.family == "dense":
         return ["attn_mlp"] * cfg.num_layers
+    if cfg.family == "moe":
+        return ["attn_moe"] * cfg.num_layers
     if cfg.family == "ssm":
         return ["ssd"] * cfg.num_layers
     pat = list(cfg.block_pattern)
@@ -88,6 +96,9 @@ def block_schema(cfg, kind: str) -> dict:
     if kind in ("attn_mlp", "attn_mlp_local"):
         return {"ln1": norm_schema(cfg), "attn": att.attn_schema(cfg),
                 "ln2": norm_schema(cfg), "mlp": mlpmod.mlp_schema(cfg)}
+    if kind == "attn_moe":
+        return {"ln1": norm_schema(cfg), "attn": att.attn_schema(cfg),
+                "ln2": norm_schema(cfg), "moe": moemod.moe_schema(cfg)}
     if kind == "rglru_mlp":
         return {"ln1": norm_schema(cfg), "rglru": rgmod.rglru_schema(cfg),
                 "ln2": norm_schema(cfg), "mlp": mlpmod.mlp_schema(cfg)}
@@ -175,14 +186,25 @@ _RECURRENT = {"rglru_mlp": ("rglru", rgmod.apply_rglru),
               "ssd": ("ssd", ssdmod.apply_ssd)}
 
 
+def feed_forward(cfg, kind, p, h):
+    """The block's second half: h + FFN(norm(h)) → (h, the MoE layer's
+    Switch aux loss, or None for an MLP)."""
+    x = apply_norm(cfg, p["ln2"], h)
+    if kind == "attn_moe":
+        m, aux = moemod.apply_moe(cfg, p["moe"], x)
+        return h + m, aux
+    return h + mlpmod.apply_mlp(cfg, p["mlp"], x), None
+
+
 def apply_block(cfg, kind, p, h, positions, *, fill=None, return_kv=False,
                 prefix_kv=None, prefix_len=0):
-    """One block over a full sequence → (h, cache).  With ``fill`` (a
+    """One block over a full sequence → (h, cache, aux).  With ``fill`` (a
     cache capacity) the cache is the block's decode cache: packed K/V
     placed in ``min(fill, window)`` slots for attention, the final state
     for RG-LRU and SSD.  With ``return_kv`` it is an attention block's raw
-    (k, v); ``prefix_kv``/``prefix_len`` are dense prefix-aware prefill's
-    (see :func:`att.full_attention`).  Otherwise it is None."""
+    (k, v); ``prefix_kv``/``prefix_len`` are prefix-aware prefill's
+    (see :func:`att.full_attention`).  Otherwise it is None.  ``aux`` is
+    an MoE block's Switch aux loss, else None."""
     x = apply_norm(cfg, p["ln1"], h)
     cache = None
     if kind in _RECURRENT:
@@ -201,18 +223,22 @@ def apply_block(cfg, kind, p, h, positions, *, fill=None, return_kv=False,
         elif return_kv:
             cache = kv
     h = h + mix
-    if kind != "ssd":
-        h = h + mlpmod.apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h))
-    return h, cache
+    if kind == "ssd":   # pre-norm only: no feed-forward after the mixer
+        return h, cache, None
+    h, aux = feed_forward(cfg, kind, p, h)
+    return h, cache, aux
 
 
 def forward(cfg, params, batch):
-    """Teacher-forcing forward → (logits [B,S,V], aux_loss)."""
+    """Teacher-forcing forward → (logits [B,S,V], aux_loss: the sum of
+    the MoE layers' Switch losses, 0 without MoE layers)."""
     h, positions = embed_inputs(cfg, params, batch)
-    for kind, p in blocks(cfg, params):
-        h, _ = apply_block(cfg, kind, p, h, positions)
-    h = apply_norm(cfg, params["final_norm"], h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for kind, p in blocks(cfg, params):
+        h, _, a = apply_block(cfg, kind, p, h, positions)
+        if a is not None:
+            aux = aux + a
+    h = apply_norm(cfg, params["final_norm"], h)
     return logits_from_hidden(cfg, params, h), aux
 
 
@@ -239,7 +265,7 @@ def prefill(cfg, params, batch, capacity, *, prefix=None, prefix_len=None,
     K/V packed and placed in ring slots, RG-LRU and SSD final states with
     their conv histories).
 
-    Dense models: flat ``{"k", "v"}: [L, B, capacity, KVH, hd]``.  In
+    Dense/MoE models: flat ``{"k", "v"}: [L, B, capacity, KVH, hd]``.  In
     prefix-aware mode ``prefix`` holds already-prefilled K/V ``[L, B,
     Tpad, KVH, hd]`` whose first ``prefix_len`` positions are valid; the
     batch then holds only the prompt suffix, whose positions start at
@@ -248,7 +274,8 @@ def prefill(cfg, params, batch, capacity, *, prefix=None, prefix_len=None,
     the last)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    if capacity < S and any(k == "attn_mlp" for k in block_kinds(cfg)):
+    if capacity < S and any(k in ("attn_mlp", "attn_moe")
+                            for k in block_kinds(cfg)):
         raise ValueError(f"capacity {capacity} < prompt length {S}")
     h, positions = embed_inputs(cfg, params, batch)
     plen = int(prefix_len or 0)
@@ -259,18 +286,19 @@ def prefill(cfg, params, batch, capacity, *, prefix=None, prefix_len=None,
                              f"positionally sliceable cache")
         caches = []
         for kind, p in blocks(cfg, params):
-            h, c = apply_block(cfg, kind, p, h, positions, fill=capacity)
+            h, c, _ = apply_block(cfg, kind, p, h, positions,
+                                  fill=capacity)
             caches.append(c)
         cache = _group_caches(cfg, caches)
     else:
         ks, vs = [], []
-        for i, (_, p) in enumerate(blocks(cfg, params)):
+        for i, (kind, p) in enumerate(blocks(cfg, params)):
             kw = {}
             if prefix is not None:
                 kw = {"prefix_kv": (prefix["k"][i], prefix["v"][i]),
                       "prefix_len": plen}
-            h, (k, v) = apply_block(cfg, "attn_mlp", p, h, positions,
-                                    return_kv=True, **kw)
+            h, (k, v), _ = apply_block(cfg, kind, p, h, positions,
+                                       return_kv=True, **kw)
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -338,7 +366,7 @@ def decode_block(cfg, kind, p, h, cache, positions):
     else:
         h = h + att.decode_attention(cfg, p["attn"], x, cache, positions,
                                      window=_window(cfg, kind))
-    return h + mlpmod.apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h))
+    return feed_forward(cfg, kind, p, h)[0]
 
 
 def decode_step(cfg, params, cache, tokens, positions):
@@ -353,7 +381,7 @@ def decode_step(cfg, params, cache, tokens, positions):
 
 
 # ---------------------------------------------------------------------------
-# paged decode (dense family, block-paged KV pools)
+# paged decode (dense and MoE families, block-paged KV pools)
 
 
 def init_paged_cache(cfg, num_pages, page_size, device):
@@ -372,11 +400,11 @@ def decode_step_paged(cfg, params, cache, tokens, positions, page_table):
     [B], page_table [B,N] int32 (shared by every layer).  Writes the
     step's K/V into ``cache`` in place and returns (logits [B,V], cache)."""
     h = params["embed"].to(cfg.activation_dtype)[tokens.long()]
-    for i, (_, p) in enumerate(blocks(cfg, params)):
+    for i, (kind, p) in enumerate(blocks(cfg, params)):
         layer_kv = {"k": cache["k"][i], "v": cache["v"][i]}
         h = h + att.paged_decode_attention(
             cfg, p["attn"], apply_norm(cfg, p["ln1"], h), layer_kv,
             positions, page_table)
-        h = h + mlpmod.apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h))
+        h = feed_forward(cfg, kind, p, h)[0]
     h = apply_norm(cfg, params["final_norm"], h)
     return logits_from_hidden(cfg, params, h)[:, 0], cache

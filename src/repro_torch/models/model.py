@@ -1,5 +1,5 @@
-"""Model facade: one object per architecture config (dense, hybrid and
-SSM families)."""
+"""Model facade: one object per architecture config (dense, MoE, hybrid
+and SSM families)."""
 
 from __future__ import annotations
 
@@ -61,8 +61,9 @@ class Model:
         per-position KV reuse is unsound: recurrent/hybrid state is not
         positionally sliceable, windowed attention uses ring buffers and
         int8 KV would make cached and cold prefills differ.  Such models
-        are served from the contiguous cache.  The dense cache leaves are
-        ``[L, B, T, KVH, hd]``: axis 2."""
+        are served from the contiguous cache.  The cache leaves of the
+        attention-only families (dense and MoE) are ``[L, B, T, KVH,
+        hd]``: axis 2."""
         lm.check_family(self.cfg)
         if lm.is_contiguous(self.cfg):
             return None

@@ -7,7 +7,7 @@ through ``Model.prefill``.  Everything is asyncio — PopPy's bursts of
 parallel ``llm()`` calls land here and share decode steps.  Two layouts,
 chosen by the model as the reference chooses them:
 
-- **paged** (models whose KV can be cut by position: dense attention with
+- **paged** (models whose KV can be cut by position: dense/MoE attention with
   unquantized KV): KV lives in a page pool shared by all slots (``[L, P,
   ps, KVH, hd]``); page 0 is scratch, a per-slot page table maps
   positions to pages, the radix trie (:class:`PagedPrefixCache`) shares
@@ -334,7 +334,7 @@ class ServingEngine:
         self.cache = model.init_cache(max_slots, max_len, device=self.device)
         self.prefix_cache = None
         if self._paged:
-            # the dense model's grouped cache is one block kind stacked
+            # a dense or MoE model's grouped cache is one block kind stacked
             # over its layers: {"k", "v"} [L, max_slots, max_len, KVH, hd],
             # the prefill KV's layout with the batch axis as the slot axis
             self._slot_kv = self.cache["layers"]["b0"]

@@ -252,3 +252,44 @@ def test_clone_tree_copies_dicts_and_tuples():
     assert [t.tolist() for t in flat] == [t.tolist() for t in flat_copy] \
         == [[0.0, 0.0], [1.0, 1.0], [2.0, 2.0, 2.0]]
     assert all(a.data_ptr() != b.data_ptr() for a, b in zip(flat, flat_copy))
+
+
+def test_record_routing_logs_each_moe_call():
+    """The routing patch logs each MoE call's expert sets, the K-th −
+    (K+1)-th probability gaps and the drops, and leaves the output
+    alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("olmoe-1b-7b").reduced().replace(
+        moe_capacity_factor=1.25)
+    gen = torch.Generator().manual_seed(0)
+    p = {k: torch.randn(*s, generator=gen) / 8 for k, s in {
+        "router": (64, 8), "w_gate": (8, 64, 128), "w_up": (8, 64, 128),
+        "w_down": (8, 128, 64)}.items()}
+    x = torch.randn(2, 12, 64, generator=gen)
+    log = []
+    with chip_smoke.record_routing(log):
+        y, _ = moe.apply_moe(cfg, p, x)
+    assert moe.apply_moe(cfg, p, x)[0].equal(y) and len(log) == 1
+    probs, _, idx = moe.route(cfg, p, x.reshape(24, 64))
+    assert log[0]["experts"].equal(idx.sort(-1).values)
+    top = probs.sort(-1, descending=True).values
+    assert log[0]["gap"].equal(top[:, 1] - top[:, 2])
+    load = torch.bincount(idx.reshape(-1), minlength=8)
+    assert log[0]["dropped"] == int((load - 7).clamp(min=0).sum())
+    assert log[0]["max_load"] == int(load.max())
+
+
+def test_routing_diffs_order_by_position():
+    """Tokens whose expert set differs, in any layer, by position; the
+    gap comes from the second run."""
+    def entry(sets, gaps):
+        return {"experts": torch.tensor(sets), "gap": torch.tensor(gaps)}
+    kern = [entry([[0, 1], [2, 3], [1, 4]], [0.1, 0.2, 0.3]),
+            entry([[0, 1], [2, 3], [1, 4]], [0.1, 0.2, 0.3])]
+    plain = [entry([[0, 1], [2, 3], [1, 5]], [0.1, 0.2, 1e-7]),
+             entry([[0, 1], [2, 4], [1, 4]], [0.1, 2e-7, 0.3])]
+    got = chip_smoke.routing_diffs(kern, plain)
+    assert [(j, layer) for j, layer, _ in got] == [(1, 1), (2, 0)]
+    assert [g for _, _, g in got] == pytest.approx([2e-7, 1e-7])
+    assert chip_smoke.routing_diffs(kern, kern) == []

@@ -1,4 +1,5 @@
-"""The port's dense LM against the JAX package, on the same parameters.
+"""The port's dense and MoE LMs against the JAX package, on the same
+parameters.
 
 JAX initializes (its init seeds from ``hash(path)``, which changes per
 process), the tree goes to the port through ``convert.from_jax``, and the
@@ -24,13 +25,15 @@ from repro.configs import get_config as get_config_jax  # noqa: E402
 from repro.models import build_model as build_jax  # noqa: E402
 from repro.models import common as common_jax  # noqa: E402
 from repro.models import mlp as mlp_jax  # noqa: E402
+from repro.models import moe as moe_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import common, mlp  # noqa: E402
+from repro_torch.models import common, mlp, moe  # noqa: E402
 from repro_torch.models.convert import from_jax, to_numpy  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["stablelm-3b", "qwen3-14b"]
+ARCHS = ["stablelm-3b", "qwen3-14b", "qwen2.5-32b", "yi-34b",
+         "olmoe-1b-7b", "qwen3-moe-30b-a3b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -137,21 +140,34 @@ def test_norms_rope_mlp_match_reference(pair):
     np.testing.assert_allclose(
         common.apply_rope(t(xh), ct, st).numpy(),
         np.asarray(common_jax.apply_rope(jnp.asarray(xh), cj, sj)), **TOL)
-    p_np = jax.tree.map(lambda a: a[0], params_np["layers"]["b0"]["mlp"])
-    p_t = {k: v[0] for k, v in params_t["layers"]["b0"]["mlp"].items()}
-    np.testing.assert_allclose(
-        mlp.apply_mlp(cfg, p_t, t(x)).numpy(),
-        np.asarray(mlp_jax.apply_mlp(cfg, jax.tree.map(jnp.asarray, p_np),
-                                     jnp.asarray(x))), **TOL)
+    # the feed-forward: an MLP, or an MoE layer with its aux loss
+    ffn = "moe" if cfg.family == "moe" else "mlp"
+    p_np = jax.tree.map(lambda a: a[0], params_np["layers"]["b0"][ffn])
+    p_t = {k: v[0] for k, v in params_t["layers"]["b0"][ffn].items()}
+    p_j = jax.tree.map(jnp.asarray, p_np)
+    if ffn == "mlp":
+        np.testing.assert_allclose(
+            mlp.apply_mlp(cfg, p_t, t(x)).numpy(),
+            np.asarray(mlp_jax.apply_mlp(cfg, p_j, jnp.asarray(x))), **TOL)
+        return
+    cfg_j = get_config_jax(cfg.name).reduced()
+    yj, auxj = moe_jax.apply_moe(cfg_j, p_j, jnp.asarray(x))
+    yt, auxt = moe.apply_moe(cfg, p_t, t(x))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
+    np.testing.assert_allclose(float(auxt), float(auxj), **TOL)
 
 
 def test_forward_logits_match(pair):
     cfg, mj, params_j, _, mt, params_t = pair
     toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 12))
-    lj, _ = mj.forward(params_j, {"tokens": jnp.asarray(toks, jnp.int32)})
+    lj, auxj = mj.forward(params_j,
+                          {"tokens": jnp.asarray(toks, jnp.int32)})
     with torch.no_grad():
-        lt, _ = mt.forward(params_t, {"tokens": t(toks.astype(np.int32))})
+        lt, auxt = mt.forward(params_t, {"tokens": t(toks.astype(np.int32))})
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    # the sum of the MoE layers' Switch losses (0 for a dense model)
+    np.testing.assert_allclose(float(auxt), float(auxj), **TOL)
+    assert (float(auxt) > 0) == (cfg.family == "moe")
 
 
 def _jax_kv(cache):
@@ -224,25 +240,30 @@ def test_decode_steps_through_shuffled_page_table(pair):
 
 
 def test_unported_families_raise():
-    """MoE, encoder-decoder and VLM models raise naming the ROADMAP item
-    that ports them; the hybrid and SSM families no longer do."""
+    """Encoder-decoder and VLM models raise naming the ROADMAP item that
+    ports them; the MoE, hybrid and SSM families no longer do, and MoE
+    takes the paged layout like the dense family."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import lm
-    moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
-                      num_heads=2, num_kv_heads=2, head_dim=4, d_ff=8,
-                      vocab_size=300)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.lm_schema(moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe).prefix_seq_axes()
+    base = ModelConfig(name="m", family="enc_dec", num_layers=1, d_model=8,
+                       num_heads=2, num_kv_heads=2, head_dim=4, d_ff=8,
+                       vocab_size=300)
     for family in ("enc_dec", "vlm"):
-        other = moe.replace(family=family)
+        other = base.replace(family=family)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.lm_schema(other)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(other).prefix_seq_axes()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.reduced()
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            other.reduced()
+    for name in ("olmoe-1b-7b", "qwen3-moe-30b-a3b"):
+        red = get_config(name).reduced()
+        assert (red.num_experts, red.moe_capacity_factor) == (8, 8.0)
+        assert build_model(red).prefix_seq_axes() == {"k": 2, "v": 2}
+        assert not lm.is_contiguous(red)
+        assert lm.block_kinds(red) == ["attn_moe"] * red.num_layers
+        assert lm.lm_schema(red)["layers"]["b0"].keys() \
+            == {"ln1", "attn", "ln2", "moe"}
     hybrid = get_config("recurrentgemma-9b").reduced()
     assert build_model(hybrid).prefix_seq_axes() is None
     assert lm.lm_schema(hybrid)["layers"].keys() == {"b0", "b1", "b2"}
