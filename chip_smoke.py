@@ -29,7 +29,14 @@ Phases, each printing one JSON line:
              bound counts only the products the row's own decays leave
              nonzero (``needed_flops``), at the f32 rate and, as
              ``bound_3xtf32_ms``, at the 3xTF32 rate.  Paged decode and
-             flash also run at olmoe-1b-7b's shape (16 heads of 128).
+             flash also run at olmoe-1b-7b's shape (16 heads of 128) and
+             pixtral-12b's (32 heads over 8 of 160); flash without a
+             causal mask at whisper-medium's encoder (S = T = 1500) and
+             prefill cross-attention (4 rows over 1500 frames), and
+             causal at its decoder's prefill self-attention (S = T = 4),
+             each with NaN past the inputs' last rows giving a bit-equal
+             output, and decode attention at its self cache (C = 448)
+             and cross memory (C = 1500, every slot valid).
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -41,11 +48,13 @@ Phases, each printing one JSON line:
              relative L2 error (bf16's reading is printed, not held).
              A profiled second wave, and a third under
              ``repro_torch.obs.tracing()`` (one ``decode.step`` span per
-             step).  Then the same fan-out through a second engine on the
-             same weights with ``kv_layout="contiguous"`` (4 slots of
-             1024): exact launches (contiguous decode attention per
-             layer per step, flash per layer per chunk, no paged decode),
-             one KV splice per admission, the prefix reused; its tokens'
+             step) with the port's critical-path report over its spans
+             (segments summing to the wall time).  Then the same fan-out
+             through a second engine on the same weights with
+             ``kv_layout="contiguous"`` (4 slots of 1024): exact launches
+             (contiguous decode attention per layer per step, flash per
+             layer per chunk, no paged decode), one KV splice per
+             admission, the prefix reused; its tokens'
              agreement with the paged engine's is printed.
 4. serve_hybrid — full-width recurrentgemma-9b (38 blocks, bf16, seeded
              random weights) behind the contiguous ServingEngine: 8
@@ -85,6 +94,28 @@ Phases, each printing one JSON line:
              where a router near-tie tips, the differing positions and
              their probability gaps are printed and the logits are held
              only before the first of them (:func:`moe_vs_plain`).
+7. encdec  — full-width whisper-medium (24 encoder + 24 decoder layers,
+             16 heads of 64, 1500 frames, bf16, seeded random weights) at
+             the model level, as the reference runs it: 8 seeded frame
+             batches, a 4-token prompt, ``Model.prefill`` at capacity 448
+             and 64 greedy ``Model.decode_step`` s (eager: the engine
+             refuses encoder-decoder models).  Checks exact launches
+             (flash per encoder layer and per decoder self- and
+             cross-attention in the prefill, decode attention per
+             decoder self- and cross-attention per step), and the same
+             path in float32 at full depth against the plain versions:
+             logits within 1e-4 at the prefill and every step, greedy
+             tokens equal (bf16 printed only).  Prints encode and prefill
+             ms, the step's median, p90, byte floor and profiled device
+             time by kernel.
+8. serve_vlm — full-width pixtral-12b (40 layers, 32 heads over 8 of
+             160, vocab 131072; 12.77 B parameters, 25.5 GB in bf16)
+             behind the paged engine with ``serve``'s engine and traffic:
+             the same checks as ``serve``, one prefill with 256 seeded
+             patch embeddings ahead of the prompt, and float32 at full
+             width and 8 layers (the whole model is 51 GB in float32)
+             against the plain path within 1e-4: prefill, prefix, decode
+             and the patch-embedding prefill.
 
 Every serve engine replays its decode step as one CUDA graph, captured
 after the eager first step.  Each serve phase checks, per engine, one
@@ -100,14 +131,19 @@ comparisons are not blurred by TF32's ~3 decimal digits.
 Every failed check raises and the script exits non-zero.  The last line
 is ``{"ok": true, "device": {...}}``; the line before it is the card's
 name and power limit from nvidia-smi, and the one before that the
-``{"kernels": [...]}`` summary.  Without a GPU (or without the repo's
-``src/`` beside this file) it exits non-zero and prints no result.
+``{"kernels": [...]}`` summary (each kernel's main-path row, and all its
+rows, each with the launches the main paths made at its launch key: the
+wrappers count launches in all and by key, and a ``launches_by_shape``
+line prints each phase's table).  Without a GPU (or
+without the repo's ``src/`` beside this file) it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import dataclasses
 import json
 import math
@@ -123,7 +159,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
-          "serve_moe")
+          "serve_moe", "encdec", "serve_vlm")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -554,7 +590,8 @@ def phase_kernels():
     gen.manual_seed(0)
     shapes = {"stablelm-3b": dict(H=32, KVH=32, d=80),
               "gqa-40:8": dict(H=40, KVH=8, d=128),
-              "olmoe-1b-7b": dict(H=16, KVH=16, d=128)}
+              "olmoe-1b-7b": dict(H=16, KVH=16, d=128),
+              "pixtral-12b": dict(H=32, KVH=8, d=160)}
     B, ps, N = 8, 16, 64
     lengths = [1024, 777, 512, 300, 129, 64, 1, 600]   # last: retired slot
     results = []
@@ -591,6 +628,7 @@ def phase_kernels():
             results.append(dict(
                 kernel="paged_decode_attention", shape=sname, dtype=dname,
                 B=B, H=H, KVH=KVH, d=d, ps=ps, lengths=lengths,
+                launch_key=dict(pa_ops.launch_key(q, kp, table)),
                 kv_rows=rows, max_abs_err=err, tol=TOL[dname],
                 **kernel_times(pa_ops.paged_decode_attention,
                                paged_decode_attention_ref, sdpa_paged, args),
@@ -632,10 +670,12 @@ def phase_kernels():
                     kernel="flash_attention", shape=sname, dtype=dname,
                     S=S, T=T, H=H, KVH=KVH, d=d, prefix_pad=pad,
                     prefix_len=plen, kv_rows=rows, max_abs_err=err,
+                    launch_key=dict(fa_ops.launch_key(q, k, **kw)),
                     tol=TOL[dname], **flash_times(kw, keep, (q, k, v)),
                     bound_ms=b_ms, bound_by=b_by))
                 emit({"phase": "kernels", **results[-1]})
-    for row in hybrid_kernel_rows(gen) + ssd_kernel_rows(gen):
+    for row in (hybrid_kernel_rows(gen) + ssd_kernel_rows(gen)
+                + encdec_kernel_rows(gen)):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
@@ -650,7 +690,7 @@ def check_flash_tile_plan():
     lib = _build.load("flash_attention", fa_ops._SIGNATURES)
     plan = {}
     for dtype, code in fa_ops._DTYPES.items():
-        for d in (80, 128, 256):
+        for d in (64, 80, 128, 160, 256):
             want = fa_ops.tile_plan(d, dtype)[2]
             got = lib.flash_attention_smem_bytes(code, d)
             if got != want:
@@ -662,7 +702,8 @@ def check_flash_tile_plan():
 
 def flash_times(kw, keep, args):
     """:func:`kernel_times` of flash with the mask arguments ``kw``; the
-    library call is SDPA with the same mask as a boolean matrix."""
+    library call is SDPA with the same mask as a boolean matrix (``keep``;
+    None: no mask)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     return kernel_times(
@@ -708,20 +749,86 @@ def ring_valid(positions, C, device="cuda"):
     return (j <= pos) | (pos >= C)
 
 
+def decode_kernel_row(gen, kname, sname, sh, dname, dtype, **label):
+    """Contiguous decode attention (``kname``: dense or int8 K/V) against
+    its plain version at shape ``sh`` (H, KVH, d, cache length C and the
+    batch rows' positions ``pos``: a ring cache's validity; None: every
+    slot valid), NaN in the invalid slots giving the same output bit for
+    bit, with its times and bound.  ``label`` goes into the row."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_int8_ref, decode_attention_ref)
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+
+    dev = "cuda"
+    es = torch.finfo(dtype).bits // 8
+    H, KVH, d, C = sh["H"], sh["KVH"], sh["d"], sh["C"]
+    if sh["pos"] is None:
+        B = sh["B"]
+        valid = torch.ones(B, C, dtype=torch.bool, device=dev)
+    else:
+        B = len(sh["pos"])
+        valid = ring_valid(sh["pos"], C)
+    q = torch.randn(B, 1, H, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, C, KVH, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, C, KVH, d, generator=gen, device=dev).to(dtype)
+    n_valid = int(valid.sum().item())
+    if kname == "decode_attention":
+        args = (q, k, v, valid)
+        fn, ref_fn = da_ops.decode_attention, decode_attention_ref
+        kv_es = es
+    else:
+        k8, ks = quantize_kv(k)
+        v8, vs = quantize_kv(v)
+        args = (q, k8, v8, ks, vs, valid)
+        fn = da_ops.decode_attention_int8
+        ref_fn = decode_attention_int8_ref
+        kv_es = 1 + 4 / d                     # int8 + one f32 scale
+    name = " ".join([kname, sname, *map(str, label.values()), dname])
+    out = fn(*args)
+    err = check_close(name, out, ref_fn(*args), dname)
+    # stale slots may hold anything: NaN there must not reach out
+    poisoned = [a.clone() for a in args]
+    if kname == "decode_attention":
+        for t in poisoned[1:3]:
+            t[~valid] = float("nan")
+    else:
+        for t in poisoned[3:5]:      # NaN scales poison the rows
+            t[~valid] = float("nan")
+    if not torch.equal(fn(*poisoned), out):
+        fail(f"{name}: NaN in invalid slots changed the output")
+
+    def library(q, k, v, *rest, dtype=dtype):
+        valid = rest[-1]
+        if rest[:-1]:                      # int8: scales
+            k = dequantize_kv(k, rest[0], dtype)
+            v = dequantize_kv(v, rest[1], dtype)
+        return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                    v.transpose(1, 2), valid[:, None, None, :])
+
+    nbytes = 2 * q.numel() * es + 2 * n_valid * KVH * d * kv_es \
+        + valid.numel()
+    flops = 4 * n_valid * H * d
+    b_ms, b_by = bound(nbytes, flops, dname)
+    return dict(
+        kernel=kname, shape=sname, **label, dtype=dname, B=B, H=H, KVH=KVH,
+        d=d, C=C, positions=sh["pos"], valid_rows=n_valid,
+        launch_key=dict(da_ops.launch_key(q, k)),
+        max_abs_err=err, tol=TOL[dname],
+        **kernel_times(fn, ref_fn, library, args), bound_ms=b_ms,
+        bound_by=b_by)
+
+
 def hybrid_kernel_rows(gen):
     """The recurrentgemma-9b path's kernels against their plain versions:
     decode attention (dense and int8) at its ring cache and one GQA /
     stablelm-3b shape, the RG-LRU scan at a 2100-token prefill, and flash
     at that prefill's windowed MQA shape (d = 256)."""
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention.ref import (
-        decode_attention_int8_ref, decode_attention_ref)
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_ref, keep_mask)
     from repro_torch.kernels.rglru import ops as lru_ops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
-    from repro_torch.models.attention import dequantize_kv, quantize_kv
 
     dev = "cuda"
     rows = []
@@ -743,57 +850,8 @@ def hybrid_kernel_rows(gen):
                          ("float32", torch.float32)):
         es = torch.finfo(dtype).bits // 8
         for kname, sname in cases:
-            sh = shapes[sname]
-            H, KVH, d, C = sh["H"], sh["KVH"], sh["d"], sh["C"]
-            B = len(sh["pos"])
-            valid = ring_valid(sh["pos"], C)
-            q = torch.randn(B, 1, H, d, generator=gen, device=dev).to(dtype)
-            k = torch.randn(B, C, KVH, d, generator=gen, device=dev).to(dtype)
-            v = torch.randn(B, C, KVH, d, generator=gen, device=dev).to(dtype)
-            n_valid = int(valid.sum().item())
-            if kname == "decode_attention":
-                args = (q, k, v, valid)
-                fn, ref_fn = da_ops.decode_attention, decode_attention_ref
-                kv_es = es
-            else:
-                k8, ks = quantize_kv(k)
-                v8, vs = quantize_kv(v)
-                args = (q, k8, v8, ks, vs, valid)
-                fn = da_ops.decode_attention_int8
-                ref_fn = decode_attention_int8_ref
-                kv_es = 1 + 4 / d                     # int8 + one f32 scale
-            out = fn(*args)
-            err = check_close(f"{kname} {sname} {dname}", out,
-                              ref_fn(*args), dname)
-            # stale slots may hold anything: NaN there must not reach out
-            poisoned = [a.clone() for a in args]
-            if kname == "decode_attention":
-                for t in poisoned[1:3]:
-                    t[~valid] = float("nan")
-            else:
-                for t in poisoned[3:5]:      # NaN scales poison the rows
-                    t[~valid] = float("nan")
-            if not torch.equal(fn(*poisoned), out):
-                fail(f"{kname} {sname} {dname}: NaN in invalid slots "
-                     f"changed the output")
-            def library(q, k, v, *rest, dtype=dtype):
-                valid = rest[-1]
-                if rest[:-1]:                      # int8: scales
-                    k = dequantize_kv(k, rest[0], dtype)
-                    v = dequantize_kv(v, rest[1], dtype)
-                return sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), valid[:, None, None, :])
-
-            nbytes = 2 * q.numel() * es + 2 * n_valid * KVH * d * kv_es \
-                + valid.numel()
-            flops = 4 * n_valid * H * d
-            b_ms, b_by = bound(nbytes, flops, dname)
-            rows.append(dict(
-                kernel=kname, shape=sname, dtype=dname, B=B, H=H, KVH=KVH,
-                d=d, C=C, positions=sh["pos"], valid_rows=n_valid,
-                max_abs_err=err, tol=TOL[dname],
-                **kernel_times(fn, ref_fn, library, args), bound_ms=b_ms,
-                bound_by=b_by))
+            rows.append(decode_kernel_row(gen, kname, sname, shapes[sname],
+                                          dname, dtype))
 
         # flash at the hybrid prefill: S = T = 2100, MQA, d = 256, window
         S, H, KVH, d, W = 2100, 16, 1, 256, 2048
@@ -812,6 +870,7 @@ def hybrid_kernel_rows(gen):
             kernel="flash_attention", shape="recurrentgemma-9b", dtype=dname,
             S=S, T=S, H=H, KVH=KVH, d=d, window=W, prefix_pad=0,
             prefix_len=0, max_abs_err=err, tol=TOL[dname],
+            launch_key=dict(fa_ops.launch_key(q, k, causal=True, window=W)),
             **flash_times(dict(causal=True, window=W), keep, (q, k, v)),
             bound_ms=b_ms, bound_by=b_by))
 
@@ -834,6 +893,7 @@ def hybrid_kernel_rows(gen):
         rows.append(dict(
             kernel="rglru_scan", shape="recurrentgemma-9b", dtype="float32",
             B=B, S=S, W=Wd, h0=with_h0, max_abs_err=err, tol=TOL["float32"],
+            launch_key=dict(lru_ops.launch_key(a, h)),
             **kernel_times(lru_ops.rglru_scan, rglru_scan_ref, None,
                            (a, b, h)),
             library_note="no single PyTorch call computes a linear "
@@ -893,6 +953,7 @@ def ssd_kernel_rows(gen):
             B=1, S=S, H=H, P=P, N=N, model_chunk=chunk, kernel_chunk=Q,
             h0=with_h0, decay=decay, min_in_chunk_cum=min_cum,
             max_abs_err=err, tol=SSD_TOL,
+            launch_key=dict(ssd_ops.launch_key(xh, Bm, h0)),
             needed_flops=flops,
             bound_3xtf32_ms=max(nbytes / HBM_BYTES_PER_S,
                                 flops / (TF32_FLOPS / 3)) * 1e3,
@@ -965,6 +1026,86 @@ def ssd_min_flops(S, H, P, N, with_h0, max_chunk=256):
     return best
 
 
+# whisper-medium's attention: 16 heads of 64 (MHA), 1500 encoder frames,
+# a 448-position decoder cache, a batch of 8
+WHISPER_ATTN = dict(B=8, H=16, KVH=16, d=64, T=1500, C=448)
+
+
+def encdec_kernel_rows(gen):
+    """whisper-medium's attention kernels against their plain versions:
+    flash without a causal mask over the encoder (S = T = 1500, ragged
+    in the last key tile) and over the prefill's cross-attention (the 4
+    prompt rows over 1500 frames, under one 16-row tile), and causal over
+    the prefill's decoder self-attention (S = T = 4), each with NaN past
+    the inputs' last rows; contiguous decode attention over the decoder's
+    self cache (C = 448, ragged positions) and over the encoder memory
+    (C = 1500, every slot valid).  The library call is SDPA (with the
+    causal mask as a boolean matrix)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, keep_mask)
+
+    w = WHISPER_ATTN
+    B, H, d, T = w["B"], w["H"], w["d"], w["T"]
+    P = ENCDEC_PROMPT
+    rows = []
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        es = torch.finfo(dtype).bits // 8
+        for case, S, Tk, causal in (("encoder", T, T, False),
+                                    ("prefill cross", P, T, False),
+                                    ("decoder self", P, P, True)):
+            q = torch.randn(B, S, H, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(B, Tk, H, d, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(B, Tk, H, d, generator=gen,
+                            device="cuda").to(dtype)
+            kw = dict(causal=causal)
+            label = f"flash whisper-medium {case} {dname}"
+            out = fa_ops.flash_attention(q, k, v, **kw)
+            err = check_close(label, out, flash_attention_ref(q, k, v, **kw),
+                              dname)
+            check_flash_tail_nan(label, q, k, v, kw, out)
+            keep = keep_mask(S, Tk, device="cuda") if causal else None
+            pairs = int(keep.sum().item()) if causal else S * Tk
+            b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es,
+                               4 * B * H * pairs * d, dname)
+            rows.append(dict(
+                kernel="flash_attention", shape="whisper-medium", case=case,
+                dtype=dname, B=B, S=S, T=Tk, H=H, KVH=H, d=d, causal=causal,
+                prefix_pad=0, prefix_len=0, max_abs_err=err, tol=TOL[dname],
+                launch_key=dict(fa_ops.launch_key(q, k, **kw)),
+                **flash_times(kw, keep, (q, k, v)), bound_ms=b_ms,
+                bound_by=b_by))
+        # the decode batch's self cache: ragged positions, one at the
+        # capacity's end; the cross cache: every frame valid
+        for case, C, pos in (
+                ("decode self", w["C"], [447, 300, 129, 67, 64, 63, 4, 0]),
+                ("decode cross", T, None)):
+            rows.append(decode_kernel_row(
+                gen, "decode_attention", "whisper-medium",
+                dict(B=B, H=H, KVH=H, d=d, C=C, pos=pos), dname, dtype,
+                case=case))
+    return rows
+
+
+def check_flash_tail_nan(label, q, k, v, kw, out):
+    """The rows past the last query and key rows (the tails of the last
+    tiles) are never read: with NaN in the memory just past each of q, k
+    and v, the output is the same bit for bit."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def tailed(t):
+        buf = torch.full((t.shape[0] + 1, *t.shape[1:]), float("nan"),
+                         dtype=t.dtype, device=t.device)
+        buf[:-1] = t
+        return buf[:-1]
+
+    if not torch.equal(fa_ops.flash_attention(tailed(q), tailed(k),
+                                              tailed(v), **kw), out):
+        fail(f"{label}: NaN past the last rows changed the output")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve full-width stablelm-3b
 
@@ -1002,8 +1143,8 @@ def phase_serve(seed):
                for n in suf_lens]
 
     counters = launch_counters()
-    outs, launches, serve_s = serve_counted(engine, prompts, 32, counters,
-                                            warm=prefix)
+    outs, launches, shapes, serve_s = serve_counted(
+        engine, prompts, 32, counters, warm=prefix)
     launches = {n: launches[n] for n in ("paged_decode_attention",
                                          "flash_attention")}
 
@@ -1067,7 +1208,7 @@ def phase_serve(seed):
                               "float32": logits_f32},
           "profiled_wave": profile, "traced_wave": traced,
           "contiguous": contiguous, "peak_memory_gb": peak_gb})
-    return launches
+    return launches, shapes
 
 
 def prefill_chunk_ms(model, params, inp):
@@ -1127,8 +1268,8 @@ def contiguous_opt_out(model, params, prefix, prompts, paged_outs,
     engine = ServingEngine(model, params, max_slots=4, max_len=1024,
                            kv_layout="contiguous", prefill_chunk=256,
                            prefix_cache_budget=256 << 20, device="cuda")
-    outs, launches, serve_s = serve_counted(engine, prompts, 32, counters,
-                                            warm=prefix)
+    outs, launches, _, serve_s = serve_counted(engine, prompts, 32,
+                                               counters, warm=prefix)
     st = engine.stats()
     check_launches("serve contiguous", launches, {
         "decode_attention": L * st["steps"],
@@ -1186,7 +1327,36 @@ def traced_wave(engine, prefix, prompts):
         fail(f"traced wave: {counts['decode.step']} decode.step spans for "
              f"{steps} decode steps")
     return {"decode_steps": steps, "seconds": seconds,
-            "spans": dict(sorted(counts.items()))}
+            "spans": dict(sorted(counts.items())),
+            "report": trace_report(trz, "serve_trace_report.txt")}
+
+
+def trace_report(trz, table):
+    """The port's critical-path report over a trace: wall time, the
+    components on the critical path, idle, and achieved against ideal
+    parallelism (the rendered report goes to ``OUT_DIR / table``).  The
+    path's segments must sum to the wall time."""
+    from repro_torch import obs
+
+    rep = obs.report(trz)
+    total = sum(seg.dur for seg in rep.path)
+    if not rep.path or abs(total - rep.wall_s) > 1e-9 * max(1.0, rep.wall_s):
+        fail(f"trace report: {len(rep.path)} segments summing to {total} s "
+             f"over a wall time of {rep.wall_s} s")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / table).write_text(rep.render(top=16) + "\n")
+    return {"wall_ms": rep.wall_s * 1e3, "spans": rep.n_spans,
+            "segments": len(rep.path), "segments_ms": total * 1e3,
+            "idle_ms": rep.idle_s * 1e3,
+            "critical_path": [
+                {"component": f"{c.cat}:{c.name}" if c.cat else c.name,
+                 "ms": c.critical_s * 1e3, "segments": c.critical_segments,
+                 "inclusive_ms": c.inclusive_s * 1e3, "spans": c.count}
+                for c in rep.top_blockers(8)],
+            "busy_ms": rep.busy_external_s * 1e3,
+            "achieved_parallelism": rep.achieved_parallelism,
+            "ideal_parallelism": rep.ideal_parallelism,
+            "ideal_makespan_ms": rep.ideal_makespan_s * 1e3}
 
 
 def check_graph(label, graph, steps, per_step):
@@ -1306,7 +1476,7 @@ COMPARE_PROMPT, MAX_LEN, MAX_NEW = 2100, 2304, 32
 def serve_counted(engine, prompts, max_new, counters, warm=None):
     """Serve ``prompts`` concurrently (after warming the prefix ``warm``,
     if given) with every launch counter set to 0 just before; →
-    (outputs, {name: launches}, seconds)."""
+    (outputs, {name: launches}, {name: launches by key}, seconds)."""
     async def go():
         if warm is not None:
             await engine.warm_prefix(warm)
@@ -1315,13 +1485,41 @@ def serve_counted(engine, prompts, max_new, counters, warm=None):
         await engine.stop()
         return outs
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero_launches(counters)
     t0 = time.perf_counter()
     outs = asyncio.run(go())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return outs, {n: fn.launches for n, fn in counters.items()}, seconds
+    return (outs, *read_launches(counters), seconds)
+
+
+def zero_launches(counters):
+    """Every launch count to 0, in all and by launch key."""
+    for fn in counters.values():
+        fn.launches = 0
+        fn.shapes.clear()
+
+
+def read_launches(counters):
+    """→ ({name: launches}, {name: Counter of launches by the wrapper's
+    launch key} over the kernels launched at all)."""
+    return ({n: fn.launches for n, fn in counters.items()},
+            {n: collections.Counter(fn.shapes)
+             for n, fn in counters.items() if fn.shapes})
+
+
+def add_shapes(a, b):
+    """The sum of two {name: Counter by launch key} tables."""
+    none = collections.Counter()
+    return {n: a.get(n, none) + b.get(n, none) for n in set(a) | set(b)}
+
+
+def shape_table(shapes):
+    """{name: [{key fields, "launches"}, ...]} of a launch table, for
+    printing; most launched first."""
+    return {n: [{**dict(key), "launches": k}
+                for key, k in shapes[n].most_common()]
+            for n in sorted(shapes)}
 
 
 def check_launches(label, launches, want):
@@ -1368,14 +1566,15 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
     requests of ``prompt_lens`` tokens and MAX_NEW new tokens each, with
     exact launch counts (``want_launches(steps, admissions)``, every other
     kernel 0); ``extra(model, params, prompts, counters)`` may serve more
-    on the same weights and returns (fields to print, launches).  Then
+    on the same weights and returns (fields to print, launches in all and
+    by launch key).  Then
     the prefill time at ``prefill_lens``, a profiled second wave, the
     COMPARE_PROMPT prefill's and next decode step's logits through the
     kernels against the plain versions (``vs_plain(model, params, prompt,
     max_len)``): bf16 printed, the whole model in float32 held to
     LOGITS_TOL_F32; and the 2-token prompt's decode step against the
     full forward.  Prints the phase's line; → launches over every
-    engine."""
+    engine's counted wave, in all and by launch key."""
     import gc
 
     from repro_torch.models import build_model
@@ -1397,8 +1596,8 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
 
     engine = ServingEngine(model, params, max_slots=8, max_len=MAX_LEN,
                            device="cuda")
-    outs, launches, serve_s = serve_counted(engine, prompts, MAX_NEW,
-                                            counters)
+    outs, launches, shapes, serve_s = serve_counted(engine, prompts,
+                                                    MAX_NEW, counters)
     st = engine.stats()
     check_launches(phase, launches,
                    want_launches(st["steps"], st["prefill_chunks"]))
@@ -1408,8 +1607,9 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
     dec = decode_stats(engine)
     more, total = {}, dict(launches)
     if extra is not None:
-        more, launches2 = extra(model, params, prompts, counters)
+        more, launches2, shapes2 = extra(model, params, prompts, counters)
         total = {n: total[n] + launches2[n] for n in total}
+        shapes = add_shapes(shapes, shapes2)
 
     with torch.no_grad():
         toks = {n: torch.tensor([prompts[prompt_lens.index(n)]],
@@ -1452,7 +1652,7 @@ def serve_contiguous_phase(phase, cfg, seed, prompt_lens, want_launches,
           "short_prompt_decode_vs_forward_f32": short,
           "profiled_wave": profile, "peak_memory_gb_bf16": peak_bf16_gb,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return total
+    return total, shapes
 
 
 def phase_serve_hybrid(seed):
@@ -1477,7 +1677,7 @@ def hybrid_launches(steps, admissions, *, int8):
 def hybrid_int8_wave(model, params, prompts, counters):
     """An int8-KV engine on the same weights serving 4 of the wave's
     requests, then the same 4 again under the profiler; → (its line's
-    fields, the counted wave's launches)."""
+    fields, the counted wave's launches in all and by launch key)."""
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
 
@@ -1486,8 +1686,8 @@ def hybrid_int8_wave(model, params, prompts, counters):
     prompts8 = [prompts[HYBRID_PROMPTS.index(n)] for n in HYBRID_INT8_PROMPTS]
     engine8 = ServingEngine(model8, params, max_slots=8, max_len=MAX_LEN,
                             device="cuda")
-    outs8, launches8, serve8_s = serve_counted(engine8, prompts8, MAX_NEW,
-                                               counters)
+    outs8, launches8, shapes8, serve8_s = serve_counted(
+        engine8, prompts8, MAX_NEW, counters)
     st8 = engine8.stats()
     check_launches("serve_hybrid int8 KV", launches8,
                    hybrid_launches(st8["steps"], st8["prefill_chunks"],
@@ -1504,7 +1704,7 @@ def hybrid_int8_wave(model, params, prompts, counters):
                      "decode_step_median_ms": dec8["decode_step_median_ms"],
                      "decode_step_p90_ms": dec8["decode_step_p90_ms"],
                      "launches": launches8, "graph": graph8,
-                     "profiled_wave": profile8}}, launches8
+                     "profiled_wave": profile8}}, launches8, shapes8
 
 
 def hybrid_kernel_vs_plain(model, params, prompt, max_len):
@@ -1692,6 +1892,21 @@ def profile_wave(engine, prompts, table):
         asyncio.run(wave())
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    report = profile_report(prof, wall_us, table)
+    if report is None:
+        return None
+    return {**report, "decode_steps": engine.steps - steps0,
+            "prefill_chunks": engine.prefill_chunks - chunks0,
+            "wrapper_launches": {n: c.launches - launches0[n]
+                                 for n, c in counters.items()
+                                 if c.launches != launches0[n]}}
+
+
+def profile_report(prof, wall_us, table):
+    """A profile's device time over a window of ``wall_us``: the busy
+    share, the top kernels and the port's kernels by device time (the
+    full table goes to ``OUT_DIR / table``); None where the profiler saw
+    no device time."""
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     OUT_DIR.mkdir(exist_ok=True)
@@ -1701,11 +1916,6 @@ def profile_wave(engine, prompts, table):
         return None
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / wall_us,
-            "decode_steps": engine.steps - steps0,
-            "prefill_chunks": engine.prefill_chunks - chunks0,
-            "wrapper_launches": {n: c.launches - launches0[n]
-                                 for n, c in counters.items()
-                                 if c.launches != launches0[n]},
             "top_kernels": [{"name": key[:80], "ms": dev / 1e3,
                              "share_of_busy": dev / busy, "count": cnt}
                             for dev, cnt, key in rows[:8]],
@@ -1758,8 +1968,8 @@ def phase_serve_moe(seed):
                 for n in SERVE_SUFFIXES]
     prompts = wave()
     counters = launch_counters()
-    outs, launches, serve_s = serve_counted(engine, prompts, 32, counters,
-                                            warm=prefix)
+    outs, launches, shapes, serve_s = serve_counted(
+        engine, prompts, 32, counters, warm=prefix)
     launches = {n: launches[n] for n in ("paged_decode_attention",
                                          "flash_attention")}
     st = engine.stats()
@@ -1822,7 +2032,7 @@ def phase_serve_moe(seed):
           "chunk_drops": chunk_drops,
           "vs_plain": {"bfloat16": bf16, "float32": f32},
           "profiled_wave": profile, "peak_memory_gb": peak_gb})
-    return launches
+    return launches, shapes
 
 
 def record_routing(log):
@@ -1918,6 +2128,385 @@ def moe_vs_plain(model, params, prompt, tol, label, plen=384):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 7: encoder-decoder whisper-medium at the model level
+
+# Whisper's decoder: the 4-token start-of-transcript sequence (start,
+# language, task, no-timestamps) and its 448-position context; a batch
+# of 8 requests, each 1500 encoder frames (30 s of audio)
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_CAPACITY, ENCDEC_STEPS = 8, 4, 448, 64
+
+
+def encdec_inputs(cfg, seed, dtype):
+    """Seeded frame embeddings [B, enc_seq, D] (the stubbed conv front
+    end's output) in ``dtype`` and decoder prompts [B, 4]."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    frames = torch.randn(ENCDEC_BATCH, cfg.enc_seq, cfg.d_model,
+                         generator=gen, device="cuda").to(dtype)
+    rng = np.random.RandomState(seed)
+    tokens = torch.tensor(rng.randint(0, cfg.vocab_size,
+                                      size=(ENCDEC_BATCH, ENCDEC_PROMPT)),
+                          dtype=torch.int32, device="cuda")
+    return {"tokens": tokens, "encoder_frames": frames}
+
+
+def encdec_greedy(model, params, batch, steps):
+    """``Model.prefill`` at ENCDEC_CAPACITY, then ``steps`` greedy
+    ``Model.decode_step`` s, each timed on the host clock to a
+    synchronize.  → (tokens [B, steps + 1], step seconds, the cache and
+    the next position)."""
+    V = model.cfg.vocab_size
+    with torch.no_grad():
+        logits, cache = model.prefill(params, batch, ENCDEC_CAPACITY)
+        toks = [logits[:, :V].argmax(-1).to(torch.int32)]
+        pos = torch.full((ENCDEC_BATCH,), ENCDEC_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        step_s = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, toks[-1][:, None],
+                                              pos)
+            toks.append(logits[:, :V].argmax(-1).to(torch.int32))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            pos = pos + 1
+    return torch.stack(toks, 1), step_s, cache, pos
+
+
+def encdec_vs_plain(model, params, batch, steps, tol, label):
+    """The prefill's and ``steps`` decode steps' logits through the
+    kernels against the plain versions, both paths fed the kernel path's
+    greedy tokens; with ``tol`` (relative L2) every step is held and the
+    plain path's greedy token must equal the kernel path's at every step;
+    with None both are printed only."""
+    V = model.cfg.vocab_size
+    comps, same = {}, []
+    with torch.no_grad():
+        lk, ck = model.prefill(params, batch, ENCDEC_CAPACITY)
+        with plain_kernels():
+            lp, cp = model.prefill(params, batch, ENCDEC_CAPACITY)
+        comps["prefill"] = (lk, lp)
+        pos = torch.full((ENCDEC_BATCH,), ENCDEC_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        for i in range(steps + 1):
+            tok = lk[:, :V].argmax(-1)
+            same.append(bool(torch.equal(tok, lp[:, :V].argmax(-1))))
+            if tol is not None and not same[-1]:
+                fail(f"{label}: greedy tokens differ after "
+                     f"{'the prefill' if i == 0 else f'decode step {i}'}")
+            if i == steps:
+                break
+            cur = tok.to(torch.int32)[:, None]
+            lk, _ = model.decode_step(params, ck, cur, pos)
+            with plain_kernels():
+                lp, _ = model.decode_step(params, cp, cur, pos)
+            comps[f"decode_{i}"] = (lk, lp)
+            pos = pos + 1
+    report = logits_agreement(comps, V, tol, label)
+    dec = [report[f"decode_{i}"] for i in range(steps)]
+    worst = max(dec, key=lambda r: r["rel_l2_err"])
+    return {"prefill": report["prefill"], "decode_steps": steps,
+            "decode_worst": {**worst, "step": dec.index(worst)},
+            "decode_rel_l2_err_median": statistics.median(
+                r["rel_l2_err"] for r in dec),
+            "greedy_tokens_equal_steps": sum(same),
+            "greedy_compared": len(same)}
+
+
+def encdec_step_floor(cfg, batch, steps):
+    """The bytes a decode step must move, averaged over the ``steps``
+    steps after a ENCDEC_PROMPT-token prefill: the decoder's weights that
+    a step reads (everything but the cross-attention's K/V projections,
+    whose output is the cached memory), the tied head (the whole
+    embedding table), the cross K/V memory and the valid self K/V rows,
+    in bf16."""
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    qd, kvd = cfg.q_dim, cfg.kv_dim
+    per_layer = (2 * D * qd + 2 * D * kvd      # self: wq, wo, wk, wv
+                 + 2 * D * qd                  # cross: wq, wo
+                 + 2 * D * F + F + D           # the GELU MLP and biases
+                 + 3 * 2 * D)                  # three layernorms
+    weights = 2 * (L * per_layer + 2 * D)
+    head = 2 * cfg.vocab_padded * D
+    cross = 2 * 2 * L * batch * cfg.enc_seq * kvd
+    mean_rows = ENCDEC_PROMPT + (steps + 1) / 2
+    self_kv = 2 * 2 * L * batch * mean_rows * kvd
+    total = weights + head + cross + self_kv
+    return {"decoder_weights_gb": weights / 1e9, "tied_head_gb": head / 1e9,
+            "cross_kv_gb": cross / 1e9, "self_kv_gb": self_kv / 1e9,
+            "total_gb": total / 1e9,
+            "floor_ms": total / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_encdec(seed):
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec
+    from repro_torch.serving.decode_graph import launch_counters
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-medium")
+    model = build_model(cfg)
+    L, E = cfg.num_layers, cfg.enc_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = encdec_inputs(cfg, seed, torch.bfloat16)
+
+    # the main path: prefill, then greedy decode steps, counted
+    counters = launch_counters()
+    zero_launches(counters)
+    toks, step_s, cache, pos = encdec_greedy(model, params, batch,
+                                             ENCDEC_STEPS)
+    launches, shapes = read_launches(counters)
+    # flash: each encoder layer, and each decoder layer's self- and
+    # cross-attention in the prefill; decode attention: each decoder
+    # layer's self- and cross-attention in each step
+    check_launches("encdec", launches, {
+        "flash_attention": E + 2 * L,
+        "decode_attention": 2 * L * ENCDEC_STEPS})
+    if toks.shape != (ENCDEC_BATCH, ENCDEC_STEPS + 1) \
+            or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"encdec: tokens {tuple(toks.shape)} or outside the vocab")
+
+    with torch.no_grad():
+        encode_ms = call_ms(lambda: encdec.encode(cfg, params,
+                                                  batch["encoder_frames"]),
+                            warmup=1, reps=5)
+        prefill_ms = call_ms(lambda: model.prefill(params, batch,
+                                                   ENCDEC_CAPACITY),
+                             warmup=1, reps=5)
+        profile = profile_steps(
+            lambda: model.decode_step(params, cache, toks[:, -1:], pos), 4,
+            "encdec_profile.txt")
+    del cache
+    dec = sorted(step_s)
+    median_ms = statistics.median(dec) * 1e3
+    floor = encdec_step_floor(cfg, ENCDEC_BATCH, ENCDEC_STEPS)
+    bf16 = encdec_vs_plain(model, params, batch, ENCDEC_STEPS, None, "bf16")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_bf16_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same path in float32 at full depth: held
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = model32.init(seed, device="cuda", dtype=torch.float32)
+    f32 = encdec_vs_plain(model32, params32,
+                          encdec_inputs(cfg, seed, torch.float32),
+                          ENCDEC_STEPS, LOGITS_TOL_F32, "encdec f32")
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    busy_ms = profile["device_busy_ms"] / profile["steps"] \
+        if profile else None
+    emit({"phase": "encdec", "model": cfg.name, "enc_layers": E,
+          "dec_layers": L, "enc_seq": cfg.enc_seq,
+          "params": model.num_params(), "init_s": init_s,
+          "batch": ENCDEC_BATCH, "prompt_tokens": ENCDEC_PROMPT,
+          "capacity": ENCDEC_CAPACITY, "decode_steps": ENCDEC_STEPS,
+          "encode_ms": encode_ms, "prefill_ms": prefill_ms,
+          "decode_step_median_ms": median_ms,
+          "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
+          "first_step_ms": step_s[0] * 1e3,
+          "decode_tokens_per_s": ENCDEC_BATCH * ENCDEC_STEPS / sum(step_s),
+          "decode_step_byte_floor": floor,
+          "decode_step_device_busy_ms": busy_ms,
+          "host_bound": busy_ms is not None and busy_ms < 0.5 * median_ms,
+          "eager": "the steps run eagerly (the decode graph is the "
+                   "engine's, which does not admit encoder-decoder "
+                   "requests)",
+          "launches": launches, "launches_by_shape": shape_table(shapes),
+          "profiled_steps": profile,
+          "vs_plain": {"bfloat16": bf16, "float32": f32},
+          "peak_memory_gb_bf16": peak_bf16_gb,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, shapes
+
+
+def profile_steps(fn, n, table):
+    """``n`` calls of ``fn`` under ``torch.profiler``:
+    :func:`profile_report` over them, with ``steps``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report = profile_report(prof, wall_us, table)
+    return None if report is None else {"steps": n, **report}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serve full-width pixtral-12b (paged engine, VLM)
+
+# the float32 check's depth: pixtral-12b's 12.77 B parameters are 51 GB
+# in float32; 8 of its 40 layers at full width are 14.5 GB
+VLM_F32_LAYERS = 8
+# image patches ahead of the text in the patch-embedding prefill
+VLM_PATCHES = 256
+
+
+def patch_batch(cfg, tokens, seed, dtype):
+    """``{"tokens", "patch_embeds"}``: VLM_PATCHES seeded patch embeddings
+    [1, n, D] at the embedding table's scale (0.02), in ``dtype``, to
+    replace the prompt's first n token embeddings."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    pe = 0.02 * torch.randn(1, VLM_PATCHES, cfg.d_model, generator=gen,
+                            device="cuda")
+    return {"tokens": tokens, "patch_embeds": pe.to(dtype)}
+
+
+def patch_prefill_vs_plain(model, params, batch):
+    """The last logits of a prefill with patch embeddings, through the
+    kernels and through the plain versions."""
+    n = batch["tokens"].shape[1]
+    with torch.no_grad():
+        lk, _ = model.prefill(params, batch, capacity=n)
+        with plain_kernels():
+            lp, _ = model.prefill(params, batch, capacity=n)
+    return lk, lp
+
+
+def phase_serve_vlm(seed):
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.serving.engine import ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("pixtral-12b")
+    model = build_model(cfg)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, params, **SERVE_ENGINE)
+    rng = np.random.RandomState(seed)
+    prefix = [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                          size=SERVE_PREFIX)]
+
+    def wave():
+        return [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                      size=n)]
+                for n in SERVE_SUFFIXES]
+    prompts = wave()
+    counters = launch_counters()
+    outs, launches, shapes, serve_s = serve_counted(
+        engine, prompts, 32, counters, warm=prefix)
+    st = engine.stats()
+    check_launches("serve_vlm", launches, {
+        "paged_decode_attention": L * st["steps"],
+        "flash_attention": L * st["prefill_chunks"]})
+    graph = check_paged_serve("serve_vlm", cfg, st, outs, launches)
+    first_wave = decode_stats(engine)
+
+    comparisons, inp = kernel_vs_plain(model, params, prompts[-1])
+    logits_bf16 = logits_agreement(comparisons, cfg.vocab_size, None, "bf16")
+    del comparisons
+    chunk_ms = prefill_chunk_ms(model, params, inp)
+    # one prefill with image patches ahead of the prompt: L flash launches
+    pbatch = patch_batch(cfg, inp["tokens"], seed, torch.bfloat16)
+    n = inp["tokens"].shape[1]
+    with torch.no_grad():
+        zero_launches(counters)
+        patch_logits, _ = model.prefill(params, pbatch, capacity=n)
+        check_launches("serve_vlm patch prefill", read_launches(counters)[0],
+                       {"flash_attention": L})
+        if not bool(torch.isfinite(patch_logits[:, :cfg.vocab_size]).all()):
+            fail("serve_vlm: non-finite logits after the patch prefill")
+        patch_ms = call_ms(lambda: model.prefill(params, pbatch, capacity=n),
+                           warmup=1, reps=3)
+
+    profile = profile_wave(engine, wave(), "serve_vlm_profile.txt")
+    dec = sorted(engine.decode_step_s)
+    graph["vs_eager"] = graph_vs_eager("serve_vlm", engine, seed)
+    del engine, params, pbatch, patch_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_bf16_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # float32 at full width and VLM_F32_LAYERS layers: held
+    cfg32 = dataclasses.replace(cfg, num_layers=VLM_F32_LAYERS,
+                                dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(seed, device="cuda", dtype=torch.float32)
+    comps32, inp32 = kernel_vs_plain(model32, params32, prompts[-1])
+    comps32["patch_prefill"] = patch_prefill_vs_plain(
+        model32, params32, patch_batch(cfg, inp32["tokens"], seed,
+                                       torch.float32))
+    logits_f32 = logits_agreement(comps32, cfg.vocab_size, LOGITS_TOL_F32,
+                                  "serve_vlm f32")
+    del params32, comps32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every weight but the embedding table, read once a decode step
+    weight_bytes = 2 * (model.num_params() - cfg.vocab_padded * cfg.d_model)
+
+    emit({"phase": "serve_vlm", "model": cfg.name, "layers": L,
+          "params": model.num_params(), "init_s": init_s,
+          "serve_s": serve_s, "requests": len(prompts),
+          "new_tokens": sum(len(o) for o in outs),
+          "decode_steps": st["steps"],
+          "decode_step_median_ms": statistics.median(dec) * 1e3,
+          "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
+          "decode_step_byte_floor_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+          "decode_tokens_per_s": st["decode_tokens"] / max(sum(dec), 1e-9),
+          "decode_s": first_wave["decode_s"],
+          "first_step_ms": first_wave["first_step_ms"],
+          "prefill_chunks": st["prefill_chunks"],
+          "prefill_chunk_ms": chunk_ms,
+          "patch_prefill": {"patches": VLM_PATCHES, "tokens": n,
+                            "ms": patch_ms},
+          "prefill_tokens_computed": st["prefill_tokens_computed"],
+          "prefill_tokens_reused": st["prefill_tokens_reused"],
+          "kv_admit_copies": st["kv_admit_copies"],
+          "paged": st["paged"], "launches": launches,
+          "launches_by_shape": shape_table(shapes), "graph": graph,
+          "logits_vs_plain": {
+              "bfloat16": logits_bf16,
+              "float32": {"layers": VLM_F32_LAYERS,
+                          "note": "full width, 8 of 40 layers: the whole "
+                                  "model is 51 GB in float32",
+                          **logits_f32}},
+          "profiled_wave": profile, "peak_memory_gb_bf16": peak_bf16_gb,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches, shapes
+
+
+# the fields that tell a kernel's rows apart, in the summary line
+ROW_KEYS = ("shape", "case", "dtype", "B", "S", "T", "C", "prefix_pad",
+            "prefix_len", "window", "h0", "decay")
+
+
+def summary_row(r, shapes):
+    """One kernels-phase row in the summary line: what tells it apart, its
+    times, bound, error and the launches the main paths made at its launch
+    key (``shapes``: {kernel: Counter by launch key}, as counted)."""
+    key = tuple(r["launch_key"].items())
+    return {**{k: r[k] for k in ROW_KEYS if k in r},
+            **{k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "max_abs_err")},
+            "main_path_launches": shapes.get(r["kernel"], {}).get(key, 0)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1943,6 +2532,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     kernel_rows, launches, seconds = [], {}, {}
+    shapes = {}        # {phase: {kernel: Counter of launches by key}}
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
@@ -1955,15 +2545,22 @@ def main(argv=None):
     if "kernels" in phases:
         kernel_rows = timed("kernels", phase_kernels)
     if "serve" in phases:
-        launches = timed("serve", phase_serve, args.seed)
+        launches, shapes["serve"] = timed("serve", phase_serve, args.seed)
     for name, fn in (("serve_hybrid", phase_serve_hybrid),
                      ("serve_ssm", phase_serve_ssm),
-                     ("serve_moe", phase_serve_moe)):
+                     ("serve_moe", phase_serve_moe),
+                     ("encdec", phase_encdec),
+                     ("serve_vlm", phase_serve_vlm)):
         if name in phases:
-            more = timed(name, fn, args.seed)
+            more, shapes[name] = timed(name, fn, args.seed)
             launches = {n: launches.get(n, 0) + more.get(n, 0)
                         for n in set(launches) | set(more)}
     emit({"phase": "timing", "seconds": seconds})
+    emit({"phase": "launches_by_shape",
+          **{name: shape_table(s) for name, s in shapes.items()}})
+    main_shapes = {}
+    for s in shapes.values():
+        main_shapes = add_shapes(main_shapes, s)
 
     summary = []
     for name, case in SUMMARY_CASE.items():
@@ -1978,7 +2575,10 @@ def main(argv=None):
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "rows": [summary_row(r, main_shapes)
+                                 for r in kernel_rows
+                                 if r["kernel"] == name]})
     print(json.dumps({"kernels": summary}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -116,10 +116,8 @@ class ModelConfig:
         ``reduced()`` (float32, d_model 64; MoE configs keep 8 experts at a
         dropless capacity factor of 8.0, hybrid configs one (rglru, rglru,
         attn) super-block at lru_width 64, ssm configs drop the attention
-        heads).  Families the port does not run yet raise."""
-        if self.family not in ("dense", "moe", "hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{self.family} configs wait for ROADMAP.md §A.9")
+        heads, encoder-decoder configs keep 2 encoder layers over 16
+        frames)."""
         kw = dict(
             num_layers=2,
             d_model=64,
@@ -128,6 +126,8 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=512,
+            enc_layers=2 if self.enc_layers else 0,
+            enc_seq=16 if self.enc_seq else 0,
             lru_width=64 if self.lru_width else 0,
             ssm_state=16 if self.ssm_state else 0,
             ssm_headdim=16 if self.ssm_state else 64,

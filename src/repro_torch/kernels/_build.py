@@ -18,6 +18,7 @@ a later synchronize would not report it).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -114,6 +115,25 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def counted(wrapper):
+    """Give a kernel wrapper its launch counters: ``.launches``, every
+    launch of its kernel, and ``.shapes``, a Counter of those launches by
+    the wrapper's ``launch_key`` (what tells its launches apart)."""
+    wrapper.launches = 0
+    wrapper.shapes = collections.Counter()
+    return wrapper
+
+
+def count_launch(wrapper, key: tuple) -> None:
+    """One launch of ``wrapper``'s kernel, at ``key``."""
+    wrapper.launches += 1
+    wrapper.shapes[key] += 1
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
 
 def check(err: int, what: str) -> None:

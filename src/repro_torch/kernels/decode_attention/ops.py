@@ -109,6 +109,14 @@ def _launch(fn, q, k, tensors):
     return out
 
 
+def launch_key(q, k) -> tuple:
+    """((field, value), ...) of a launch: its dtype and shapes."""
+    B, _, H, d = q.shape
+    return (("dtype", _build.dtype_name(q.dtype)), ("B", B),
+            ("C", k.shape[1]), ("H", H), ("KVH", k.shape[2]), ("d", d))
+
+
+@_build.counted
 def decode_attention(q, k, v, valid):
     """q: [B,1,H,d]; k,v: [B,C,KVH,d] in q's dtype; valid: [B,C] bool →
     [B,1,H,d].  Position j of row b attends iff ``valid[b, j]``."""
@@ -118,10 +126,11 @@ def decode_attention(q, k, v, valid):
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, valid, q.dtype)
     out = _launch("decode_attention_fwd", q, k, (q, k, v, valid))
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention, launch_key(q, k))
     return out
 
 
+@_build.counted
 def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, valid):
     """The same over int8 K/V [B,C,KVH,d] with f32 scales [B,C,KVH] per
     (position, head): the cache is read as int8 (bf16 q: converted to bf16
@@ -135,9 +144,5 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, valid):
     _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
     out = _launch("decode_attention_int8_fwd", q, k_q,
                   (q, k_q, v_q, k_scale, v_scale, valid))
-    decode_attention_int8.launches += 1
+    _build.count_launch(decode_attention_int8, launch_key(q, k_q))
     return out
-
-
-decode_attention.launches = 0
-decode_attention_int8.launches = 0

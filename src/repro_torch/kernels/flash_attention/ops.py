@@ -69,6 +69,17 @@ def _check(q, k, v):
                              f"bf16 kernel copies rows 16 bytes at a time)")
 
 
+def launch_key(q, k, *, causal=True, window=0, prefix_pad=0,
+               prefix_len=0) -> tuple:
+    """((field, value), ...) of a launch: its dtype, shapes and mask."""
+    B, S, H, d = q.shape
+    return (("dtype", _build.dtype_name(q.dtype)), ("B", B), ("S", S),
+            ("T", k.shape[1]), ("H", H), ("KVH", k.shape[2]), ("d", d),
+            ("causal", bool(causal)), ("window", int(window)),
+            ("prefix_pad", int(prefix_pad)), ("prefix_len", int(prefix_len)))
+
+
+@_build.counted
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,
                     prefix_len=0):
     """q: [B,S,H,d]; k,v: [B,T,KVH,d] → [B,S,H,d].
@@ -99,8 +110,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,
         out.data_ptr(), B, S, T, H, KVH, d, int(bool(causal)), int(window),
         prefix_pad, prefix_len, d ** -0.5, _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention, launch_key(
+        q, k, causal=causal, window=window, prefix_pad=prefix_pad,
+        prefix_len=prefix_len))
     return out
-
-
-flash_attention.launches = 0

@@ -77,6 +77,16 @@ def _check(q, k_pages, v_pages, page_table, lengths):
                          "(the bf16 kernel copies rows 16 bytes at a time)")
 
 
+def launch_key(q, k_pages, page_table, *, window=0) -> tuple:
+    """((field, value), ...) of a launch: its dtype, shapes and window
+    (the pool's size and the lengths left out)."""
+    B, _, H, d = q.shape
+    return (("dtype", _build.dtype_name(q.dtype)), ("B", B), ("H", H),
+            ("KVH", k_pages.shape[2]), ("d", d), ("ps", k_pages.shape[1]),
+            ("N", page_table.shape[1]), ("window", int(window)))
+
+
+@_build.counted
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            window=0):
     """q: [B,1,H,d]; k_pages,v_pages: [P,ps,KVH,d]; page_table: [B,N]
@@ -107,8 +117,6 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         d, ps, N, P, int(window), n_split, d ** -0.5,
         _build.stream_ptr(q.device))
     _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention,
+                        launch_key(q, k_pages, page_table, window=window))
     return out
-
-
-paged_decode_attention.launches = 0

@@ -44,6 +44,13 @@ def _check(a, b, h0):
             raise ValueError(f"{name} must be contiguous")
 
 
+def launch_key(a, h0=None) -> tuple:
+    """((field, value), ...) of a launch: its shape and initial state."""
+    B, S, W = a.shape
+    return (("B", B), ("S", S), ("W", W), ("h0", h0 is not None))
+
+
+@_build.counted
 def rglru_scan(a, b, h0=None):
     """a, b: [B, S, W] f32 → h: [B, S, W] f32 with h_t = a_t·h_{t-1} + b_t
     and h_{-1} = h0 [B, W] (zeros when None)."""
@@ -59,8 +66,5 @@ def rglru_scan(a, b, h0=None):
         a.data_ptr(), b.data_ptr(), h0.data_ptr() if h0 is not None else None,
         out.data_ptr(), B, S, W, _build.stream_ptr(a.device))
     _build.check(err, "rglru_scan")
-    rglru_scan.launches += 1
+    _build.count_launch(rglru_scan, launch_key(a, h0))
     return out
-
-
-rglru_scan.launches = 0

@@ -65,6 +65,14 @@ def _f32(t):
     return t.to(torch.float32).contiguous()
 
 
+def launch_key(xh, B, initial_state=None) -> tuple:
+    """((field, value), ...) of a launch: its shapes and initial state."""
+    b, S, H, P = xh.shape
+    return (("B", b), ("S", S), ("H", H), ("P", P), ("N", B.shape[-1]),
+            ("h0", initial_state is not None))
+
+
+@_build.counted
 def ssd_chunked(xh, dt, a_log, B, C, *, chunk, initial_state=None):
     """xh [b,S,H,P]; dt [b,S,H] (post-softplus, float32); a_log [H]
     (A = -exp(a_log)); B, C [b,S,N] shared by the heads; initial_state
@@ -106,8 +114,5 @@ def ssd_chunked(xh, dt, a_log, B, C, *, chunk, initial_state=None):
         hout.data_ptr(), states.data_ptr(), tot.data_ptr(), cb.data_ptr(),
         b, S, H, P, N, _build.stream_ptr(xh.device))
     _build.check(err, "ssd_chunk_scan")
-    ssd_chunked.launches += 1
+    _build.count_launch(ssd_chunked, launch_key(xh, B, initial_state))
     return y, hout.transpose(-1, -2)                      # → [b,H,P,N]
-
-
-ssd_chunked.launches = 0

@@ -1,5 +1,6 @@
 """Grouped-query attention: projections, the plain masked attention,
-full-sequence attention (forward and prefix-aware prefill), one-token
+full-sequence attention (forward, prefix-aware prefill, the encoder's
+non-causal self-attention and cross-attention), one-token
 decode over a contiguous or ring KV cache (optionally int8) and over
 block-paged KV pools.
 
@@ -24,7 +25,9 @@ from .common import PSpec, apply_rope, rmsnorm, rope_cos_sin
 NEG_INF = -2.0e38
 
 
-def attn_schema(cfg) -> dict:
+def attn_schema(cfg, *, cross=False) -> dict:
+    """Projection leaves; ``cross`` (the decoder's cross-attention) has no
+    QKV bias and no qk-norm."""
     D, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
         "wq": PSpec((D, H, hd)),
@@ -32,11 +35,11 @@ def attn_schema(cfg) -> dict:
         "wv": PSpec((D, KVH, hd)),
         "wo": PSpec((H, hd, D), fan_in_axes=(0, 1)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = PSpec((H, hd), "zeros")
         s["bk"] = PSpec((KVH, hd), "zeros")
         s["bv"] = PSpec((KVH, hd), "zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         s["q_norm"] = PSpec((hd,), "zeros")
         s["k_norm"] = PSpec((hd,), "zeros")
     return s
@@ -112,26 +115,40 @@ def prefix_causal_mask(S, Tpad, prefix_len, device=None):
     return torch.cat([keep_prefix, keep_self], dim=1)[None, None]
 
 
-def full_attention(cfg, p, x, *, positions, window=0, return_kv=False,
-                   prefix_kv=None, prefix_len=0):
-    """Causal self-attention over a full sequence (forward / prefill).
+def full_attention(cfg, p, x, *, positions, kv_x=None, kv=None,
+                   causal=True, window=0, return_kv=False, prefix_kv=None,
+                   prefix_len=0):
+    """Full-sequence attention (forward / prefill / encoder / cross).
 
+    kv_x: source of keys and values (cross-attention, no RoPE; non-causal:
+        every query row attends every ``kv_x`` row) — defaults to x.
+    kv: cross-attention keys and values already projected from ``kv_x``
+        (:func:`cross_attention_cache`), in place of ``kv_x``.
+    causal: False for the encoder's self-attention.
     prefix_kv: optional ``(k, v)`` of an already-prefilled prompt prefix
         ([B, Tpad, KVH, hd], post-RoPE, zero-padded beyond ``prefix_len``,
         a host int).  x is then the prompt *suffix*, whose queries attend
         the valid prefix keys plus their own causal keys; ``return_kv``
-        returns only the suffix K/V.  Requires global attention.
+        returns only the suffix K/V.  Requires causal global
+        self-attention.
     """
+    cross = kv_x is not None or kv is not None
+    if cross and causal:
+        raise ValueError("cross-attention (kv_x, kv) is non-causal")
+    if kv_x is not None and kv is not None:
+        raise ValueError("pass kv_x or its projection kv, not both")
     q = _project_q(cfg, p, x)
-    k, v = _project_kv(cfg, p, x)
-    if cfg.use_rope:
+    k, v = kv if kv is not None else _project_kv(
+        cfg, p, x if kv_x is None else kv_x)
+    if cfg.use_rope and not cross:
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                                 x.dtype)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if prefix_kv is not None:
-        if window:
-            raise ValueError("prefix attention is global attention only")
+        if window or not causal or cross:
+            raise ValueError("prefix attention is causal global "
+                             "self-attention only")
         pk, pv = prefix_kv
         Tpad = pk.shape[1]
         out = fa_ops.flash_attention(
@@ -140,12 +157,19 @@ def full_attention(cfg, p, x, *, positions, window=0, return_kv=False,
             prefix_pad=Tpad, prefix_len=prefix_len)
     else:
         out = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), causal=True,
+                                     v.contiguous(), causal=causal,
                                      window=window)
     out = _out_proj(out, p["wo"])
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention_cache(cfg, p, enc_out):
+    """Cross-attention K/V [B, enc_seq, KVH, hd] of the encoder output (the
+    encoder-decoder's decode memory)."""
+    k, v = _project_kv(cfg, p, enc_out)
+    return {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +263,17 @@ def decode_attention(cfg, p, x, cache, positions, *, window=0):
     else:
         out = da_ops.decode_attention(q.contiguous(), cache["k"],
                                       cache["v"], valid)
+    return _out_proj(out, p["wo"])
+
+
+def cross_decode_attention(cfg, p, x, ck, cv, valid):
+    """One decoder token's cross-attention over the fixed encoder memory:
+    x [B,1,D]; ck/cv [B, enc_seq, KVH, hd] from
+    :func:`cross_attention_cache`; valid [B, enc_seq] all true (every
+    frame is attended; the caller makes it once a step).  Runs in the
+    contiguous decode kernel.  Returns out [B,1,D]."""
+    q = _project_q(cfg, p, x)
+    out = da_ops.decode_attention(q.contiguous(), ck, cv, valid)
     return _out_proj(out, p["wo"])
 
 

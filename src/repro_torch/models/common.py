@@ -1,4 +1,5 @@
-"""Shared model building blocks: parameter schema and init, norms, RoPE.
+"""Shared model building blocks: parameter schema and init, norms, RoPE,
+sinusoidal positions.
 
 Parameters are nested dicts of tensors with the reference's tree layout
 (``repro/models/common.py``), so :mod:`repro_torch.models.convert` maps a
@@ -137,3 +138,15 @@ def apply_rope(x, cos, sin):
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def sinusoidal_positions(positions, d_model, dtype):
+    """Whisper-style sinusoidal embeddings [..., d_model] (sin half, then
+    cos half) of int ``positions``, computed in float32 for any length
+    and cast to ``dtype``."""
+    half = d_model // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

@@ -4,7 +4,8 @@ The reference seeds its init from ``hash(path)``, which Python randomizes
 per process, so the two packages can only be compared on the *same*
 parameters: the tests initialize with JAX, hand the tree over as numpy
 arrays, and convert it here.  The trees have the same nesting and leaf
-shapes (including the stacked ``layers`` axis), so the conversion is
+shapes (including the stacked ``layers`` axis, or the encoder-decoder's
+``enc_layers``/``dec_layers``), so the conversion is
 leaf by leaf and exact.
 """
 
@@ -21,10 +22,13 @@ def from_jax(cfg, params_np, *, device="cuda", dtype=None) -> dict:
     → nested dict of tensors on ``device``.  ``dtype`` casts every leaf;
     by default each keeps its own type, so the round trip is bit for bit."""
     dev = resolve_device(device)
-    if "layers" in params_np and "b0" not in params_np["layers"]:
+    unstacked = ("layers" in params_np and "b0" not in params_np["layers"]) \
+        or any("g0" in params_np.get(k, {})
+               for k in ("enc_layers", "dec_layers"))
+    if unstacked:
         raise ValueError(
-            f"{cfg.name}: only scan_layers=True trees (stacked 'layers/b0') "
-            f"are supported")
+            f"{cfg.name}: only scan_layers=True trees (stacked 'layers/b0', "
+            f"'enc_layers', 'dec_layers') are supported")
 
     def conv(tree):
         if isinstance(tree, dict):

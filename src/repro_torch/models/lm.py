@@ -1,6 +1,7 @@
 """Decoder-only language model: the dense attention family, the MoE
-family, the hybrid RG-LRU/local-attention family and the Mamba-2 SSM
-family.
+family, the VLM (a dense decoder whose prompt may start with patch
+embeddings), the hybrid RG-LRU/local-attention family and the Mamba-2
+SSM family.  The encoder-decoder family is :mod:`.encdec`.
 
 Counterpart of ``repro/models/lm.py``.  Parameters keep the reference's
 layer grouping: ``layers/b{i}`` holds the stacked ``[n_groups, ...]``
@@ -11,7 +12,7 @@ in that order.
 
 Two cache layouts:
 - the **paged** and **prefix-aware** path of the attention-only families
-  (dense and MoE; the default engine path) keeps flat ``{"k", "v"}``
+  (dense, MoE and VLM; the default engine path) keeps flat ``{"k", "v"}``
   leaves: ``[L, B, T, KVH, hd]`` from :func:`prefill`, pools ``[L, P,
   ps, KVH, hd]``;
 - the **contiguous** path (SSM, hybrid, int8-KV and windowed models,
@@ -33,23 +34,18 @@ from . import rglru as rgmod
 from . import ssd as ssdmod
 from .common import PSpec, apply_norm, norm_schema, stack_schema
 
-_NOT_PORTED = {
-    "enc_dec": "ROADMAP.md §A.9 (encoder-decoder)",
-    "vlm": "ROADMAP.md §A.9 (pixtral patch_stub)",
-}
-
-
 # families whose every block is global attention plus a feed-forward
-ATTENTION_ONLY = ("dense", "moe")
+ATTENTION_ONLY = ("dense", "moe", "vlm")
 
 
 def check_family(cfg):
-    """The port runs the dense, MoE, hybrid and SSM families; everything
-    else raises naming the ROADMAP item that ports it."""
+    """This module runs the decoder-only families; the encoder-decoder
+    family runs in :mod:`.encdec`, and any other family raises."""
     if cfg.family not in ATTENTION_ONLY + ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet — "
-            f"{_NOT_PORTED.get(cfg.family, 'ROADMAP.md §A')}")
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} has no decoder-only LM"
+            + (" (encoder-decoder models run in models.encdec)"
+               if cfg.family == "enc_dec" else ""))
 
 
 def is_contiguous(cfg) -> bool:
@@ -67,7 +63,7 @@ def is_contiguous(cfg) -> bool:
 def block_kinds(cfg) -> list:
     """The per-layer block kinds, in order."""
     check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return ["attn_mlp"] * cfg.num_layers
     if cfg.family == "moe":
         return ["attn_moe"] * cfg.num_layers
@@ -148,9 +144,15 @@ def blocks(cfg, tree):
 
 
 def embed_inputs(cfg, params, batch):
+    """Token embeddings and positions.  A ``patch_stub`` model (the VLM)
+    given ``batch["patch_embeds"]`` [B, n, D] takes them in place of the
+    first n token embeddings; positions stay 0 … S-1."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = params["embed"].to(cfg.activation_dtype)[tokens.long()]
+    if cfg.frontend == "patch_stub" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(h.dtype)
+        h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None, :].repeat(B, 1)
     return h, positions

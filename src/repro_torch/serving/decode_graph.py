@@ -8,13 +8,15 @@ and replays the graph every step after.  The step updates its cache in
 place, so the graph writes into the engine's own cache tensors; their
 addresses are recorded at capture and checked before every replay.
 
-The kernel wrappers count their launches in Python, which runs at capture
-and never at replay.  :class:`LaunchTally` keeps the counters true: the
-capture counts nothing, and each replay adds what one eager step counts.
+The kernel wrappers count their launches in Python, in all and by launch
+key, which runs at capture and never at replay.  :class:`LaunchTally`
+keeps the counters true: the capture counts nothing, and each replay adds
+what one eager step counts.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
@@ -39,30 +41,42 @@ def launch_counters() -> dict:
 
 class LaunchTally:
     """Launch counts of one replay of a captured graph.  ``counters`` maps
-    names to objects with a ``launches`` attribute.  Around the capture
-    (:meth:`capturing`) the counters are put back where they were and
-    their increase is kept as the per-replay tally; :meth:`replayed` adds
-    that tally."""
+    names to objects with a ``launches`` attribute (and, on the kernel
+    wrappers, a ``shapes`` Counter of launches by launch key).  Around the
+    capture (:meth:`capturing`) the counters are put back where they were
+    and their increase is kept as the per-replay tally; :meth:`replayed`
+    adds that tally."""
 
     def __init__(self, counters: dict):
         self.counters = counters
         self.per_replay: dict = {}
+        self.per_replay_shapes: dict = {}
 
     @contextlib.contextmanager
     def capturing(self):
         before = {n: c.launches for n, c in self.counters.items()}
+        shapes = {n: collections.Counter(c.shapes)
+                  for n, c in self.counters.items() if hasattr(c, "shapes")}
         try:
             yield
         finally:
             self.per_replay = {n: c.launches - before[n]
                                for n, c in self.counters.items()
                                if c.launches != before[n]}
+            self.per_replay_shapes = {
+                n: self.counters[n].shapes - was for n, was in shapes.items()
+                if self.counters[n].shapes != was}
             for n, c in self.counters.items():
                 c.launches = before[n]
+            for n, was in shapes.items():
+                self.counters[n].shapes.clear()
+                self.counters[n].shapes.update(was)
 
     def replayed(self):
         for n, k in self.per_replay.items():
             self.counters[n].launches += k
+        for n, grew in self.per_replay_shapes.items():
+            self.counters[n].shapes.update(grew)
 
 
 def tensors(tree) -> list:

@@ -236,6 +236,13 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: tensor-parallel serving waits for ROADMAP.md §A.11")
+        if model.cfg.family == "enc_dec":
+            raise NotImplementedError(
+                f"{model.cfg.name}: the engine admits token prompts only "
+                f"(the reference engine's admission passes "
+                f"{{'tokens': prompt}} alone), so an encoder-decoder "
+                f"request has no way to carry its encoder frames; run it "
+                f"through Model.prefill and Model.decode_step")
         self.device = resolve_device(device)
         for leaf in tensors(params):
             if leaf.device.type != self.device.type:

@@ -1,9 +1,12 @@
 """The parts of ``chip_smoke.py`` that run without a card: the rotation of
 timed inputs past the L2 cache, the build report's parse of the ptxas
-output, the kernel names and the HMMA counts of the SASS, and the serve
+output, the kernel names and the HMMA counts of the SASS, the serve
 phases' checks of the decode graph (its launch tally and the bit-equal
-replay against an eager step)."""
+replay against an eager step), whisper-medium's decode byte floor, the
+summary line's rows, flash's NaN-tail check, and the trace and profile
+reports."""
 
+import collections
 import types
 
 import pytest
@@ -293,3 +296,142 @@ def test_routing_diffs_order_by_position():
     assert [(j, layer) for j, layer, _ in got] == [(1, 1), (2, 0)]
     assert [g for _, _, g in got] == pytest.approx([2e-7, 1e-7])
     assert chip_smoke.routing_diffs(kern, kern) == []
+
+
+def test_encdec_step_floor_counts_what_a_step_reads():
+    """whisper-medium's decode step at B = 8: the decoder's weights but
+    the cross-attention's K/V projections, the tied head, the 24 layers'
+    cross memory of 1500 frames and the mean valid self rows, in bf16."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium")
+    f = chip_smoke.encdec_step_floor(cfg, 8, 64)
+    D, Fd, L = 1024, 4096, 24
+    layer = 6 * D * D + 2 * D * Fd + Fd + D + 6 * D
+    assert f["decoder_weights_gb"] == 2 * (L * layer + 2 * D) / 1e9
+    assert f["tied_head_gb"] == 2 * 51968 * D / 1e9
+    assert f["cross_kv_gb"] == 2 * 2 * L * 8 * 1500 * D / 1e9
+    assert f["self_kv_gb"] == 2 * 2 * L * 8 * (4 + 65 / 2) * D / 1e9
+    assert abs(f["floor_ms"] - f["total_gb"] * 1e9
+               / chip_smoke.HBM_BYTES_PER_S * 1e3) < 1e-12
+    assert 0.59 < f["floor_ms"] < 0.62
+
+
+def _key(**fields):
+    return tuple(fields.items())
+
+
+def test_summary_rows_carry_the_wave_launches():
+    """The summary line lists each kernel's rows by what tells them
+    apart; each row carries the main paths' launches counted at its
+    launch key, 0 where none was launched at that key."""
+    enc_key = dict(dtype="bfloat16", B=8, S=1500, T=1500, H=16, KVH=16,
+                   d=64, causal=False, window=0, prefix_pad=0, prefix_len=0)
+    shapes = {"flash_attention": collections.Counter({
+        _key(**enc_key): 24, _key(**{**enc_key, "S": 4}): 24})}
+    times = dict(ms=1.0, plain_ms=2.0, library_ms=None, bound_ms=0.5,
+                 bound_by="bytes", max_abs_err=0.0, call_ms=9.0)
+    enc = dict(kernel="flash_attention", shape="whisper-medium",
+               case="encoder", dtype="bfloat16", S=1500, T=1500, B=8,
+               prefix_pad=0, prefix_len=0, H=16, launch_key=enc_key,
+               **times)
+    row = chip_smoke.summary_row(enc, shapes)
+    assert row == {"shape": "whisper-medium", "case": "encoder",
+                   "dtype": "bfloat16", "B": 8, "S": 1500, "T": 1500,
+                   "prefix_pad": 0, "prefix_len": 0, "ms": 1.0,
+                   "plain_ms": 2.0, "library_ms": None, "bound_ms": 0.5,
+                   "bound_by": "bytes", "max_abs_err": 0.0,
+                   "main_path_launches": 24}
+    for other in ({**enc_key, "dtype": "float32"},
+                  {**enc_key, "causal": True}, {**enc_key, "S": 5}):
+        assert chip_smoke.summary_row({**enc, "launch_key": other},
+                                      shapes)["main_path_launches"] == 0
+    assert chip_smoke.summary_row(
+        {**enc, "kernel": "decode_attention"},
+        shapes)["main_path_launches"] == 0
+
+
+def test_launch_tables_count_by_key_and_add_up():
+    """The wrappers' counters count every launch in all and by its key;
+    zeroing clears both; tables of two paths add key by key; the printed
+    table names each key's fields, most launched first."""
+    from repro_torch.kernels import _build
+
+    @_build.counted
+    def wrapper(key):
+        _build.count_launch(wrapper, key)
+
+    counters = {"w": wrapper}
+    a, b = _key(S=4, causal=True), _key(S=1500, causal=False)
+    for key in (a, b, b):
+        wrapper(key)
+    launches, shapes = chip_smoke.read_launches(counters)
+    assert launches == {"w": 3} and shapes == {"w": {a: 1, b: 2}}
+    chip_smoke.zero_launches(counters)
+    assert chip_smoke.read_launches(counters) == ({"w": 0}, {})
+    total = chip_smoke.add_shapes(shapes, {"w": collections.Counter({a: 5}),
+                                           "v": collections.Counter({b: 1})})
+    assert total == {"w": {a: 6, b: 2}, "v": {b: 1}}
+    assert chip_smoke.shape_table(total) == {
+        "v": [{"S": 1500, "causal": False, "launches": 1}],
+        "w": [{"S": 4, "causal": True, "launches": 6},
+              {"S": 1500, "causal": False, "launches": 2}]}
+
+
+def test_flash_tail_nan_check_catches_a_read_past_the_end(monkeypatch):
+    """The tail check hands the wrapper views whose memory is followed by
+    NaN: a function that reads one element past q's last row fails it, a
+    function that reads only its inputs passes."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q = torch.randn(2, 3, 2, 4)
+    k = torch.randn(2, 5, 2, 4)
+    monkeypatch.setattr(fa_ops, "flash_attention",
+                        lambda q, k, v, **kw: q + k.sum())
+    out = q + k.sum()
+    chip_smoke.check_flash_tail_nan("ok", q, k, k.clone(), {}, out)
+
+    def leaky(q, k, v, **kw):
+        past = torch.as_strided(q, (1,), (1,), q.storage_offset() + q.numel())
+        return q + k.sum() + past
+    monkeypatch.setattr(fa_ops, "flash_attention", leaky)
+    with pytest.raises(SystemExit, match="NaN past the last rows"):
+        chip_smoke.check_flash_tail_nan("leaky", q, k, k.clone(), {}, out)
+
+
+def test_trace_report_segments_sum_to_the_wall(monkeypatch, tmp_path):
+    from repro_torch import obs
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    spans = [obs.Span(name="request", cat="serving.request", t0=0.0, t1=2.0,
+                      span_id=1),
+             obs.Span(name="decode.step", cat="serving.decode", t0=0.5,
+                      t1=0.75, span_id=2, parent_id=1),
+             obs.Span(name="decode.step", cat="serving.decode", t0=3.0,
+                      t1=3.5, span_id=3)]
+    got = chip_smoke.trace_report(spans, "trace.txt")
+    assert got["wall_ms"] == 3500.0 and got["segments_ms"] == 3500.0
+    assert got["idle_ms"] == 1000.0
+    comps = {c["component"]: c for c in got["critical_path"]}
+    assert comps["serving.decode:decode.step"]["ms"] == 750.0
+    assert comps["serving.request:request"]["ms"] == 1750.0
+    assert got["busy_ms"] == 2750.0 and got["ideal_makespan_ms"] == 0.0
+    assert "critical path" in (tmp_path / "trace.txt").read_text()
+    with pytest.raises(SystemExit, match="segments"):
+        chip_smoke.trace_report([], "trace.txt")
+
+
+def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    entry = lambda key, count, us: types.SimpleNamespace(  # noqa: E731
+        key=key, count=count, device_type="DeviceType.CUDA",
+        self_device_time_total=us)
+    prof = types.SimpleNamespace(key_averages=lambda: [
+        entry("flash_mma_kernel<64>(x)", 24, 600.0),
+        entry("ampere_bf16_gemm", 100, 1400.0)])
+    got = chip_smoke.profile_report(prof, 4000.0, "p.txt")
+    assert got["device_busy_ms"] == 2.0 and got["device_busy_share"] == 0.5
+    assert [k["name"] for k in got["port_kernels"]] \
+        == ["flash_mma_kernel<64>(x)"]
+    assert got["port_kernels"][0]["per_call_ms"] == 0.6 / 24
+    assert (tmp_path / "p.txt").read_text().count("\n") == 2
+    empty = types.SimpleNamespace(key_averages=lambda: [])
+    assert chip_smoke.profile_report(empty, 1.0, "q.txt") is None

@@ -403,6 +403,7 @@ def test_kernel_launch_counters_ignore_plain_path():
                 da_pt.decode_attention, da_pt.decode_attention_int8,
                 lru_pt.rglru_scan, ssd_pt.ssd_chunked)
     before = [f.launches for f in counters]
+    shapes = [dict(f.shapes) for f in counters]
     q, kp, vp, table = _paged_case(1, 8, 2, 2, 2, 16)
     pa_pt.paged_decode_attention(
         *(torch.from_numpy(x).float() for x in (q, kp, vp)),
@@ -419,6 +420,7 @@ def test_kernel_launch_counters_ignore_plain_path():
                        torch.zeros(2), torch.zeros(1, 4, 8),
                        torch.zeros(1, 4, 8), chunk=4)
     assert [f.launches for f in counters] == before
+    assert [dict(f.shapes) for f in counters] == shapes
 
 
 def test_decode_split_plan_covers_the_cache():

@@ -240,22 +240,30 @@ def test_decode_steps_through_shuffled_page_table(pair):
 
 
 def test_unported_families_raise():
-    """Encoder-decoder and VLM models raise naming the ROADMAP item that
-    ports them; the MoE, hybrid and SSM families no longer do, and MoE
-    takes the paged layout like the dense family."""
+    """Every family of the reference now runs: a family the reference
+    does not have raises, the decoder-only LM refuses the
+    encoder-decoder (which runs in ``models.encdec``), and the VLM takes
+    the paged layout like the dense family; so do MoE models."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models import lm
     base = ModelConfig(name="m", family="enc_dec", num_layers=1, d_model=8,
                        num_heads=2, num_kv_heads=2, head_dim=4, d_ff=8,
                        vocab_size=300)
-    for family in ("enc_dec", "vlm"):
-        other = base.replace(family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.lm_schema(other)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(other).prefix_seq_axes()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            other.reduced()
+    other = base.replace(family="rnn")
+    with pytest.raises(ValueError, match="no decoder-only LM"):
+        lm.lm_schema(other)
+    with pytest.raises(ValueError, match="no decoder-only LM"):
+        build_model(other).prefix_seq_axes()
+    with pytest.raises(ValueError, match="models.encdec"):
+        lm.lm_schema(base)
+    assert build_model(base).prefix_seq_axes() is None
+    assert build_model(base).schema().keys() == {
+        "embed", "enc_final_norm", "dec_final_norm", "enc_layers",
+        "dec_layers"}
+    vlm = get_config("pixtral-12b").reduced()
+    assert build_model(vlm).prefix_seq_axes() == {"k": 2, "v": 2}
+    assert not lm.is_contiguous(vlm)
+    assert lm.block_kinds(vlm) == ["attn_mlp"] * vlm.num_layers
     for name in ("olmoe-1b-7b", "qwen3-moe-30b-a3b"):
         red = get_config(name).reduced()
         assert (red.num_experts, red.moe_capacity_factor) == (8, 8.0)

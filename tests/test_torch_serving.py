@@ -204,6 +204,41 @@ def test_launch_tally_counts_each_replay_as_an_eager_step():
     assert counts() == {"paged": 20, "flash": 2, "ssd": 5}
 
 
+def test_launch_tally_counts_each_replay_by_launch_key():
+    """The launches by key follow the totals: the capture adds none, each
+    replay adds one eager step's keys, a failed capture leaves them as
+    they were."""
+    import collections
+
+    from repro_torch.kernels import _build
+
+    @_build.counted
+    def paged(key):
+        _build.count_launch(paged, key)
+
+    a, b = (("B", 8), ("d", 160)), (("B", 4), ("d", 160))
+
+    def step():
+        for _ in range(3):
+            paged(a)
+        paged(b)
+
+    tally = LaunchTally({"paged": paged})
+    step()
+    with tally.capturing():
+        step()
+    assert paged.launches == 4 and paged.shapes == {a: 3, b: 1}
+    assert tally.per_replay_shapes == {"paged": {a: 3, b: 1}}
+    for _ in range(2):
+        tally.replayed()
+    assert paged.launches == 12
+    assert paged.shapes == collections.Counter({a: 9, b: 3})
+    with pytest.raises(RuntimeError), tally.capturing():
+        step()
+        raise RuntimeError("capture failed")
+    assert paged.shapes == {a: 9, b: 3}
+
+
 def test_decode_graph_refuses_a_moved_cache():
     """A replay after a cache leaf was rebound raises instead of writing
     into the memory the graph captured."""
