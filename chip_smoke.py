@@ -116,6 +116,39 @@ Phases, each printing one JSON line:
              width and 8 layers (the whole model is 51 GB in float32)
              against the plain path within 1e-4: prefill, prefix, decode
              and the patch-embedding prefill.
+9. train   — full-width stablelm-3b (32 layers, f32 parameters, bf16
+             activations, ``remat="full"``) trained by the port's train
+             step (``repro_torch.launch.steps``) with AdamW at a constant
+             lr of 1e-4 for 6 steps on one repeated 4 × 1024
+             ``LMDataset(seed=0)`` batch, then a profiled seventh.
+             Holds each step's launches exactly (flash twice an attention
+             layer: the forward and the backward's recompute: so no
+             forward took the plain version), each Function's backwards,
+             every loss finite and the last below the first; a
+             checkpoint of the state written and read back bit-equal;
+             and the loss and every parameter gradient at 2 layers in
+             float32 against the plain path within 1e-4 relative L2 per
+             leaf (bf16 printed only).  Prints the step's median and p90,
+             tokens/s, ``mfu`` (6·N·tokens / step / 989e12), peak memory,
+             the profiled step's busy share and the device ms of its
+             forward, each Function's backward and the optimizer.
+10. train_ssm — the same for full-width mamba2-2.7b (64 SSD blocks,
+             4 × 1024; SSD twice a block).
+11. train_hybrid — the same for recurrentgemma-9b at full width, its
+             depth cut to one (rglru, rglru, attn) group (the train state
+             of 38 blocks would not fit one card; the line's ``reduced``
+             says so), 1 × 2304 past the 2048 window (flash twice, the
+             RG-LRU scan three times a block: its backward is the
+             kernel's scan over reversed time), the check at 3 blocks.
+
+The kernels phase also holds each trained wrapper's
+``torch.autograd.Function`` on the card at these phases' shapes: flash
+(bf16 and f32), the RG-LRU scan and the SSD scan, the forward against
+the plain version and the backward against autograd through it (flash's
+and SSD's backwards recompute through the plain version, so there the
+forward holds the kernel and the backward the wiring), with the
+backward's device time beside its bound, the plain version's and, for
+flash, the backward of one SDPA call (:func:`backward_kernel_rows`).
 
 Every serve engine replays its decode step as one CUDA graph, captured
 after the eager first step.  Each serve phase checks, per engine, one
@@ -145,6 +178,7 @@ import argparse
 import asyncio
 import collections
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -159,7 +193,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
-          "serve_moe", "encdec", "serve_vlm")
+          "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
+          "train_hybrid")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -346,10 +381,14 @@ def function_times(fn, args, funcs, *, reps=10):
 
 def device_rows(prof):
     """(device µs, count, name) of each CUDA entry of a profile that took
-    device time, the most first."""
+    device time, the most first.  The train phases' ``record_function``
+    ranges (``TRAIN_RANGE...``), which the profiler also lists as device
+    entries spanning their kernels, are left out: their kernels are
+    rows of their own."""
     rows = []
     for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or e.key.startswith(TRAIN_RANGE):
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:                      # older profilers
@@ -675,7 +714,7 @@ def phase_kernels():
                     bound_ms=b_ms, bound_by=b_by))
                 emit({"phase": "kernels", **results[-1]})
     for row in (hybrid_kernel_rows(gen) + ssd_kernel_rows(gen)
-                + encdec_kernel_rows(gen)):
+                + encdec_kernel_rows(gen) + backward_kernel_rows(gen)):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
@@ -1494,10 +1533,12 @@ def serve_counted(engine, prompts, max_new, counters, warm=None):
 
 
 def zero_launches(counters):
-    """Every launch count to 0, in all and by launch key."""
+    """Every launch count to 0, in all and by launch key, and every
+    backward count."""
     for fn in counters.values():
         fn.launches = 0
         fn.shapes.clear()
+        fn.backwards = 0
 
 
 def read_launches(counters):
@@ -2491,6 +2532,426 @@ def phase_serve_vlm(seed):
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# the kernels phase's backward rows: each autograd Function at the train
+# phases' shapes
+
+
+# the train phases' shapes of each trained kernel
+BACKWARD_SHAPES = {
+    "flash_attention": {
+        "stablelm-3b": dict(B=4, S=1024, H=32, KVH=32, d=80, window=0),
+        "recurrentgemma-9b": dict(B=1, S=2304, H=16, KVH=1, d=256,
+                                  window=2048)},
+    "rglru_scan": dict(B=1, S=2304, W=4096),
+    "ssd_chunk_scan": dict(B=4, S=1024, H=80, P=64, N=128, chunk=256)}
+
+
+def backward_kernel_rows(gen):
+    """Each trained kernel wrapper's ``torch.autograd.Function`` on the
+    card at the train phases' shapes: its forward (the kernel;
+    ``forward_max_abs_err``) and its backward (``max_abs_err``), each held
+    against the plain version and autograd through it (bf16 2e-2, f32
+    2e-5, SSD 2e-4).  Flash's and SSD's backwards recompute through the
+    plain version, as their reference does, so their backward error only
+    shows the Function's wiring (both sides run the same recompute); the
+    kernel is held by the forward's error.  Flash at stablelm-3b's (B 4, S = T =
+    1024, 32 heads of 80, causal) and recurrentgemma-9b's (B 1, S = T =
+    2304, 16 heads over 1 of 256, window 2048) in bf16 and f32; the RG-LRU
+    scan at recurrentgemma-9b's (B 1, S 2304, W 4096) and the SSD scan at
+    mamba2-2.7b's (B 4, S 1024, 80 heads of 64, N 128, chunk 256), f32.
+    Times: the backward alone (``ms``: flash's and SSD's recompute through
+    the plain version, RG-LRU's reversed scan in the kernel), autograd's
+    forward and backward through the plain version (``plain_ms``), and
+    flash's yardstick, the backward of one SDPA call (``library_ms``).
+    Bound: the backward's inputs (the forward's inputs and the output's
+    cotangent) read once and its gradients written once, or its fewest
+    operations (flash: the recomputed scores and the four products of the
+    backward, 10·pairs·H·d; SSD: three times the forward's needed
+    operations, the recompute and two products for each of its
+    products; RG-LRU: the scan's multiply-add and da's product, 3 an
+    element)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, keep_mask)
+    from repro_torch.kernels.rglru import ops as lru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    dev = "cuda"
+    rows = []
+
+    def grads(fn, inputs, cot):
+        xs = [t.detach().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*xs), xs, cot)
+
+    def forward_and_grads(fn, inputs, cot):
+        """(the outputs, detached, as a tuple; the inputs' gradients)."""
+        xs = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*xs)
+        outs = out if isinstance(out, tuple) else (out,)
+        return (tuple(o.detach() for o in outs),
+                torch.autograd.grad(outs, xs, cot))
+
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        es = torch.finfo(dtype).bits // 8
+        for sname, sh in BACKWARD_SHAPES["flash_attention"].items():
+            B, S, H, KVH, d, W = (sh[k] for k in ("B", "S", "H", "KVH", "d",
+                                                  "window"))
+            q = torch.randn(B, S, H, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(B, S, KVH, d, generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn(B, S, KVH, d, generator=gen,
+                            device=dev).to(dtype)
+            g = torch.randn(B, S, H, d, generator=gen, device=dev).to(dtype)
+            kw = dict(causal=True, window=W)
+            (out,), got = forward_and_grads(
+                lambda q, k, v: fa_ops.flash_attention(q, k, v, **kw),
+                (q, k, v), g)
+            (out_ref,), want = forward_and_grads(
+                lambda q, k, v: flash_attention_ref(q, k, v, **kw),
+                (q, k, v), g)
+            label = f"flash backward {sname} {dname}"
+            fwd_err = check_close(f"{label} forward", out, out_ref, dname)
+            err = max(check_close(f"{label} {n}", a, b, dname)
+                      for n, a, b in zip("qkv", got, want))
+            del out, out_ref
+            keep = keep_mask(S, S, window=W, device=dev)
+            pairs = int(keep.sum().item()) * B
+            b_ms, b_by = bound((3 * q.numel() + 4 * k.numel()) * es,
+                               10 * pairs * H * d, dname)
+            qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                          for t in (q, k, v))
+            with torch.enable_grad():
+                lib_out = sdpa(qs, ks, vs, keep)
+            gt = g.transpose(1, 2)
+            rows.append(dict(
+                kernel="flash_attention_backward", shape=sname, dtype=dname,
+                B=B, S=S, T=S, H=H, KVH=KVH, d=d, window=W,
+                forward_max_abs_err=fwd_err, max_abs_err=err, tol=TOL[dname],
+                **kernel_times(
+                    lambda q, k, v, g: fa_ops.flash_attention_vjp(
+                        q, k, v, g, **kw),
+                    lambda q, k, v, g: grads(
+                        lambda *x: flash_attention_ref(*x, **kw),
+                        (q, k, v), g),
+                    lambda q, k, v, g: torch.autograd.grad(
+                        lib_out, (qs, ks, vs), gt, retain_graph=True),
+                    (q, k, v, g)),
+                library_note="the backward of one SDPA call (its forward "
+                             "run once, outside the timing)",
+                bound_ms=b_ms, bound_by=b_by))
+            del lib_out, qs, ks, vs
+
+    # RG-LRU: the backward is the kernel's scan over reversed time
+    B, S, Wd = (BACKWARD_SHAPES["rglru_scan"][k] for k in ("B", "S", "W"))
+    a = torch.sigmoid(torch.randn(B, S, Wd, generator=gen, device=dev))
+    b = torch.randn(B, S, Wd, generator=gen, device=dev)
+    g = torch.randn(B, S, Wd, generator=gen, device=dev)
+    (h,), got = forward_and_grads(lru_ops.rglru_scan, (a, b), g)
+    (h_ref,), want = forward_and_grads(rglru_scan_ref, (a, b), g)
+    fwd_err = check_close("rglru backward forward", h, h_ref, "float32")
+    err = max(check_close(f"rglru backward {n}", x, y, "float32")
+              for n, x, y in zip(("da", "db"), got, want))
+    del h_ref
+    b_ms, b_by = bound(5 * a.numel() * 4, 3 * a.numel(), "float32")
+    rows.append(dict(
+        kernel="rglru_scan_backward", shape="recurrentgemma-9b",
+        dtype="float32", B=B, S=S, W=Wd, forward_max_abs_err=fwd_err,
+        max_abs_err=err, tol=TOL["float32"],
+        **kernel_times(lru_ops.rglru_scan_vjp,
+                       lambda a, h, g: grads(rglru_scan_ref, (a, b), g),
+                       None, (a, h, g)),
+        library_note="no single PyTorch call computes a linear "
+                     "recurrence with per-step coefficients",
+        bound_ms=b_ms, bound_by=b_by))
+
+    # SSD: the backward recomputes through the plain version's chunked form
+    B, S, H, P, N, chunk = (BACKWARD_SHAPES["ssd_chunk_scan"][k]
+                            for k in ("B", "S", "H", "P", "N", "chunk"))
+    xh = torch.randn(B, S, H, P, generator=gen, device=dev)
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    a_log = torch.ones(H, device=dev)
+    Bm = torch.randn(B, S, N, generator=gen, device=dev)
+    Cm = torch.randn(B, S, N, generator=gen, device=dev)
+    gy = torch.randn(B, S, H, P, generator=gen, device=dev)
+    gh = torch.zeros(B, H, P, N, device=dev)
+    inputs = (xh, dt, a_log, Bm, Cm)
+    outs, got = forward_and_grads(
+        lambda *x: ssd_ops.ssd_chunked(*x, chunk=chunk), inputs, (gy, gh))
+    outs_ref, want = forward_and_grads(
+        lambda *x: ssd_chunked_ref(*x, chunk=chunk), inputs, (gy, gh))
+    fwd_err = max(check_close(f"ssd backward forward {n}", x, y, "float32",
+                              SSD_TOL)
+                  for n, x, y in zip(("y", "state"), outs, outs_ref))
+    del outs, outs_ref
+    err = max(check_close(f"ssd backward d{n}", x, y, "float32", SSD_TOL)
+              for n, x, y in zip(("xh", "dt", "a_log", "B", "C"), got, want))
+    da = dt * -torch.exp(a_log)
+    flops = 3 * sum(ssd_needed_flops(da[i], False, N, P) for i in range(B))
+    nbytes = 4 * (3 * xh.numel() + 2 * (dt.numel() + H + Bm.numel()
+                                         + Cm.numel()) + gh.numel())
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    rows.append(dict(
+        kernel="ssd_chunk_scan_backward", shape="mamba2-2.7b",
+        dtype="float32", B=B, S=S, H=H, P=P, N=N, model_chunk=chunk,
+        forward_max_abs_err=fwd_err, max_abs_err=err, tol=SSD_TOL,
+        **kernel_times(
+            lambda *x: ssd_ops.ssd_chunked_vjp(x[:5], x[5:], chunk=chunk),
+            lambda *x: grads(lambda *y: ssd_chunked_ref(*y, chunk=chunk),
+                             x[:5], x[5:]),
+            None, (*inputs, gy, gh)),
+        library_note="no single PyTorch call computes a chunked scan "
+                     "with per-step decay",
+        bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: train full-width stablelm-3b, mamba2-2.7b and
+# recurrentgemma-9b
+
+TRAIN_LR = 1e-4
+# the main path's steps (the first warms up and is not timed) on one
+# batch, repeated
+TRAIN_STEPS = 6
+TRAIN_CASES = {
+    "train": dict(arch="stablelm-3b", batch=4, seq=1024, check_layers=2),
+    "train_ssm": dict(arch="mamba2-2.7b", batch=4, seq=1024,
+                      check_layers=2),
+    # one (rglru, rglru, attn) group at full width: 38 blocks need ~167 GB
+    # of train state; S = 2304 runs past the 2048 window
+    "train_hybrid": dict(arch="recurrentgemma-9b", batch=1, seq=2304,
+                         layers=3, check_layers=3),
+}
+# the profiler ranges of a profiled train step: the forward and loss
+# (``train:forward``) and the optimizer (``train:optimizer``), which
+# ``make_train_step`` opens, and each Function's backward
+# (``train:backward:<wrapper>``)
+TRAIN_RANGE = "train:"
+# the train state's checkpoint, written and read back, then removed
+TRAIN_CKPT_DIR = ROOT / ".chip_ckpt"
+
+
+def train_counts(cfg):
+    """({kernel: launches}, {kernel: backward calls}) of one train step,
+    from the model's layer groups: under remat each group's forward runs
+    again in the backward (the tail blocks run once), and the RG-LRU
+    scan's backward is one more launch of its kernel; flash's and SSD's
+    backwards recompute through the plain version."""
+    from repro_torch.models import lm
+    group, n_groups, tail = lm._layer_groups(cfg)
+    runs = collections.Counter()
+    for kind in group:
+        runs[kind] += n_groups * (1 if cfg.remat == "none" else 2)
+    for kind in tail:
+        runs[kind] += 1
+    calls = collections.Counter()
+    for kind in group * n_groups + tail:
+        calls[{"rglru_mlp": "rglru_scan", "ssd": "ssd_chunk_scan"}.get(
+            kind, "flash_attention")] += 1
+    launches = {"flash_attention": sum(
+        n for k, n in runs.items() if k.startswith("attn")),
+        "rglru_scan": runs["rglru_mlp"] + calls["rglru_scan"],
+        "ssd_chunk_scan": runs["ssd"]}
+    return ({k: n for k, n in launches.items() if n},
+            {k: n for k, n in calls.items() if n})
+
+
+def range_device_ms(prof, prefix):
+    """{range: device ms of the kernels launched inside it} of the
+    profiler's ``record_function`` ranges named ``prefix...``; None where
+    the profiler gives a range no device time."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith(prefix):
+            dev = getattr(e, "device_time_total", None)
+            if dev is None:
+                dev = getattr(e, "cuda_time_total", 0)
+            out[e.key] = {"ms": dev / 1e3 if dev else None,
+                          "calls": e.count}
+    return out
+
+
+def grads_vs_plain(model, params, batch, tol, label):
+    """The kernel path's loss and every parameter gradient against the
+    same model under :func:`plain_kernels` (relative L2 per leaf); held
+    at ``tol`` when given, else printed only."""
+    from repro_torch.launch import steps
+    loss_k, _, gk = steps.loss_and_grads(model, params, batch)
+    with plain_kernels():
+        loss_p, _, gp = steps.loss_and_grads(model, params, batch)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    errs = {k: rel_l2(gk[k], gp[k]) for k in gk}
+    worst = max(errs, key=errs.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    if tol is not None and not (finite and loss_err <= tol
+                                and errs[worst] <= tol):
+        fail(f"{label}: kernel path against plain: loss {loss_err}, "
+             f"worst gradient {worst} {errs[worst]} (tol {tol}, "
+             f"finite {finite})")
+    return {"loss_rel_err": loss_err, "worst_leaf": worst,
+            "worst_grad_rel_l2": errs[worst], "leaves": len(errs),
+            "tol": tol}
+
+
+def rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def phase_train(phase, seed):
+    import gc
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import LMDataset
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.tree import flatten
+
+    case = TRAIN_CASES[phase]
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(case["arch"])
+    cfg = full.replace(remat="full", microbatches=1,
+                       num_layers=case.get("layers", full.num_layers))
+    reduced = [] if cfg.num_layers == full.num_layers else [
+        f"num_layers {full.num_layers} -> {cfg.num_layers} (one "
+        f"{'/'.join(full.block_pattern)} group at full width: the train "
+        f"state of all {full.num_layers} would not fit one card)"]
+    model = build_model(cfg)
+    optimizer = AdamW(learning_rate=TRAIN_LR)
+    B, S = case["batch"], case["seq"]
+    host_batch = LMDataset(vocab_size=cfg.vocab_size, batch_size=B,
+                           seq_len=S, seed=0).batch(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps.init_train_state(model, optimizer, seed, device="cuda")
+    batch = steps.device_batch(host_batch, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = steps.make_train_step(model, optimizer)
+    want, want_vjp = train_counts(cfg)
+
+    # the main path: TRAIN_STEPS steps on the same batch, counted.  Each
+    # forward launches its kernel or takes the plain version (CPU tensors
+    # only), so launches equal to the forwards the layers make also say
+    # that no plain forward ran on the card
+    counters = launch_counters()
+    losses, step_s = [], []
+    zero_launches(counters)
+    for i in range(TRAIN_STEPS):
+        before = {n: (c.launches, c.backwards) for n, c in counters.items()}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+        check_launches(f"{phase} step {i}", {
+            n: c.launches - before[n][0] for n, c in counters.items()}, want)
+        backwards = {n: c.backwards - before[n][1]
+                     for n, c in counters.items()
+                     if c.backwards != before[n][1]}
+        if backwards != want_vjp:
+            fail(f"{phase} step {i}: backward calls {backwards} != "
+                 f"{want_vjp}")
+    launches, shapes = read_launches(counters)
+    # one more step, profiled: make_train_step names its parts as ranges
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    profiled = profile_report(prof, wall_us, f"{phase}_profile.txt")
+    if profiled is not None:
+        profiled["ranges"] = range_device_ms(prof, TRAIN_RANGE)
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"{phase}: losses {losses} (all finite, the last below the "
+             f"first)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = sorted(step_s[1:])
+    median_s = statistics.median(timed)
+    tokens = B * S
+    n_params = model.num_params()
+
+    # the state after the last step: a checkpoint written and read back
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = ckpt.save(TRAIN_CKPT_DIR, int(state["step"]), state)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    t0 = time.perf_counter()
+    back, back_step = ckpt.restore(TRAIN_CKPT_DIR, state, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_CKPT_DIR)
+    a, b = flatten(state), flatten(back)
+    for k in a:
+        if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+            fail(f"{phase}: checkpoint leaf {k} did not read back "
+                 f"bit-equal")
+    if back_step != int(state["step"]):
+        fail(f"{phase}: checkpoint step {back_step}")
+    del state, back, a, b, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the f32 gradient check at full width and check_layers layers: the
+    # kernel path against the plain path; bf16 printed only
+    check = {}
+    for dname, tol in (("float32", LOGITS_TOL_F32), ("bfloat16", None)):
+        cm = build_model(cfg.replace(num_layers=case["check_layers"],
+                                     dtype=dname))
+        params = cm.init(seed, device="cuda")
+        check[dname] = grads_vs_plain(
+            cm, params, steps.device_batch(host_batch, "cuda"), tol,
+            f"{phase} {dname} gradients")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    emit({"phase": phase, "card": card(), "model": cfg.name,
+          "layers": cfg.num_layers, "reduced": reduced, "params": n_params,
+          "remat": cfg.remat, "dtype": cfg.dtype,
+          "param_dtype": cfg.param_dtype, "lr": TRAIN_LR,
+          "batch": B, "seq": S, "tokens_per_step": tokens,
+          "init_s": init_s, "losses": losses,
+          "first_step_s": step_s[0], "step_median_s": median_s,
+          "step_p90_s": timed[int(0.9 * (len(timed) - 1))],
+          "tokens_per_s": tokens / median_s,
+          "mfu": 6 * n_params * tokens / median_s
+          / PEAK_FLOPS["bfloat16"],
+          "launches_per_step": want, "backward_calls_per_step": want_vjp,
+          "launches": launches, "launches_by_shape": shape_table(shapes),
+          "profiled_step": profiled,
+          "peak_memory_gb": peak_gb,
+          "checkpoint": {"step": back_step, "bytes": nbytes,
+                         "save_s": save_s, "restore_s": restore_s,
+                         "bit_equal": True},
+          "grads_vs_plain": {"layers": case["check_layers"], **check}})
+    return launches, shapes
+
+
 # the fields that tell a kernel's rows apart, in the summary line
 ROW_KEYS = ("shape", "case", "dtype", "B", "S", "T", "C", "prefix_pad",
             "prefix_len", "window", "h0", "decay")
@@ -2550,7 +3011,9 @@ def main(argv=None):
                      ("serve_ssm", phase_serve_ssm),
                      ("serve_moe", phase_serve_moe),
                      ("encdec", phase_encdec),
-                     ("serve_vlm", phase_serve_vlm)):
+                     ("serve_vlm", phase_serve_vlm),
+                     *((name, functools.partial(phase_train, name))
+                       for name in TRAIN_CASES)):
         if name in phases:
             more, shapes[name] = timed(name, fn, args.seed)
             launches = {n: launches.get(n, 0) + more.get(n, 0)
@@ -2580,11 +3043,7 @@ def main(argv=None):
                                  for r in kernel_rows
                                  if r["kernel"] == name]})
     print(json.dumps({"kernels": summary}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,6 +19,7 @@ a later synchronize would not report it).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -37,6 +38,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict = {}
 BUILD_LOG: dict = {}   # name -> {"seconds", "ptxas"} of this process's builds
+# the profiler range of an autograd Function's backward: this prefix and
+# the wrapper's name
+BACKWARD_RANGE = "train:backward:"
 
 
 def sources() -> dict:
@@ -119,10 +123,12 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
 
 def counted(wrapper):
     """Give a kernel wrapper its launch counters: ``.launches``, every
-    launch of its kernel, and ``.shapes``, a Counter of those launches by
-    the wrapper's ``launch_key`` (what tells its launches apart)."""
+    launch of its kernel, ``.shapes``, a Counter of those launches by
+    the wrapper's ``launch_key`` (what tells its launches apart), and
+    ``.backwards``, the backwards its autograd Function ran."""
     wrapper.launches = 0
     wrapper.shapes = collections.Counter()
+    wrapper.backwards = 0
     return wrapper
 
 
@@ -130,6 +136,17 @@ def count_launch(wrapper, key: tuple) -> None:
     """One launch of ``wrapper``'s kernel, at ``key``."""
     wrapper.launches += 1
     wrapper.shapes[key] += 1
+
+
+@contextlib.contextmanager
+def backward(wrapper):
+    """One backward of ``wrapper``'s autograd Function: counted in
+    ``wrapper.backwards`` and run under the profiler range
+    ``BACKWARD_RANGE + wrapper.__name__``."""
+    import torch
+    wrapper.backwards += 1
+    with torch.profiler.record_function(BACKWARD_RANGE + wrapper.__name__):
+        yield
 
 
 def dtype_name(dtype) -> str:

@@ -5,8 +5,16 @@ Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``
 (Pallas ``_fa_kernel``) and extends it with the serving engine's prefix
 mode, so prefix-aware prefill runs in this kernel too.  CPU tensors take
 the plain version (:mod:`.ref`); CUDA tensors launch
-``csrc/flash_attention.cu`` or raise.  Inference only: the custom VJP of
-the reference waits for the training slice.
+``csrc/flash_attention.cu`` or raise.
+
+Gradients follow the reference's custom VJP
+(``repro/kernels/flash_attention/ops.py``): the forward is this wrapper's,
+and the backward (:func:`flash_attention_vjp`) recomputes attention from
+the saved ``q, k, v`` through the plain version and differentiates that,
+on either device (the reference computes its backward in XLA, outside any
+kernel).  Only the reference's masks take a gradient (``prefix_pad ==
+0``); the engine's prefix mode is inference only and raises if one is
+asked of it.
 """
 
 from __future__ import annotations
@@ -89,11 +97,22 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,
     j >= prefix_pad and j - prefix_pad <= i (when causal) and
     j - prefix_pad > i - window (when window > 0).  ``prefix_pad`` and
     ``prefix_len`` are host ints (the engine knows them); with both 0
-    this is the reference kernel's causal/window attention."""
+    this is the reference kernel's causal/window attention, and the only
+    form that takes a gradient."""
     prefix_pad, prefix_len = int(prefix_pad), int(prefix_len)
     if not 0 <= prefix_len <= prefix_pad <= k.shape[1]:
         raise ValueError(f"need 0 <= prefix_len ({prefix_len}) <= prefix_pad "
                          f"({prefix_pad}) <= T ({k.shape[1]})")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if prefix_pad:
+            raise ValueError("flash_attention's prefix mode takes no "
+                             "gradient (prefix_pad must be 0 to train)")
+        return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+    return _forward(q, k, v, causal, window, prefix_pad, prefix_len)
+
+
+def _forward(q, k, v, causal, window, prefix_pad=0, prefix_len=0):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    prefix_pad=prefix_pad,
@@ -114,3 +133,32 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,
         q, k, causal=causal, window=window, prefix_pad=prefix_pad,
         prefix_len=prefix_len))
     return out
+
+
+def flash_attention_vjp(q, k, v, g, *, causal=True, window=0):
+    """(dq, dk, dv) of attention at ``q, k, v`` against the output
+    cotangent ``g``: attention recomputed through the plain version and
+    differentiated, as the reference's ``_bwd`` does with
+    ``attention_ref`` under ``jax.vjp``."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_ref(*qkv, causal=causal, window=window)
+        return torch.autograd.grad(out, qkv, g)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the reference's recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window = ctx.mask
+        with _build.backward(flash_attention):
+            dq, dk, dv = flash_attention_vjp(*ctx.saved_tensors, g,
+                                             causal=causal, window=window)
+        return dq, dk, dv, None, None

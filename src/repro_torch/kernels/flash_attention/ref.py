@@ -27,15 +27,16 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, prefix_pad=0,
                         prefix_len=0):
     """q: [B,S,H,d]; k,v: [B,T,KVH,d] (the first ``prefix_pad`` rows a
     padded prefix whose first ``prefix_len`` are valid) → [B,S,H,d];
-    f32 softmax."""
+    f32 softmax (f64 for f64 inputs, which gradient checks use)."""
     B, S, H, d = q.shape
     T, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     keep = keep_mask(S, T, causal=causal, window=window,
                      prefix_pad=prefix_pad, prefix_len=prefix_len,
                      device=q.device)
-    qg = q.reshape(B, S, KVH, G, d).float()
-    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * d ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(B, S, KVH, G, d).to(acc)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(acc)) * d ** -0.5
     s = torch.where(keep, s, torch.full((), -1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     # prefix padding rows are never attended: zero them so whatever they
@@ -43,6 +44,6 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, prefix_pad=0,
     pad = (torch.arange(T, device=q.device) >= prefix_len) \
         & (torch.arange(T, device=q.device) < prefix_pad)
     vz = torch.where(pad[None, :, None, None], torch.zeros((), device=q.device),
-                     v.float())
+                     v.to(acc))
     o = torch.einsum("bkgst,btkd->bskgd", p, vz)
     return o.reshape(B, S, H, d).to(q.dtype)

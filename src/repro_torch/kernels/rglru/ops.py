@@ -5,8 +5,14 @@ Replaces ``repro/kernels/rglru/kernel.py::rglru_scan_fwd`` (Pallas
 CUDA tensors launch ``csrc/rglru.cu`` or raise.  The kernel gives each
 block ``CHANNELS`` channels of one batch row and walks the sequence in
 tiles of ``TILE`` steps, one segment of ``SEGMENT`` steps a warp; every
-length and width runs it.  Inference only: the reference's recompute VJP
-waits for the training slice.
+length and width runs it.
+
+Gradients (for ``h0 is None``, as the reference's custom VJP in
+``repro/kernels/rglru/ops.py``): the recurrence's adjoint is the same
+recurrence run backwards in time, so the backward (:func:`rglru_scan_vjp`)
+runs this scan again, on reversed inputs: the kernel on CUDA tensors.
+The reference differentiates its associative-scan oracle instead; the
+gradient is the same up to float32 rounding.
 """
 
 from __future__ import annotations
@@ -53,7 +59,18 @@ def launch_key(a, h0=None) -> tuple:
 @_build.counted
 def rglru_scan(a, b, h0=None):
     """a, b: [B, S, W] f32 → h: [B, S, W] f32 with h_t = a_t·h_{t-1} + b_t
-    and h_{-1} = h0 [B, W] (zeros when None)."""
+    and h_{-1} = h0 [B, W] (zeros when None).  Takes a gradient in ``a``
+    and ``b`` when ``h0`` is None."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        if h0 is not None:
+            raise ValueError("rglru_scan takes a gradient only without h0")
+        return _RGLRUScan.apply(a, b)
+    return _forward(a, b, h0)
+
+
+def _forward(a, b, h0=None):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":
@@ -68,3 +85,32 @@ def rglru_scan(a, b, h0=None):
     _build.check(err, "rglru_scan")
     _build.count_launch(rglru_scan, launch_key(a, h0))
     return out
+
+
+def rglru_scan_vjp(a, h, g):
+    """(da, db) of h = scan(a, b) at its coefficients ``a`` and output
+    ``h`` against the cotangent ``g``.  The adjoint dh obeys dh_t = g_t +
+    a_{t+1}·dh_{t+1}: the scan over reversed time of g with the
+    coefficients shifted by one step, dh = flip(scan(shift(flip(a)),
+    flip(g))).  Then db = dh and da_t = dh_t·h_{t-1}, h_{-1} = 0."""
+    ar = torch.flip(a, (1,))
+    ar = torch.cat([torch.zeros_like(ar[:, :1]), ar[:, :-1]], dim=1)
+    dh = torch.flip(_forward(ar, torch.flip(g.to(a.dtype), (1,))),
+                    (1,))
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return dh * h_prev, dh
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The kernel's forward; the backward is the kernel's reversed scan."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _forward(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        with _build.backward(rglru_scan):
+            return rglru_scan_vjp(*ctx.saved_tensors, g)

@@ -14,9 +14,11 @@ import torch
 
 def rglru_scan_ref(a, b, h0=None):
     """a, b: [B, S, W] f32 → h: [B, S, W] f32 with h_t = a_t·h_{t-1} + b_t,
-    h_{-1} = h0 [B, W] (zeros if None)."""
-    a = a.float()
-    b = b.float()
+    h_{-1} = h0 [B, W] (zeros if None).  (f64 inputs stay f64, for
+    gradient checks.)"""
+    acc = torch.promote_types(a.dtype, torch.float32)
+    a = a.to(acc)
+    b = b.to(acc)
     S = a.shape[1]
     shift = 1
     while shift < S:
@@ -28,5 +30,5 @@ def rglru_scan_ref(a, b, h0=None):
         a = a_sh * a
         shift *= 2
     if h0 is not None:
-        b = b + a * h0.float()[:, None, :]
+        b = b + a * h0.to(acc)[:, None, :]
     return b

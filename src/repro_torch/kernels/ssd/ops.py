@@ -14,8 +14,14 @@ plain path.  The kernel walks the sequence in chunks of its own
 (``KERNEL_CHUNK``); the result does not depend on the chunk beyond
 rounding, so ``chunk`` only sets the plain version's.  The wrapper
 allocates the kernel's scratch: the chunk states, the chunks' total log
-decays and the chunks' ``C·Bᵀ``.  Inference only: the reference's
-recompute VJP waits for the training slice.
+decays and the chunks' ``C·Bᵀ``.
+
+Gradients (for ``initial_state is None``, as the reference's
+``_ssd_train``): the forward is this wrapper's, and the backward
+(:func:`ssd_chunked_vjp`) recomputes the scan through the plain version's
+chunked form at the model's ``chunk`` and differentiates it, as the
+reference's ``_bwd`` does under ``jax.vjp``.  The stateful path (serving)
+takes no gradient and raises if one is asked of it.
 """
 
 from __future__ import annotations
@@ -77,8 +83,21 @@ def ssd_chunked(xh, dt, a_log, B, C, *, chunk, initial_state=None):
     """xh [b,S,H,P]; dt [b,S,H] (post-softplus, float32); a_log [H]
     (A = -exp(a_log)); B, C [b,S,N] shared by the heads; initial_state
     [b,H,P,N] float32 or None (zeros).
-    → (y [b,S,H,P] float32, final state [b,H,P,N] float32)."""
+    → (y [b,S,H,P] float32, final state [b,H,P,N] float32).  Takes a
+    gradient in the first five when ``initial_state`` is None."""
     _check(xh, dt, a_log, B, C, initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xh, dt, a_log, B, C, initial_state)):
+        if initial_state is not None:
+            raise ValueError("ssd_chunked takes a gradient only without an "
+                             "initial_state")
+        return _SSDChunked.apply(xh, dt, a_log, B, C, int(chunk))
+    return _forward(xh, dt, a_log, B, C, chunk, initial_state)
+
+
+def _forward(xh, dt, a_log, B, C, chunk, initial_state=None):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if xh.device.type == "cpu":
         return ssd_chunked_ref(xh, dt, a_log, B, C, chunk=chunk,
                                initial_state=initial_state)
@@ -116,3 +135,30 @@ def ssd_chunked(xh, dt, a_log, B, C, *, chunk, initial_state=None):
     _build.check(err, "ssd_chunk_scan")
     _build.count_launch(ssd_chunked, launch_key(xh, B, initial_state))
     return y, hout.transpose(-1, -2)                      # → [b,H,P,N]
+
+
+def ssd_chunked_vjp(inputs, grads, *, chunk):
+    """Cotangents of (xh, dt, a_log, B, C) = ``inputs`` against those of
+    (y, final state) = ``grads``: the scan recomputed through the plain
+    version's chunked form at ``chunk`` and differentiated, as the
+    reference's ``_bwd`` does with ``ssd_chunked_ref``."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in inputs]
+        outs = ssd_chunked_ref(*xs, chunk=chunk)
+        return torch.autograd.grad(outs, xs, grads)
+
+
+class _SSDChunked(torch.autograd.Function):
+    """The kernel's forward with the reference's recompute backward."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, a_log, B, C, chunk):
+        ctx.save_for_backward(xh, dt, a_log, B, C)
+        ctx.chunk = chunk
+        return _forward(xh, dt, a_log, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        with _build.backward(ssd_chunked):
+            return (*ssd_chunked_vjp(ctx.saved_tensors, (gy, gstate),
+                                     chunk=ctx.chunk), None)

@@ -36,16 +36,18 @@ def _segsum(logs):
 def ssd_chunked_ref(xh, dt, a_log, B, C, *, chunk, initial_state=None):
     """xh [b,S,H,P]; dt [b,S,H] (post-softplus); a_log [H] (A = -exp);
     B, C [b,S,N]; initial_state [b,H,P,N] or None.
-    → (y [b,S,H,P] f32, final state [b,H,P,N] f32)."""
+    → (y [b,S,H,P] f32, final state [b,H,P,N] f32); f64 for f64 ``xh``
+    (gradient checks)."""
     b, S, H, P = xh.shape
     N = B.shape[-1]
     Q = min(chunk, S)
     pad = (-S) % Q
-    dt = dt.float()
-    A = -torch.exp(a_log.float())
-    xdt = xh.float() * dt[..., None]                   # [b,S,H,P]
+    acc = torch.promote_types(xh.dtype, torch.float32)
+    dt = dt.to(acc)
+    A = -torch.exp(a_log.to(acc))
+    xdt = xh.to(acc) * dt[..., None]                    # [b,S,H,P]
     da = dt * A                                         # [b,S,H]
-    Bf, Cf = B.float(), C.float()
+    Bf, Cf = B.to(acc), C.to(acc)
     if pad:
         xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
         da = F.pad(da, (0, 0, 0, pad))
@@ -72,8 +74,8 @@ def ssd_chunked_ref(xh, dt, a_log, B, C, *, chunk, initial_state=None):
 
     # inter-chunk recurrence over chunk states; h_in = state entering chunk c
     chunk_decay = torch.exp(cum[:, :, -1])              # [b,nc,H]
-    h = torch.zeros(b, H, P, N, dtype=torch.float32, device=xh.device) \
-        if initial_state is None else initial_state.float()
+    h = torch.zeros(b, H, P, N, dtype=acc, device=xh.device) \
+        if initial_state is None else initial_state.to(acc)
     h_in = []
     for c in range(nc):
         h_in.append(h)

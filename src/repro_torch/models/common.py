@@ -8,11 +8,13 @@ JAX parameter tree onto them leaf by leaf.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 
 @dataclass(frozen=True)
@@ -59,6 +61,42 @@ def stack_schema(schema: dict, n: int) -> dict:
             out[k] = PSpec((n,) + v.shape, v.init,
                            tuple(a + 1 for a in (v.fan_in_axes or (0,))))
     return out
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing (the reference's ``jax.checkpoint`` of a layer
+# group, ``repro/models/lm.py::_remat``)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the matrix
+    products' outputs, recompute everything else."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg, fn):
+    """``fn`` under ``cfg.remat``: ``"full"`` keeps only its inputs and
+    recomputes the rest in the backward, ``"dots"`` keeps the matrix
+    products' outputs too, ``"none"`` keeps everything.  Non-reentrant
+    ``torch.utils.checkpoint``; with gradients off ``fn`` runs as is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: one of 'full', 'dots', "
+                         f"'none'")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {}
+        if cfg.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 # ---------------------------------------------------------------------------

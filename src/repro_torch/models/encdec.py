@@ -20,9 +20,9 @@ import torch
 
 from . import attention as att
 from . import mlp as mlpmod
-from .common import (PSpec, apply_norm, norm_schema, sinusoidal_positions,
-                     stack_schema)
-from .lm import _pick, _seq_to_cache, mask_vocab_padding
+from .common import (PSpec, apply_norm, norm_schema, remat,
+                     sinusoidal_positions, stack_schema)
+from .lm import _seq_to_cache, mask_vocab_padding, unstack
 
 
 def enc_block_schema(cfg):
@@ -50,10 +50,6 @@ def encdec_schema(cfg) -> dict:
     }
 
 
-def _layers(stacked, n):
-    return [_pick(stacked, i) for i in range(n)]
-
-
 def _logits(cfg, params, h):
     """The tied head: h @ embed^T, vocab padding masked."""
     return mask_vocab_padding(cfg, h @ params["embed"].to(h.dtype).T)
@@ -66,12 +62,18 @@ def encode(cfg, params, frames):
     pos = torch.arange(T, dtype=torch.int32, device=frames.device)
     h = frames + sinusoidal_positions(pos, D, frames.dtype)[None]
     positions = pos[None, :].repeat(B, 1)
-    for p in _layers(params["enc_layers"], cfg.enc_layers):
+
+    def layer(h, p):
         h = h + att.full_attention(cfg, p["attn"],
                                    apply_norm(cfg, p["ln1"], h),
                                    positions=positions, causal=False)
-        h = h + mlpmod.apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], h),
-                                 gated=False)
+        return h + mlpmod.apply_mlp(cfg, p["mlp"],
+                                    apply_norm(cfg, p["ln2"], h),
+                                    gated=False)
+
+    run = remat(cfg, layer)
+    for p in unstack(params["enc_layers"], cfg.enc_layers):
+        h = run(h, p)
     return apply_norm(cfg, params["enc_final_norm"], h)
 
 
@@ -85,8 +87,8 @@ def dec_forward(cfg, params, tokens, enc_out, *, fill_cache=False,
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
     h = h + sinusoidal_positions(pos, cfg.d_model, h.dtype)[None]
     positions = pos[None, :].repeat(B, 1)
-    caches = []
-    for p in _layers(params["dec_layers"], cfg.num_layers):
+
+    def layer(h, p):
         a, (k, v) = att.full_attention(
             cfg, p["self_attn"], apply_norm(cfg, p["ln1"], h),
             positions=positions, causal=True, return_kv=True)
@@ -100,6 +102,12 @@ def dec_forward(cfg, params, tokens, enc_out, *, fill_cache=False,
                                    kv=(cross["k"], cross["v"]), causal=False)
         h = h + mlpmod.apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln3"], h),
                                  gated=False)
+        return h, k, v, cross
+
+    run = remat(cfg, layer)
+    caches = []
+    for p in unstack(params["dec_layers"], cfg.num_layers):
+        h, k, v, cross = run(h, p)
         if fill_cache:
             caches.append({"k": _seq_to_cache(k, capacity),
                            "v": _seq_to_cache(v, capacity),
@@ -152,7 +160,7 @@ def decode_step(cfg, params, cache, tokens, positions):
     h = h + sinusoidal_positions(positions[:, None], cfg.d_model, h.dtype)
     dc = cache["dec"]
     valid = torch.ones(B, cfg.enc_seq, dtype=torch.bool, device=h.device)
-    for i, p in enumerate(_layers(params["dec_layers"], cfg.num_layers)):
+    for i, p in enumerate(unstack(params["dec_layers"], cfg.num_layers)):
         h = h + att.decode_attention(
             cfg, p["self_attn"], apply_norm(cfg, p["ln1"], h),
             {"k": dc["k"][i], "v": dc["v"][i]}, positions)

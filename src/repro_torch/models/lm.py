@@ -32,7 +32,7 @@ from . import mlp as mlpmod
 from . import moe as moemod
 from . import rglru as rgmod
 from . import ssd as ssdmod
-from .common import PSpec, apply_norm, norm_schema, stack_schema
+from .common import PSpec, apply_norm, norm_schema, remat, stack_schema
 
 # families whose every block is global attention plus a feed-forward
 ATTENTION_ONLY = ("dense", "moe", "vlm")
@@ -119,21 +119,25 @@ def lm_schema(cfg) -> dict:
     return s
 
 
-def _pick(tree, i):
-    return {k: _pick(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def unstack(tree, n):
+    """The n layers of a stacked subtree (leaves ``[n, ...]``), as views
+    that one ``unbind`` a leaf makes (so an in-place cache update writes
+    through); in training its backward stacks the layers' gradients in
+    one op, where indexing layer by layer would allocate a full-size
+    gradient for every layer."""
+    per_leaf = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def blocks(cfg, tree):
     """(kind, subtree) of every layer in order, where ``tree`` is the
     parameter tree or a grouped cache: layer g·P + i of the super-blocks
-    reads ``tree["layers"]["b{i}"]`` at index g (views, so an in-place
-    cache update writes through), then the tail blocks."""
+    reads ``tree["layers"]["b{i}"]`` at index g, then the tail blocks."""
     group_kinds, n_groups, tail_kinds = _layer_groups(cfg)
-    out = []
-    for g in range(n_groups):
-        for i, kind in enumerate(group_kinds):
-            out.append((kind, _pick(tree["layers"][f"b{i}"], g)))
+    out = [(kind, gp[f"b{i}"])
+           for gp in unstack(tree["layers"], n_groups)
+           for i, kind in enumerate(group_kinds)]
     for i, kind in enumerate(tail_kinds):
         out.append((kind, tree[f"tail{i}"]))
     return out
@@ -233,13 +237,25 @@ def apply_block(cfg, kind, p, h, positions, *, fill=None, return_kv=False,
 
 def forward(cfg, params, batch):
     """Teacher-forcing forward → (logits [B,S,V], aux_loss: the sum of
-    the MoE layers' Switch losses, 0 without MoE layers)."""
+    the MoE layers' Switch losses, 0 without MoE layers).  Each layer
+    group (one period of the block pattern) runs under ``cfg.remat``, as
+    the reference's scanned groups do; the tail blocks do not."""
     h, positions = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for kind, p in blocks(cfg, params):
-        h, _, a = apply_block(cfg, kind, p, h, positions)
-        if a is not None:
-            aux = aux + a
+    group_kinds, n_groups, tail_kinds = _layer_groups(cfg)
+
+    def group(h, aux, gp, kinds=group_kinds):
+        for i, kind in enumerate(kinds):
+            h, _, a = apply_block(cfg, kind, gp[f"b{i}"], h, positions)
+            if a is not None:
+                aux = aux + a
+        return h, aux
+
+    run = remat(cfg, group)
+    for gp in unstack(params["layers"], n_groups):
+        h, aux = run(h, aux, gp)
+    for i, kind in enumerate(tail_kinds):
+        h, aux = group(h, aux, {"b0": params[f"tail{i}"]}, [kind])
     h = apply_norm(cfg, params["final_norm"], h)
     return logits_from_hidden(cfg, params, h), aux
 

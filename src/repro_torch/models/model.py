@@ -56,6 +56,20 @@ class Model:
             return encdec.forward(self.cfg, params, batch)
         return lm.forward(self.cfg, params, batch)
 
+    def loss_fn(self, params, batch):
+        """Next-token loss of the reference (``repro/models/model.py``):
+        mean NLL + 1e-4·mean(logsumexp²) (z-loss) + 1e-2·aux (the MoE
+        layers' Switch loss), in float32 → (loss, {"nll", "aux",
+        "zloss"})."""
+        logits, aux = self.forward(params, batch)
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, batch["targets"].long()[..., None])[..., 0]
+        nll = (logz - gold).mean()
+        zloss = 1e-4 * logz.square().mean()
+        loss = nll + zloss + 1e-2 * aux
+        return loss, {"nll": nll, "aux": aux, "zloss": zloss}
+
     def prefill(self, params, batch, capacity, *, prefix=None,
                 prefix_len=None, last_index=None):
         """→ (last_logits [B,V], cache); see :func:`lm.prefill` and

@@ -154,6 +154,20 @@ def test_device_rows_read_either_profiler_field():
                                             (5.0, 2, "a_kernel")]
 
 
+def test_device_rows_leave_out_the_backward_ranges():
+    """A train phase's ``record_function`` range, listed by the profiler
+    as a device entry spanning its kernels, is not a kernel: busy time
+    counts its kernels once."""
+    prof = types.SimpleNamespace(key_averages=lambda: [
+        types.SimpleNamespace(key=chip_smoke.TRAIN_RANGE + "optimizer",
+                              count=2, device_type="DeviceType.CUDA",
+                              self_device_time_total=9.0),
+        types.SimpleNamespace(key="sgemm", count=2,
+                              device_type="DeviceType.CUDA",
+                              self_device_time_total=5.0)])
+    assert chip_smoke.device_rows(prof) == [(5.0, 2, "sgemm")]
+
+
 def test_by_function_counts_each_row_once():
     rows = [(10.0, 2, "ssd_out_mma_kernel(float)"),
             (4.0, 2, "ssd_out_mma_kernel(int)"),
@@ -435,3 +449,186 @@ def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
     assert (tmp_path / "p.txt").read_text().count("\n") == 2
     empty = types.SimpleNamespace(key_averages=lambda: [])
     assert chip_smoke.profile_report(empty, 1.0, "q.txt") is None
+
+
+# ---------------------------------------------------------------------------
+# the train phases
+
+
+def test_train_phases_parse():
+    """The three train phases are phases of the script: ``--phases`` takes
+    them (and without a card the script stops before running any), and an
+    unknown name is refused."""
+    assert chip_smoke.PHASES[-3:] == ("train", "train_ssm", "train_hybrid")
+    assert set(chip_smoke.TRAIN_CASES) == set(chip_smoke.PHASES[-3:])
+    if not torch.cuda.is_available():
+        assert chip_smoke.main(["--phases", "train,train_ssm,train_hybrid"]) \
+            == 2
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--phases", "train,train_moe"])
+
+
+def test_train_counts_follow_the_layer_groups():
+    """Launches and backward calls a train step makes, from the layer
+    groups: remat runs each group's kernels twice, the tail blocks once,
+    and each RG-LRU block once more for its reversed scan."""
+    from repro_torch.configs import get_config
+    stablelm = get_config("stablelm-3b")
+    assert chip_smoke.train_counts(stablelm) == (
+        {"flash_attention": 64}, {"flash_attention": 32})
+    assert chip_smoke.train_counts(get_config("mamba2-2.7b")) == (
+        {"ssd_chunk_scan": 128}, {"ssd_chunk_scan": 64})
+    rg = get_config("recurrentgemma-9b")
+    assert chip_smoke.train_counts(rg.replace(num_layers=3)) == (
+        {"flash_attention": 2, "rglru_scan": 6},
+        {"flash_attention": 1, "rglru_scan": 2})
+    # all 38 blocks: 12 groups and a tail of two RG-LRU blocks
+    assert chip_smoke.train_counts(rg) == (
+        {"flash_attention": 24, "rglru_scan": 48 + 2 + 26},
+        {"flash_attention": 12, "rglru_scan": 26})
+    assert chip_smoke.train_counts(stablelm.replace(remat="none"))[0] \
+        == {"flash_attention": 32}
+
+
+@pytest.fixture()
+def cpu_chip_smoke(monkeypatch, tmp_path):
+    """A copy of the script with every ``"cuda"`` read as ``"cpu"``, the
+    CUDA timers and memory counters stubbed, its output directory and the
+    checkpoint directory under ``tmp_path``, and each trained kernel's
+    forward counted as a launch on the CPU (the plain versions count
+    nothing): a rehearsal of the train phases without a card."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru import ops as lru
+    from repro_torch.kernels.ssd import ops as ssd
+
+    src = Path(chip_smoke.__file__).read_text().replace('"cuda"', '"cpu"')
+    mod = types.ModuleType("chip_smoke_cpu")
+    mod.__file__ = chip_smoke.__file__
+    exec(compile(src, "chip_smoke_cpu", "exec"), mod.__dict__)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    mod.card = lambda: "CPU rehearsal"
+    mod.OUT_DIR = tmp_path / "out"
+    mod.TRAIN_CKPT_DIR = tmp_path / "ckpt"
+
+    def counted(module, wrapper, key):
+        real = module._forward
+
+        def forward(*a, **k):
+            _build.count_launch(wrapper, key(*a))
+            return real(*a, **k)
+        monkeypatch.setattr(module, "_forward", forward)
+
+    counted(fa, fa.flash_attention, lambda q, k, v, causal, window, *_:
+            fa.launch_key(q, k, causal=causal, window=window))
+    counted(lru, lru.rglru_scan, lambda a, b, h0=None: lru.launch_key(a, h0))
+    counted(ssd, ssd.ssd_chunked,
+            lambda xh, dt, a_log, B, C, chunk, h0=None:
+            ssd.launch_key(xh, B, h0))
+    return mod
+
+
+def test_train_phases_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
+                                           capsys):
+    """Each train phase at reduced width and depth: exact launches and
+    backward calls every step, no plain forward on the device, the loss
+    falling, the checkpoint read back bit-equal and the gradient check
+    held, in one JSON line with the card beside the numbers."""
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+
+    def reduced(name):
+        cfg = real(name).reduced()
+        return cfg.replace(num_layers=38, attn_window=8) \
+            if name == "recurrentgemma-9b" else cfg
+    monkeypatch.setattr(configs, "get_config", reduced)
+    mod = cpu_chip_smoke
+    mod.TRAIN_CASES = {
+        "train": dict(arch="stablelm-3b", batch=2, seq=16, check_layers=2),
+        "train_ssm": dict(arch="mamba2-2.7b", batch=2, seq=16,
+                          check_layers=2),
+        "train_hybrid": dict(arch="recurrentgemma-9b", batch=1, seq=20,
+                             layers=3, check_layers=3)}
+    for phase, want in (("train", {"flash_attention": 4}),
+                        ("train_ssm", {"ssd_chunk_scan": 4}),
+                        ("train_hybrid", {"flash_attention": 2,
+                                          "rglru_scan": 6})):
+        launches, shapes = mod.phase_train(phase, 0)
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["phase"] == phase and line["card"] == "CPU rehearsal"
+        assert line["launches_per_step"] == want
+        assert {k: v for k, v in launches.items() if v} == {
+            k: v * mod.TRAIN_STEPS for k, v in want.items()}
+        assert line["backward_calls_per_step"] == {
+            k: v // 2 if k != "rglru_scan" else v // 3
+            for k, v in want.items()}
+        assert len(line["losses"]) == mod.TRAIN_STEPS
+        assert line["losses"][-1] < line["losses"][0]
+        assert line["checkpoint"]["bit_equal"]
+        assert line["checkpoint"]["step"] == mod.TRAIN_STEPS + 1
+        assert line["grads_vs_plain"]["float32"]["worst_grad_rel_l2"] \
+            <= line["grads_vs_plain"]["float32"]["tol"]
+        assert line["reduced"] == ([] if phase != "train_hybrid" else [
+            line["reduced"][0]]) and line["layers"] == (
+            3 if phase == "train_hybrid" else 2)
+        assert not (mod.TRAIN_CKPT_DIR).exists()
+
+
+def test_backward_rows_rehearsed_on_the_cpu(cpu_chip_smoke):
+    """The kernels phase's backward rows at tiny shapes (timers stubbed):
+    each Function's gradients against autograd through the plain
+    version, with a bound and the SDPA yardstick for flash."""
+    mod = cpu_chip_smoke
+    mod.time_ms = lambda fn, args, **k: (fn(*args), (0.0, True))[1]
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    mod.BACKWARD_SHAPES = {
+        "flash_attention": {
+            "stablelm-3b": dict(B=2, S=32, H=4, KVH=4, d=80, window=0),
+            "recurrentgemma-9b": dict(B=1, S=40, H=4, KVH=1, d=32,
+                                      window=16)},
+        "rglru_scan": dict(B=1, S=200, W=64),
+        "ssd_chunk_scan": dict(B=2, S=32, H=4, P=8, N=16, chunk=16)}
+    rows = mod.backward_kernel_rows(torch.Generator().manual_seed(0))
+    assert [r["kernel"] for r in rows] == ["flash_attention_backward"] * 4 \
+        + ["rglru_scan_backward", "ssd_chunk_scan_backward"]
+    for r in rows:
+        assert r["max_abs_err"] <= r["tol"] and r["bound_ms"] > 0
+        assert r["forward_max_abs_err"] <= r["tol"]
+        assert (r["library_ms"] is None) == (r["kernel"] !=
+                                             "flash_attention_backward")
+
+
+def test_profiled_train_step_ranges():
+    """A profiled train step names its forward, each Function's backward
+    and the optimizer as profiler ranges (here on the
+    CPU, which gives them no device time); each Function counts its
+    backwards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.training.optimizer import AdamW
+
+    model = build_model(get_config("recurrentgemma-9b").reduced())
+    opt = AdamW()
+    state = steps.init_train_state(model, opt, 0, device="cpu")
+    batch = {k: torch.randint(0, 100, (1, 8)) for k in ("tokens", "targets")}
+    counters = launch_counters()
+    chip_smoke.zero_launches(counters)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        steps.make_train_step(model, opt)(state, batch)
+    got = chip_smoke.range_device_ms(prof, chip_smoke.TRAIN_RANGE)
+    assert {k: v["calls"] for k, v in got.items()} == {
+        "train:forward": 1, "train:optimizer": 1,
+        "train:backward:rglru_scan": 2, "train:backward:flash_attention": 1}
+    assert {n: c.backwards for n, c in counters.items() if c.backwards} \
+        == {"rglru_scan": 2, "flash_attention": 1}

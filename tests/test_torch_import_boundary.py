@@ -30,6 +30,14 @@ def _imports(path):
 def test_port_files_found():
     assert len(FILES) > 15
     assert all(p.exists() for p in FILES)
+    # the training slice's subpackages are covered too
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+             if "repro_torch" in p.parts}
+    for mod in ("training/optimizer.py", "training/data.py",
+                "training/checkpoint.py", "training/train_loop.py",
+                "training/tree.py", "training/__init__.py",
+                "launch/steps.py", "launch/train.py", "launch/__init__.py"):
+        assert mod in names, mod
 
 
 @pytest.mark.parametrize("path", FILES,
