@@ -140,6 +140,44 @@ Phases, each printing one JSON line:
              says so), 1 × 2304 past the 2048 window (flash twice, the
              RG-LRU scan three times a block: its backward is the
              kernel's scan over reversed time), the check at 3 blocks.
+12. serve_fleet — full-width stablelm-3b (bf16, seeded random weights,
+             one set of parameters shared by every replica) behind the
+             port's ``EngineFleet`` with fig15's traffic: 4 sessions × 4
+             queries sharing a 160-token session prefix, 16 new greedy
+             tokens, 4 slots a replica, an untimed priming wave (one
+             query a session), then a timed wave of the 16 requests
+             dispatched one each, concurrently, through
+             ``fleet.dispatcher.generate``; three fleets: one replica,
+             4 replicas under ``prefix_affinity`` and 4 under
+             ``least_outstanding``.  Holds every request's tokens to one
+             ``ServingEngine``'s on the path it took (over the primed
+             prefix, or prefilled whole: the paths round bf16
+             differently; a fleet whose every request routed warm must
+             give the warm path's tokens exactly), affinity's warm share
+             (``prefix_hits / prefix_probed``) strictly above
+             least-outstanding's, each replica's decode graph, exact
+             launches over all replicas (paged decode a layer a step,
+             flash a layer a chunk), and that one ``generate_batch`` wave
+             under the port's ``use_dispatcher`` lands its prefix-batch
+             counts on the fleet's stats.  Prints each fleet's drain
+             seconds and their ratio to one replica's, the warm shares,
+             each replica's ``engine_stats()``, the peak memory and the
+             busy share of a profiled wave.
+13. train_moe — ``train``'s checks for olmoe-1b-7b at full width, its
+             depth cut to 2 of 16 layers (1.05 B parameters; all 16 need
+             ~111 GB of train state), 4 × 1024 (flash twice a layer).
+             The gradient check records each MoE call's routing on both
+             paths: a batch where a router near-tie tips a token's top-8
+             set is reported and the next tried
+             (:func:`moe_grads_vs_plain`).  ``mfu`` counts the experts'
+             weights at top-k / experts.
+14. train_encdec — the same for whisper-medium whole (24 + 24 layers,
+             758 M parameters): 4 × 1500 seeded frames and decoder
+             sequences of 448 tokens (flash twice an encoder layer and
+             four times a decoder layer: self- and cross-attention, each
+             with its recompute), the check at 2 + 2 layers; ``mfu``
+             counts the encoder and the cross K/V projections over the
+             frames.
 
 The kernels phase also holds each trained wrapper's
 ``torch.autograd.Function`` on the card at these phases' shapes: flash
@@ -148,7 +186,11 @@ the plain version and the backward against autograd through it (flash's
 and SSD's backwards recompute through the plain version, so there the
 forward holds the kernel and the backward the wiring), with the
 backward's device time beside its bound, the plain version's and, for
-flash, the backward of one SDPA call (:func:`backward_kernel_rows`).
+flash, the backward of one SDPA call (:func:`backward_kernel_rows`);
+the SSD forward there is also held beside the plain version against a
+float64 step recurrence (``forward_vs_float64``).  Flash's forward runs
+at the train phases' shapes too, in bf16, with its bound and SDPA's
+time (:func:`train_flash_rows`).
 
 Every serve engine replays its decode step as one CUDA graph, captured
 after the eager first step.  Each serve phase checks, per engine, one
@@ -194,7 +236,7 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
           "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
-          "train_hybrid")
+          "train_hybrid", "serve_fleet", "train_moe", "train_encdec")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -714,7 +756,8 @@ def phase_kernels():
                     bound_ms=b_ms, bound_by=b_by))
                 emit({"phase": "kernels", **results[-1]})
     for row in (hybrid_kernel_rows(gen) + ssd_kernel_rows(gen)
-                + encdec_kernel_rows(gen) + backward_kernel_rows(gen)):
+                + encdec_kernel_rows(gen) + train_flash_rows(gen)
+                + backward_kernel_rows(gen)):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
@@ -1013,6 +1056,35 @@ def ssd_kernel_rows(gen):
     return rows
 
 
+def ssd_vs_float64(inputs, forms):
+    """Each form's (y, final state) distance from the step recurrence
+    h_t = exp(dt_t·A) h + dt_t x_t B_t, y_t = h_t C_t in float64 over the
+    same inputs (x, dt, a_log, B, C), every batch row: the largest
+    absolute error and the relative L2 error of y, and the state's
+    largest absolute error."""
+    xh, dt, a_log, Bm, Cm = inputs
+    da = dt.double() * -torch.exp(a_log.double())
+    xdt = xh.double() * dt.double()[..., None]
+    Bd, Cd = Bm.double(), Cm.double()
+    B, S, H, P = xh.shape
+    h = torch.zeros(B, H, P, Bm.shape[-1], dtype=torch.float64,
+                    device=xh.device)
+    ys = []
+    for t in range(S):
+        h = torch.exp(da[:, t])[..., None, None] * h \
+            + xdt[:, t, :, :, None] * Bd[:, t, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cd[:, t]))
+    y64 = torch.stack(ys, 1)
+    out = {}
+    for name, (y, hs) in forms.items():
+        y = y.double()
+        out[name] = {"y_max_abs_err": (y - y64).abs().max().item(),
+                     "y_rel_l2_err": ((y - y64).norm() / y64.norm()).item(),
+                     "state_max_abs_err":
+                         (hs.double() - h).abs().max().item()}
+    return out
+
+
 def ssd_needed_flops(da, with_h0, N, P):
     """The fewest float32 operations of the SSD scan at the log decays
     ``da`` [S, H] of one batch row: the fewer of the chunked form's
@@ -1080,42 +1152,17 @@ def encdec_kernel_rows(gen):
     self cache (C = 448, ragged positions) and over the encoder memory
     (C = 1500, every slot valid).  The library call is SDPA (with the
     causal mask as a boolean matrix)."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_ref, keep_mask)
-
     w = WHISPER_ATTN
     B, H, d, T = w["B"], w["H"], w["d"], w["T"]
     P = ENCDEC_PROMPT
     rows = []
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
-        es = torch.finfo(dtype).bits // 8
         for case, S, Tk, causal in (("encoder", T, T, False),
                                     ("prefill cross", P, T, False),
                                     ("decoder self", P, P, True)):
-            q = torch.randn(B, S, H, d, generator=gen, device="cuda").to(dtype)
-            k = torch.randn(B, Tk, H, d, generator=gen,
-                            device="cuda").to(dtype)
-            v = torch.randn(B, Tk, H, d, generator=gen,
-                            device="cuda").to(dtype)
-            kw = dict(causal=causal)
-            label = f"flash whisper-medium {case} {dname}"
-            out = fa_ops.flash_attention(q, k, v, **kw)
-            err = check_close(label, out, flash_attention_ref(q, k, v, **kw),
-                              dname)
-            check_flash_tail_nan(label, q, k, v, kw, out)
-            keep = keep_mask(S, Tk, device="cuda") if causal else None
-            pairs = int(keep.sum().item()) if causal else S * Tk
-            b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es,
-                               4 * B * H * pairs * d, dname)
-            rows.append(dict(
-                kernel="flash_attention", shape="whisper-medium", case=case,
-                dtype=dname, B=B, S=S, T=Tk, H=H, KVH=H, d=d, causal=causal,
-                prefix_pad=0, prefix_len=0, max_abs_err=err, tol=TOL[dname],
-                launch_key=dict(fa_ops.launch_key(q, k, **kw)),
-                **flash_times(kw, keep, (q, k, v)), bound_ms=b_ms,
-                bound_by=b_by))
+            rows.append(flash_row(gen, "whisper-medium", case, dname, B=B,
+                                  S=S, T=Tk, H=H, KVH=H, d=d, causal=causal))
         # the decode batch's self cache: ragged positions, one at the
         # capacity's end; the cross cache: every frame valid
         for case, C, pos in (
@@ -1126,6 +1173,60 @@ def encdec_kernel_rows(gen):
                 dict(B=B, H=H, KVH=H, d=d, C=C, pos=pos), dname, dtype,
                 case=case))
     return rows
+
+
+# flash's forward at the train phases' shapes (bf16 activations): name →
+# (case, B, S, T, H, KVH, d, causal, launches a train step at the phase's
+# depth: twice a layer under remat)
+TRAIN_FLASH = {
+    "stablelm-3b": [("train", 4, 1024, 1024, 32, 32, 80, True, 64)],
+    "olmoe-1b-7b": [("train", 4, 1024, 1024, 16, 16, 128, True, 4)],
+    "whisper-medium": [
+        ("train encoder", 4, 1500, 1500, 16, 16, 64, False, 48),
+        ("train decoder self", 4, 448, 448, 16, 16, 64, True, 48),
+        ("train cross", 4, 448, 1500, 16, 16, 64, False, 48)],
+}
+
+
+def train_flash_rows(gen):
+    """Flash's forward against its plain version at the shapes the train
+    phases give it, in bf16 (:func:`flash_row`)."""
+    return [flash_row(gen, shape, case, "bfloat16", B=B, S=S, T=T, H=H,
+                      KVH=KVH, d=d, causal=causal,
+                      launches_per_train_step=per_step)
+            for shape, cases in TRAIN_FLASH.items()
+            for case, B, S, T, H, KVH, d, causal, per_step in cases]
+
+
+def flash_row(gen, shape, case, dname, *, B, S, T, H, KVH, d, causal,
+              **extra):
+    """One flash row without a prefix: seeded q [B,S,H,d] and k, v
+    [B,T,KVH,d] in ``dname``, the kernel against its plain version, NaN
+    past the inputs' last rows giving a bit-equal output, its device
+    time, bound and SDPA's time (a causal mask as a boolean matrix)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, keep_mask)
+    dtype = getattr(torch, dname)
+    es = torch.finfo(dtype).bits // 8
+    q = torch.randn(B, S, H, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, T, KVH, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, T, KVH, d, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal)
+    label = f"flash {shape} {case} {dname}"
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    err = check_close(label, out, flash_attention_ref(q, k, v, **kw), dname)
+    check_flash_tail_nan(label, q, k, v, kw, out)
+    keep = keep_mask(S, T, device="cuda") if causal else None
+    pairs = int(keep.sum().item()) if causal else S * T
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es,
+                       4 * B * H * pairs * d, dname)
+    return dict(kernel="flash_attention", shape=shape, case=case,
+                dtype=dname, B=B, S=S, T=T, H=H, KVH=KVH, d=d,
+                causal=causal, prefix_pad=0, prefix_len=0, max_abs_err=err,
+                tol=TOL[dname], launch_key=dict(fa_ops.launch_key(q, k, **kw)),
+                **extra, **flash_times(kw, keep, (q, k, v)), bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def check_flash_tail_nan(label, q, k, v, kw, out):
@@ -2089,10 +2190,11 @@ def record_routing(log):
 
     def recorded(cfg, p, x):
         K = cfg.num_experts_per_tok
-        probs, _, idx = moe.route(cfg, p, x.reshape(-1, x.shape[-1]))
-        top = probs.topk(K + 1, dim=-1).values
-        keep = moe.queue_positions(idx, cfg.num_experts) \
-            < moe.expert_capacity(cfg, idx.shape[0])
+        with torch.no_grad():
+            probs, _, idx = moe.route(cfg, p, x.reshape(-1, x.shape[-1]))
+            top = probs.topk(K + 1, dim=-1).values
+            keep = moe.queue_positions(idx, cfg.num_experts) \
+                < moe.expert_capacity(cfg, idx.shape[0])
         log.append({"experts": idx.sort(-1).values,
                     "gap": top[:, K - 1] - top[:, K],
                     "dropped": int((~keep).sum()),
@@ -2688,6 +2790,7 @@ def backward_kernel_rows(gen):
     fwd_err = max(check_close(f"ssd backward forward {n}", x, y, "float32",
                               SSD_TOL)
                   for n, x, y in zip(("y", "state"), outs, outs_ref))
+    vs_f64 = ssd_vs_float64(inputs, {"kernel": outs, "plain": outs_ref})
     del outs, outs_ref
     err = max(check_close(f"ssd backward d{n}", x, y, "float32", SSD_TOL)
               for n, x, y in zip(("xh", "dt", "a_log", "B", "C"), got, want))
@@ -2699,7 +2802,8 @@ def backward_kernel_rows(gen):
     rows.append(dict(
         kernel="ssd_chunk_scan_backward", shape="mamba2-2.7b",
         dtype="float32", B=B, S=S, H=H, P=P, N=N, model_chunk=chunk,
-        forward_max_abs_err=fwd_err, max_abs_err=err, tol=SSD_TOL,
+        forward_max_abs_err=fwd_err, forward_vs_float64=vs_f64,
+        max_abs_err=err, tol=SSD_TOL,
         **kernel_times(
             lambda *x: ssd_ops.ssd_chunked_vjp(x[:5], x[5:], chunk=chunk),
             lambda *x: grads(lambda *y: ssd_chunked_ref(*y, chunk=chunk),
@@ -2716,6 +2820,9 @@ def backward_kernel_rows(gen):
 # recurrentgemma-9b
 
 TRAIN_LR = 1e-4
+# the MoE gradient check's batches: it holds the first whose routing agrees
+# between the kernel path and the plain path in every call
+MOE_CHECK_BATCHES = 4
 # the main path's steps (the first warms up and is not timed) on one
 # batch, repeated
 TRAIN_STEPS = 6
@@ -2726,7 +2833,20 @@ TRAIN_CASES = {
     # one (rglru, rglru, attn) group at full width: 38 blocks need ~167 GB
     # of train state; S = 2304 runs past the 2048 window
     "train_hybrid": dict(arch="recurrentgemma-9b", batch=1, seq=2304,
-                         layers=3, check_layers=3),
+                         layers=3, check_layers=3,
+                         why="one rglru/rglru/attn group at full width: the "
+                             "train state of all 38 blocks (~167 GB) would "
+                             "not fit one card"),
+    # two of olmoe-1b-7b's 16 layers at full width (1.05 B parameters):
+    # the train state of all 16 needs ~111 GB
+    "train_moe": dict(arch="olmoe-1b-7b", batch=4, seq=1024, layers=2,
+                      check_layers=2,
+                      why="two MoE layers at full width: the train state of "
+                          "all 16 (~111 GB) would not fit one card"),
+    # whisper-medium whole: 24 + 24 layers, 4 × 1500 frames and decoder
+    # sequences of 448 tokens (the context the encdec phase serves)
+    "train_encdec": dict(arch="whisper-medium", batch=4, seq=448,
+                         check_layers=2),
 }
 # the profiler ranges of a profiled train step: the forward and loss
 # (``train:forward``) and the optimizer (``train:optimizer``), which
@@ -2742,8 +2862,15 @@ def train_counts(cfg):
     from the model's layer groups: under remat each group's forward runs
     again in the backward (the tail blocks run once), and the RG-LRU
     scan's backward is one more launch of its kernel; flash's and SSD's
-    backwards recompute through the plain version."""
+    backwards recompute through the plain version.  The encoder-decoder
+    calls flash once an encoder layer (non-causal self-attention) and
+    twice a decoder layer (causal self-attention and the cross-attention
+    over the encoder's output), each layer under remat."""
     from repro_torch.models import lm
+    if cfg.family == "enc_dec":
+        calls = cfg.enc_layers + 2 * cfg.num_layers
+        runs = 1 if cfg.remat == "none" else 2
+        return {"flash_attention": runs * calls}, {"flash_attention": calls}
     group, n_groups, tail = lm._layer_groups(cfg)
     runs = collections.Counter()
     for kind in group:
@@ -2785,6 +2912,49 @@ def grads_vs_plain(model, params, batch, tol, label):
     loss_k, _, gk = steps.loss_and_grads(model, params, batch)
     with plain_kernels():
         loss_p, _, gp = steps.loss_and_grads(model, params, batch)
+    return hold_grads(loss_k, gk, loss_p, gp, tol, label)
+
+
+def moe_grads_vs_plain(model, params, batches, tol, label):
+    """:func:`grads_vs_plain` for an MoE model with each layer's routing
+    recorded on both paths (:func:`record_routing`).  Where last-bit
+    differences tip a router near-tie, a token's top-k set differs and
+    the gradients differ by whole experts, for a reason that is not the
+    kernel: that batch is reported (the differing calls, positions and
+    probability gaps, the first 8) and the next one tried; the gradients
+    are held on the first batch of ``batches`` whose sets agree in every
+    call.  With no ``tol`` (printed only) the first batch is reported
+    whatever its routing, with the count of tokens whose sets differ."""
+    from repro_torch.launch import steps
+    skipped = []
+    for i, batch in enumerate(batches):
+        log = []
+        with record_routing(log):
+            loss_k, _, gk = steps.loss_and_grads(model, params, batch)
+            n = len(log)
+            with plain_kernels():
+                loss_p, _, gp = steps.loss_and_grads(model, params, batch)
+        if len(log) != 2 * n:
+            fail(f"{label}: {n} MoE calls on the kernel path, "
+                 f"{len(log) - n} on the plain path")
+        diffs = routing_diffs(log[:n], log[n:])
+        if diffs and tol is not None:
+            skipped.append({"batch": i, "tokens_differing": len(diffs),
+                            "first_diffs": [
+                                {"position": j, "call": c, "gap": gap}
+                                for j, c, gap in diffs[:8]]})
+            del gk, gp
+            continue
+        return {**hold_grads(loss_k, gk, loss_p, gp, tol, label),
+                "batch": i, "moe_calls": n, "routing_diffs": len(diffs),
+                "batches_with_routing_diffs": skipped}
+    fail(f"{label}: the routing differs between the paths on every one of "
+         f"{len(batches)} batches: {skipped}")
+
+
+def hold_grads(loss_k, gk, loss_p, gp, tol, label):
+    """Relative errors of the kernel path's loss and gradients against the
+    plain path's, held at ``tol`` (None: printed only)."""
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     errs = {k: rel_l2(gk[k], gp[k]) for k in gk}
     worst = max(errs, key=errs.get)
@@ -2823,7 +2993,6 @@ def phase_train(phase, seed):
     from repro_torch.models import build_model
     from repro_torch.serving.decode_graph import launch_counters
     from repro_torch.training import checkpoint as ckpt
-    from repro_torch.training.data import LMDataset
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.tree import flatten
 
@@ -2834,18 +3003,16 @@ def phase_train(phase, seed):
     cfg = full.replace(remat="full", microbatches=1,
                        num_layers=case.get("layers", full.num_layers))
     reduced = [] if cfg.num_layers == full.num_layers else [
-        f"num_layers {full.num_layers} -> {cfg.num_layers} (one "
-        f"{'/'.join(full.block_pattern)} group at full width: the train "
-        f"state of all {full.num_layers} would not fit one card)"]
+        f"num_layers {full.num_layers} -> {cfg.num_layers} "
+        f"({case['why']})"]
     model = build_model(cfg)
     optimizer = AdamW(learning_rate=TRAIN_LR)
     B, S = case["batch"], case["seq"]
-    host_batch = LMDataset(vocab_size=cfg.vocab_size, batch_size=B,
-                           seq_len=S, seed=0).batch(0)
+    host_batch = train_batch(cfg, B, S, 0, seed)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = steps.init_train_state(model, optimizer, seed, device="cuda")
-    batch = steps.device_batch(host_batch, "cuda")
+    batch = train_device_batch(cfg, host_batch)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     step_fn = steps.make_train_step(model, optimizer)
@@ -2893,6 +3060,7 @@ def phase_train(phase, seed):
     median_s = statistics.median(timed)
     tokens = B * S
     n_params = model.num_params()
+    flops = train_model_flops(model, B, S)
 
     # the state after the last step: a checkpoint written and read back
     shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
@@ -2920,12 +3088,21 @@ def phase_train(phase, seed):
     # kernel path against the plain path; bf16 printed only
     check = {}
     for dname, tol in (("float32", LOGITS_TOL_F32), ("bfloat16", None)):
-        cm = build_model(cfg.replace(num_layers=case["check_layers"],
-                                     dtype=dname))
+        depth = {"num_layers": case["check_layers"]}
+        if cfg.family == "enc_dec":
+            depth["enc_layers"] = case["check_layers"]
+        ccfg = cfg.replace(dtype=dname, **depth)
+        cm = build_model(ccfg)
         params = cm.init(seed, device="cuda")
-        check[dname] = grads_vs_plain(
-            cm, params, steps.device_batch(host_batch, "cuda"), tol,
-            f"{phase} {dname} gradients")
+        label = f"{phase} {dname} gradients"
+        if cfg.family == "moe":
+            check[dname] = moe_grads_vs_plain(
+                cm, params, [train_device_batch(ccfg, train_batch(
+                    ccfg, B, S, i, seed)) for i in range(MOE_CHECK_BATCHES)],
+                tol, label)
+        else:
+            check[dname] = grads_vs_plain(
+                cm, params, train_device_batch(ccfg, host_batch), tol, label)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2939,8 +3116,8 @@ def phase_train(phase, seed):
           "first_step_s": step_s[0], "step_median_s": median_s,
           "step_p90_s": timed[int(0.9 * (len(timed) - 1))],
           "tokens_per_s": tokens / median_s,
-          "mfu": 6 * n_params * tokens / median_s
-          / PEAK_FLOPS["bfloat16"],
+          "model_flops_per_step": flops,
+          "mfu": flops / median_s / PEAK_FLOPS["bfloat16"],
           "launches_per_step": want, "backward_calls_per_step": want_vjp,
           "launches": launches, "launches_by_shape": shape_table(shapes),
           "profiled_step": profiled,
@@ -2949,6 +3126,330 @@ def phase_train(phase, seed):
                          "save_s": save_s, "restore_s": restore_s,
                          "bit_equal": True},
           "grads_vs_plain": {"layers": case["check_layers"], **check}})
+    return launches, shapes
+
+
+def train_batch(cfg, B, S, index, seed):
+    """Batch ``index`` of ``LMDataset(seed=0)`` (numpy); for the
+    encoder-decoder also seeded frame embeddings [B, enc_seq, D], as the
+    port's train parity test makes them."""
+    from repro_torch.training.data import LMDataset
+    batch = LMDataset(vocab_size=cfg.vocab_size, batch_size=B, seq_len=S,
+                      seed=0).batch(index)
+    if cfg.family == "enc_dec":
+        batch["encoder_frames"] = np.random.default_rng(
+            seed + index).standard_normal(
+            (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def train_device_batch(cfg, host_batch):
+    """The batch on the card, the frames in the activation dtype."""
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.launch import steps
+    batch = steps.device_batch(host_batch, "cuda")
+    if "encoder_frames" in batch:
+        batch["encoder_frames"] = batch["encoder_frames"].to(
+            torch_dtype(cfg.dtype))
+    return batch
+
+
+def schema_leaves(tree, path=()):
+    """(path, element count) of every leaf of a parameter schema."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from schema_leaves(v, path + (k,))
+        else:
+            yield path + (k,), int(torch.Size(v.shape).numel())
+
+
+def train_model_flops(model, B, S):
+    """6 × (parameters a token meets) × tokens, summed over the token
+    streams of one train step: every parameter over the B·S tokens of a
+    dense model; of an MoE model the experts' weights count K/E (the
+    top-k a token is routed to); of the encoder-decoder the encoder's
+    layers and the decoder's cross-attention K/V projections run over
+    the B·enc_seq frames and the rest over the B·S decoder tokens."""
+    cfg = model.cfg
+    leaves = list(schema_leaves(model.schema()))
+    total = sum(n for _, n in leaves)
+    if cfg.family == "moe":
+        experts = sum(n for path, n in leaves if "moe" in path
+                      and path[-1] in ("w_gate", "w_up", "w_down"))
+        active = total - experts * (
+            1 - cfg.num_experts_per_tok / cfg.num_experts)
+        return 6 * active * B * S
+    if cfg.family == "enc_dec":
+        frames = sum(n for path, n in leaves if path[0] == "enc_layers"
+                     or path[0] == "enc_final_norm"
+                     or ("cross_attn" in path and path[-1] in ("wk", "wv")))
+        return 6 * (frames * B * cfg.enc_seq + (total - frames) * B * S)
+    return 6 * total * B * S
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the replica fleet serving full-width stablelm-3b
+
+# fig15's traffic (benchmarks/fig15_fleet.py): 4 sessions × 4 queries,
+# each session's queries sharing a 160-character (160-token) prefix, 16
+# new greedy tokens, 4 slots a replica; the card steps for real, so no
+# step_sleep
+FLEET_SESSIONS, FLEET_QUERIES, FLEET_PREFIX_CHARS = 4, 4, 160
+FLEET_NEW = 16
+FLEET_ENGINE = dict(max_slots=4, max_len=256, page_size=16, step_sleep=0.0,
+                    prefix_cache_budget=256 << 20, device="cuda")
+# (label, replicas, routing policy)
+FLEETS = (("one_replica", 1, "prefix_affinity"),
+          ("affinity", 4, "prefix_affinity"),
+          ("least_outstanding", 4, "least_outstanding"))
+
+
+def fleet_session_prefix(s):
+    """fig15's per-session prefix: ``FLEET_PREFIX_CHARS`` characters."""
+    base = (f"Session {s:02d} memory: the user is planning trip {s}, "
+            f"prefers rail over air, budget tier {s % 3}. Context: ")
+    out = base
+    while len(out) < FLEET_PREFIX_CHARS:
+        out += base
+    return out[:FLEET_PREFIX_CHARS]
+
+
+def fleet_prompts():
+    """(priming, timed): one cold query a session, then every session's
+    ``FLEET_QUERIES`` queries."""
+    return ([fleet_session_prefix(s) + "Qwarm: ok"
+             for s in range(FLEET_SESSIONS)],
+            [fleet_session_prefix(s) + f"Q{q:02d}: next"
+             for s in range(FLEET_SESSIONS) for q in range(FLEET_QUERIES)])
+
+
+class TokenIds:
+    """The byte tokenizer's encode with a lossless decode (the ids as
+    text), so that what a fleet's dispatcher answers is the engine's
+    tokens."""
+
+    def __init__(self, vocab_size):
+        from repro_torch.serving.tokenizer import ByteTokenizer
+        self.byte = ByteTokenizer(vocab_size)
+        self.vocab_size = vocab_size
+
+    def encode(self, text):
+        return self.byte.encode(text)
+
+    def decode(self, ids):
+        return " ".join(str(int(t)) for t in ids)
+
+    @staticmethod
+    def ids(text):
+        return [int(t) for t in text.split()]
+
+
+def fleet_wave(fleet, prompts):
+    """``prompts`` dispatched one request each, concurrently, through the
+    fleet's dispatcher; → (tokens per prompt, seconds to drain)."""
+    async def go():
+        outs = await asyncio.gather(*(
+            fleet.dispatcher.generate(p, max_tokens=FLEET_NEW,
+                                      temperature=0.0, stop=None)
+            for p in prompts))
+        await fleet.stop()
+        return outs
+
+    t0 = time.perf_counter()
+    outs = asyncio.run(go())
+    torch.cuda.synchronize()
+    return [TokenIds.ids(o) for o in outs], time.perf_counter() - t0
+
+
+def warm_counts(fleet):
+    """Fleet-wide (probed, warm) from the per-replica route counters
+    (``DispatchStats.note_route``)."""
+    backends = fleet.stats.snapshot()["backends"]
+    return (sum(b["prefix_probed"] for b in backends.values()),
+            sum(b["prefix_hits"] for b in backends.values()))
+
+
+def check_fleet_tokens(label, outs, warm_ref, cold_ref, all_warm):
+    """Each request's greedy tokens must be the single engine's on the
+    path the request took: over the primed prefix (``warm_ref``) or
+    prefilled whole (``cold_ref``).  A fleet whose every request routed
+    warm must give ``warm_ref`` exactly.  → the requests that gave the
+    cold path's tokens where the two paths differ."""
+    cold = 0
+    for i, o in enumerate(outs):
+        if o == warm_ref[i]:
+            continue
+        if o != cold_ref[i] or all_warm:
+            fail(f"serve_fleet {label} request {i}: tokens {o} are neither "
+                 f"the single engine's warm {warm_ref[i]} nor, routed cold, "
+                 f"its cold {cold_ref[i]} (every request routed warm: "
+                 f"{all_warm})")
+        cold += 1
+    return cold
+
+
+def check_fleet_engines(label, fleet, launches, L):
+    """Every replica's decode graph (one capture, a replay for each later
+    step) and prefill shapes within the bucket bound; the paged decode
+    kernel launched once a layer for every decode step of every replica
+    and flash once a layer for every prefill chunk, nothing else."""
+    steps = chunks = 0
+    graphs = {}
+    for name, e in zip(fleet.names, fleet.engines):
+        st = e.stats()
+        steps += st["steps"]
+        chunks += st["prefill_chunks"]
+        graphs[name] = check_graph(f"serve_fleet {label} {name}",
+                                   st["decode_graph"], st["steps"],
+                                   {"paged_decode_attention": L})
+        if st["prefill_compilations"] > st["prefill_shape_bound"]:
+            fail(f"serve_fleet {label} {name}: {st['prefill_compilations']} "
+                 f"prefill shapes over the bound "
+                 f"{st['prefill_shape_bound']}")
+    check_launches(f"serve_fleet {label}", launches,
+                   {"paged_decode_attention": L * steps,
+                    "flash_attention": L * chunks})
+    return graphs
+
+
+def fleet_batch_wave(fleet, tok):
+    """One ``generate_batch`` of a session's queries under the port's
+    ``use_dispatcher``: its shared-prefix counts must land on the fleet's
+    stats (the dispatcher binds itself around the backend call)."""
+    from repro_torch.core.ai import use_dispatcher
+    prompts = [fleet_session_prefix(0) + f"Qbatch{i}: go"
+               for i in range(FLEET_QUERIES)]
+    before = fleet.stats.snapshot()["prefix"] or {}
+
+    async def go():
+        with use_dispatcher(fleet.dispatcher):
+            outs = await fleet.dispatcher.generate_batch(
+                prompts, max_tokens=FLEET_NEW, temperature=0.0, stop=None)
+        await fleet.stop()
+        return outs
+
+    outs = asyncio.run(go())
+    after = fleet.stats.snapshot()["prefix"]
+    grew = {k: after[k] - before.get(k, 0) for k in ("batches", "elements",
+                                                     "shared_tokens")}
+    if grew["batches"] != 1 or grew["elements"] != len(prompts) \
+            or grew["shared_tokens"] <= 0:
+        fail(f"serve_fleet: a generate_batch wave added {grew} to the "
+             f"fleet's prefix-batch counts; want one batch of "
+             f"{len(prompts)} elements sharing a prefix")
+    for o in outs:
+        ids = TokenIds.ids(o) if isinstance(o, str) else None
+        if ids is None or len(ids) != FLEET_NEW \
+                or not all(0 <= t < tok.vocab_size for t in ids):
+            fail(f"serve_fleet: a generate_batch element gave {o!r}")
+    return {**grew, "computed_tokens": after["computed_tokens"]
+            - before.get("computed_tokens", 0)}
+
+
+def phase_serve_fleet(seed):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.fleet import EngineFleet
+
+    cfg = get_config("stablelm-3b")
+    L = cfg.num_layers
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok = TokenIds(cfg.vocab_size)
+    priming, timed = fleet_prompts()
+
+    # the single engine's tokens on both paths a request can take: over
+    # its session's primed prefix (one session at a time: the paged radix
+    # trie keys a node by its first token, and every session's prompt
+    # starts with the same page-0 tokens, so a second session's prefix
+    # replaces the first's), and prefilled whole (no prefix cache)
+    def engine_wave(engine, prompts):
+        return serve_counted(engine, [tok.encode(p) for p in prompts],
+                             FLEET_NEW, {})[0]
+
+    warm_engine = ServingEngine(model, params, **FLEET_ENGINE)
+    warm_ref = []
+    for s in range(FLEET_SESSIONS):
+        warm_engine.reset_prefix_cache()
+        engine_wave(warm_engine, [priming[s]])
+        warm_ref += engine_wave(
+            warm_engine, timed[s * FLEET_QUERIES:(s + 1) * FLEET_QUERIES])
+    cold_engine = ServingEngine(model, params,
+                                **{**FLEET_ENGINE, "prefix_cache_budget": 0})
+    cold_ref = engine_wave(cold_engine, timed)
+    del warm_engine, cold_engine
+    paths_differ = sum(w != c for w, c in zip(warm_ref, cold_ref))
+
+    counters = launch_counters()
+    launches, shapes, report, fleets = {}, {}, {}, {}
+    for label, replicas, policy in FLEETS:
+        fleet = EngineFleet(model, params, replicas=replicas, policy=policy,
+                            tokenizer=tok, **FLEET_ENGINE)
+        zero_launches(counters)
+        primed, prime_s = fleet_wave(fleet, priming)
+        p0, h0 = warm_counts(fleet)
+        outs, drain_s = fleet_wave(fleet, timed)
+        p1, h1 = warm_counts(fleet)
+        got, got_shapes = read_launches(counters)
+        if p1 - p0 != len(timed):
+            fail(f"serve_fleet {label}: {p1 - p0} routed probes for "
+                 f"{len(timed)} requests")
+        warm_share = (h1 - h0) / (p1 - p0)
+        graphs = check_fleet_engines(label, fleet, got, L)
+        cold = check_fleet_tokens(label, outs, warm_ref, cold_ref,
+                                  warm_share == 1.0)
+        launches = {n: launches.get(n, 0) + got.get(n, 0)
+                    for n in set(launches) | set(got)}
+        shapes = add_shapes(shapes, got_shapes)
+        fleets[label] = fleet
+        report[label] = {
+            "replicas": replicas, "policy": policy,
+            "priming_s": prime_s, "drain_s": drain_s,
+            "warm_share": warm_share,
+            "requests_on_the_cold_path": cold,
+            "launches": {n: k for n, k in got.items() if k},
+            "routed": {n: b["routed"] for n, b in
+                       fleet.stats.snapshot()["backends"].items()},
+            "graph": graphs, "engine_stats": fleet.engine_stats()}
+    one = report["one_replica"]["drain_s"]
+    for r in report.values():
+        r["drain_ratio_vs_one_replica"] = one / r["drain_s"]
+    if not report["affinity"]["warm_share"] \
+            > report["least_outstanding"]["warm_share"]:
+        fail(f"serve_fleet: prefix-affinity warm share "
+             f"{report['affinity']['warm_share']} not above "
+             f"least-outstanding's "
+             f"{report['least_outstanding']['warm_share']}")
+
+    affinity = fleets["affinity"]
+    batch_wave = fleet_batch_wave(affinity, tok)
+    # the affinity fleet's timed wave once more, under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fleet_wave(affinity, timed)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    profiled = profile_report(prof, wall_us, "serve_fleet_profile.txt")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "serve_fleet", "card": card(), "model": cfg.name,
+          "layers": L, "params": model.num_params(), "dtype": "bfloat16",
+          "init_s": init_s, "sessions": FLEET_SESSIONS,
+          "queries_per_session": FLEET_QUERIES,
+          "prefix_chars": FLEET_PREFIX_CHARS, "new_tokens": FLEET_NEW,
+          "engine": {k: v for k, v in FLEET_ENGINE.items()
+                     if k != "device"},
+          "single_engine_paths_differ": paths_differ,
+          "fleets": report, "generate_batch_wave": batch_wave,
+          "profiled_wave": profiled, "peak_memory_gb": peak_gb})
     return launches, shapes
 
 
@@ -3007,14 +3508,17 @@ def main(argv=None):
         kernel_rows = timed("kernels", phase_kernels)
     if "serve" in phases:
         launches, shapes["serve"] = timed("serve", phase_serve, args.seed)
-    for name, fn in (("serve_hybrid", phase_serve_hybrid),
-                     ("serve_ssm", phase_serve_ssm),
-                     ("serve_moe", phase_serve_moe),
-                     ("encdec", phase_encdec),
-                     ("serve_vlm", phase_serve_vlm),
-                     *((name, functools.partial(phase_train, name))
-                       for name in TRAIN_CASES)):
-        if name in phases:
+    runners = {"serve_hybrid": phase_serve_hybrid,
+               "serve_ssm": phase_serve_ssm,
+               "serve_moe": phase_serve_moe,
+               "encdec": phase_encdec,
+               "serve_vlm": phase_serve_vlm,
+               "serve_fleet": phase_serve_fleet,
+               **{name: functools.partial(phase_train, name)
+                  for name in TRAIN_CASES}}
+    for name in PHASES:
+        fn = runners.get(name)
+        if fn is not None and name in phases:
             more, shapes[name] = timed(name, fn, args.seed)
             launches = {n: launches.get(n, 0) + more.get(n, 0)
                         for n in set(launches) | set(more)}

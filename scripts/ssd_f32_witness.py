@@ -67,8 +67,8 @@ def use_library(path):
 
 def vs_float64(seed, S=2048, H=80, P=64, N=128):
     """The kernel's and the plain version's distance from the step
-    recurrence h_t = exp(da_t) h + xdt_t B_t, y_t = h_t C_t in float64, on
-    one batch row drawn as ``chip_smoke.py``'s SSD rows draw it."""
+    recurrence in float64 (``chip_smoke.ssd_vs_float64``), on one batch
+    row drawn as ``chip_smoke.py``'s SSD rows draw it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
@@ -78,26 +78,11 @@ def vs_float64(seed, S=2048, H=80, P=64, N=128):
     a_log = torch.ones(H, device="cuda")
     Bm = torch.randn(1, S, N, generator=gen, device="cuda")
     Cm = torch.randn(1, S, N, generator=gen, device="cuda")
-    da = dt[0].double() * -torch.exp(a_log.double())
-    xdt = xh[0].double() * dt[0].double()[..., None]
-    Bd, Cd = Bm[0].double(), Cm[0].double()
-    h = torch.zeros(H, P, N, dtype=torch.float64, device="cuda")
-    ys = []
-    for t in range(S):
-        h = torch.exp(da[t])[:, None, None] * h \
-            + xdt[t][:, :, None] * Bd[t][None, None, :]
-        ys.append(h @ Cd[t])
-    y64 = torch.stack(ys)
-    out = {}
-    for name, fn in (("kernel", ssd_ops.ssd_chunked),
-                     ("plain", ssd_chunked_ref)):
-        y, hs = fn(xh, dt, a_log, Bm, Cm, chunk=256)
-        y = y[0].double()
-        out[name] = {"y_max_abs_err": (y - y64).abs().max().item(),
-                     "y_rel_l2_err": ((y - y64).norm() / y64.norm()).item(),
-                     "state_max_abs_err":
-                         (hs[0].double() - h).abs().max().item()}
-    return out
+    inputs = (xh, dt, a_log, Bm, Cm)
+    return chip_smoke.ssd_vs_float64(inputs, {
+        name: fn(*inputs, chunk=256)
+        for name, fn in (("kernel", ssd_ops.ssd_chunked),
+                         ("plain", ssd_chunked_ref))})
 
 
 def model_logits(seed, dtype):

@@ -18,9 +18,11 @@ from .base import ModelConfig, torch_dtype  # noqa: F401
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
             for m in (qwen3_14b, stablelm_3b, yi_34b, qwen2_5_32b,
-                      qwen3_moe_30b_a3b, olmoe_1b_7b, recurrentgemma_9b,
-                      mamba2_2_7b, whisper_medium, pixtral_12b)}
+                      pixtral_12b, qwen3_moe_30b_a3b, olmoe_1b_7b,
+                      whisper_medium, recurrentgemma_9b, mamba2_2_7b)}
 
+
+# the reference's order (repro.configs.ARCH_IDS), element for element
 ARCH_IDS = list(REGISTRY)
 
 

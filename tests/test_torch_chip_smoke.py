@@ -456,16 +456,22 @@ def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
 
 
 def test_train_phases_parse():
-    """The three train phases are phases of the script: ``--phases`` takes
-    them (and without a card the script stops before running any), and an
-    unknown name is refused."""
-    assert chip_smoke.PHASES[-3:] == ("train", "train_ssm", "train_hybrid")
-    assert set(chip_smoke.TRAIN_CASES) == set(chip_smoke.PHASES[-3:])
+    """The five train phases and the fleet phase are phases of the script,
+    the three newest last and in this order: ``--phases`` takes them (and
+    without a card the script stops before running any), and an unknown
+    name is refused."""
+    train = ("train", "train_ssm", "train_hybrid", "train_moe",
+             "train_encdec")
+    assert chip_smoke.PHASES[-6:] == ("train", "train_ssm", "train_hybrid",
+                                      "serve_fleet", "train_moe",
+                                      "train_encdec")
+    assert tuple(chip_smoke.TRAIN_CASES) == train
+    assert set(train) < set(chip_smoke.PHASES)
     if not torch.cuda.is_available():
-        assert chip_smoke.main(["--phases", "train,train_ssm,train_hybrid"]) \
-            == 2
+        assert chip_smoke.main(["--phases", ",".join(train)
+                                + ",serve_fleet"]) == 2
     with pytest.raises(SystemExit):
-        chip_smoke.main(["--phases", "train,train_moe"])
+        chip_smoke.main(["--phases", "train,train_vlm"])
 
 
 def test_train_counts_follow_the_layer_groups():
@@ -488,6 +494,40 @@ def test_train_counts_follow_the_layer_groups():
         {"flash_attention": 12, "rglru_scan": 26})
     assert chip_smoke.train_counts(stablelm.replace(remat="none"))[0] \
         == {"flash_attention": 32}
+    # MoE layers are attention layers: the train_moe phase's 2 of 16
+    assert chip_smoke.train_counts(
+        get_config("olmoe-1b-7b").replace(num_layers=2)) == (
+        {"flash_attention": 4}, {"flash_attention": 2})
+    # whisper-medium: an encoder layer's self-attention, a decoder layer's
+    # self- and cross-attention, each run again by remat
+    assert chip_smoke.train_counts(get_config("whisper-medium")) == (
+        {"flash_attention": 2 * (24 + 48)}, {"flash_attention": 24 + 48})
+    assert chip_smoke.train_counts(get_config("whisper-medium").replace(
+        remat="none"))[0] == {"flash_attention": 72}
+
+
+def test_train_model_flops_count_what_each_token_meets():
+    """``mfu``'s numerator: every parameter over every token of a dense
+    model; the experts at top-k / experts; the encoder and the cross K/V
+    projections over the frames."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    dense = build_model(get_config("stablelm-3b"))
+    assert chip_smoke.train_model_flops(dense, 4, 1024) \
+        == 6 * dense.num_params() * 4 * 1024
+    moe_cfg = get_config("olmoe-1b-7b").replace(num_layers=2)
+    moe = build_model(moe_cfg)
+    experts = 2 * 3 * 64 * 2048 * 1024
+    assert chip_smoke.train_model_flops(moe, 4, 1024) == pytest.approx(
+        6 * (moe.num_params() - experts * (1 - 8 / 64)) * 4 * 1024)
+    ed = build_model(get_config("whisper-medium"))
+    assert ed.num_params() == 758_353_920
+    enc = sum(n for path, n in chip_smoke.schema_leaves(ed.schema())
+              if path[0] in ("enc_layers", "enc_final_norm"))
+    cross_kv = 24 * 2 * 1024 * 1024
+    assert chip_smoke.train_model_flops(ed, 4, 448) == 6 * (
+        (enc + cross_kv) * 4 * 1500 + (ed.num_params() - enc - cross_kv)
+        * 4 * 448)
 
 
 @pytest.fixture()
@@ -555,7 +595,9 @@ def test_train_phases_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
         "train_ssm": dict(arch="mamba2-2.7b", batch=2, seq=16,
                           check_layers=2),
         "train_hybrid": dict(arch="recurrentgemma-9b", batch=1, seq=20,
-                             layers=3, check_layers=3)}
+                             layers=3, check_layers=3,
+                             why=chip_smoke.TRAIN_CASES["train_hybrid"][
+                                 "why"])}
     for phase, want in (("train", {"flash_attention": 4}),
                         ("train_ssm", {"ssd_chunk_scan": 4}),
                         ("train_hybrid", {"flash_attention": 2,
@@ -581,6 +623,147 @@ def test_train_phases_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
         assert not (mod.TRAIN_CKPT_DIR).exists()
 
 
+@pytest.mark.parametrize("phase", ["train_moe", "train_encdec"])
+def test_moe_and_encdec_train_phases_rehearsed_on_the_cpu(
+        cpu_chip_smoke, monkeypatch, capsys, phase):
+    """train_moe (reduced olmoe at 3 layers, cut to 2) and train_encdec
+    (reduced whisper, 2 + 2 layers over 16 frames): the train phases'
+    checks, the MoE gradient check holding the first batch whose routing
+    agrees (on the CPU both paths are the plain versions, so the first),
+    and ``mfu`` from :func:`train_model_flops`."""
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+
+    def reduced(name):
+        cfg = real(name).reduced()
+        return cfg.replace(num_layers=3) if name == "olmoe-1b-7b" else cfg
+    monkeypatch.setattr(configs, "get_config", reduced)
+    mod = cpu_chip_smoke
+    mod.TRAIN_CASES = {
+        "train_moe": dict(arch="olmoe-1b-7b", batch=2, seq=16, layers=2,
+                          check_layers=2,
+                          why=chip_smoke.TRAIN_CASES["train_moe"]["why"]),
+        "train_encdec": dict(arch="whisper-medium", batch=2, seq=16,
+                             check_layers=2)}
+    want, vjp = {"train_moe": ({"flash_attention": 4},
+                               {"flash_attention": 2}),
+                 "train_encdec": ({"flash_attention": 12},
+                                  {"flash_attention": 6})}[phase]
+    launches, shapes = mod.phase_train(phase, 0)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == phase and line["card"] == "CPU rehearsal"
+    assert line["launches_per_step"] == want
+    assert line["backward_calls_per_step"] == vjp
+    assert {k: v for k, v in launches.items() if v} == {
+        k: v * mod.TRAIN_STEPS for k, v in want.items()}
+    assert line["losses"][-1] < line["losses"][0]
+    assert line["checkpoint"]["bit_equal"]
+    f32 = line["grads_vs_plain"]["float32"]
+    assert f32["worst_grad_rel_l2"] <= f32["tol"]
+    if phase == "train_moe":
+        assert line["layers"] == 2 and "~111 GB" in line["reduced"][0]
+        assert f32["batch"] == 0 and f32["batches_with_routing_diffs"] == []
+        assert f32["moe_calls"] == 2 * 2     # forward and remat, 2 layers
+        assert line["grads_vs_plain"]["bfloat16"]["routing_diffs"] == 0
+    else:
+        assert line["layers"] == 2 and line["reduced"] == []
+        assert "encoder_frames" not in line
+    assert line["mfu"] == line["model_flops_per_step"] \
+        / line["step_median_s"] / mod.PEAK_FLOPS["bfloat16"]
+
+
+def test_moe_grads_check_skips_a_batch_whose_routing_differs(
+        cpu_chip_smoke, monkeypatch):
+    """A batch where the two paths route a token to different experts is
+    reported, not held; the next batch, routed alike, is held."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.data import LMDataset
+    mod = cpu_chip_smoke
+    cfg = get_config("olmoe-1b-7b").reduced().replace(remat="full")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    batches = [mod.train_device_batch(cfg, LMDataset(
+        vocab_size=cfg.vocab_size, batch_size=1, seq_len=8,
+        seed=0).batch(i)) for i in range(2)]
+    real = mod.routing_diffs
+    calls = []
+
+    def tipped_first(kern, plain):
+        calls.append(len(kern))
+        return [(3, 0, 1e-9)] if len(calls) == 1 else real(kern, plain)
+    monkeypatch.setattr(mod, "routing_diffs", tipped_first)
+    got = mod.moe_grads_vs_plain(model, params, batches, 1e-4, "moe")
+    assert got["batch"] == 1
+    assert got["batches_with_routing_diffs"] == [{
+        "batch": 0, "tokens_differing": 1,
+        "first_diffs": [{"position": 3, "call": 0, "gap": 1e-9}]}]
+    monkeypatch.setattr(mod, "routing_diffs", lambda k, p: [(0, 0, 0.0)])
+    with pytest.raises(SystemExit):
+        mod.moe_grads_vs_plain(model, params, batches, 1e-4, "moe")
+    # printed only (bf16): the first batch, its differing tokens counted
+    got = mod.moe_grads_vs_plain(model, params, batches, None, "moe")
+    assert got["batch"] == 0 and got["routing_diffs"] == 1
+
+
+def test_serve_fleet_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
+                                          capsys):
+    """The fleet phase on a tiny stablelm: the three fleets' tokens held
+    to the single engine's, affinity warmer than least-outstanding,
+    exact launches summed over every replica (each CPU call of a kernel's
+    plain version counted as its launch), and the generate_batch wave's
+    prefix counts on the fleet's stats.  The CPU engine captures no
+    decode graph, so the graph check is recorded instead."""
+    import json
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import ops as pa
+    real = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda name: real(name).reduced())
+    ref = pa.paged_decode_attention_ref
+
+    def counted(q, kp, vp, table, lengths, *, window=0):
+        _build.count_launch(pa.paged_decode_attention,
+                            pa.launch_key(q, kp, table, window=window))
+        return ref(q, kp, vp, table, lengths, window=window)
+    monkeypatch.setattr(pa, "paged_decode_attention_ref", counted)
+    mod = cpu_chip_smoke
+    graphs = []
+
+    def no_graph(label, graph, steps, per_step):
+        assert graph is None and steps > 0
+        graphs.append(label)
+        return {"steps": steps}
+    mod.check_graph = no_graph
+    launches, shapes = mod.phase_serve_fleet(0)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_fleet" and line["layers"] == 2
+    fleets = line["fleets"]
+    assert list(fleets) == ["one_replica", "affinity", "least_outstanding"]
+    # one replica holds one session's prefix where the router can see it:
+    # the sessions' prompts share their first page's leading tokens, and
+    # the paged radix trie keys a node by its first token
+    assert fleets["one_replica"]["warm_share"] == 0.25
+    assert fleets["affinity"]["warm_share"] == 1.0
+    assert fleets["least_outstanding"]["warm_share"] == 0.25
+    assert fleets["one_replica"]["drain_ratio_vs_one_replica"] == 1.0
+    assert len(graphs) == 1 + 4 + 4
+    steps = sum(e["steps"] for f in fleets.values()
+                for e in f["engine_stats"].values())
+    chunks = sum(e["prefill_chunks"] for f in fleets.values()
+                 for e in f["engine_stats"].values())
+    assert {k: v for k, v in launches.items() if v} == {
+        "paged_decode_attention": 2 * steps, "flash_attention": 2 * chunks}
+    assert line["generate_batch_wave"]["batches"] == 1
+    assert line["generate_batch_wave"]["elements"] == 4
+    for f in fleets.values():
+        assert sum(f["routed"].values()) == 4 + 16
+
+
 def test_backward_rows_rehearsed_on_the_cpu(cpu_chip_smoke):
     """The kernels phase's backward rows at tiny shapes (timers stubbed):
     each Function's gradients against autograd through the plain
@@ -603,6 +786,33 @@ def test_backward_rows_rehearsed_on_the_cpu(cpu_chip_smoke):
         assert r["forward_max_abs_err"] <= r["tol"]
         assert (r["library_ms"] is None) == (r["kernel"] !=
                                              "flash_attention_backward")
+    # the SSD forward against a float64 step recurrence, both forms (on
+    # the CPU both are the plain version)
+    f64 = rows[-1]["forward_vs_float64"]
+    assert f64.keys() == {"kernel", "plain"}
+    assert all(v["y_rel_l2_err"] < 1e-5 and v["state_max_abs_err"] < 1e-4
+               for v in f64.values())
+
+
+def test_train_flash_rows_rehearsed_on_the_cpu(cpu_chip_smoke):
+    """Flash's forward rows at the train shapes (tiny stand-ins, timers
+    stubbed): within tolerance, NaN past the inputs' tails bit-equal, a
+    bound, SDPA's time and the launches a train step."""
+    mod = cpu_chip_smoke
+    mod.time_ms = lambda fn, args, **k: (fn(*args), (0.0, True))[1]
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    mod.TRAIN_FLASH = {
+        "stablelm-3b": [("train", 2, 40, 40, 4, 4, 80, True, 64)],
+        "whisper-medium": [("train cross", 2, 9, 33, 4, 4, 64, False, 48)]}
+    rows = mod.train_flash_rows(torch.Generator().manual_seed(0))
+    assert [(r["shape"], r["case"], r["causal"]) for r in rows] == [
+        ("stablelm-3b", "train", True),
+        ("whisper-medium", "train cross", False)]
+    for r in rows:
+        assert r["dtype"] == "bfloat16" and r["max_abs_err"] <= r["tol"]
+        assert r["bound_ms"] > 0 and r["library_ms"] == 0.0
+        assert r["launch_key"]["B"] == 2
+    assert [r["launches_per_train_step"] for r in rows] == [64, 48]
 
 
 def test_profiled_train_step_ranges():

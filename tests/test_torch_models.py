@@ -278,3 +278,11 @@ def test_unported_families_raise():
     ssm = get_config("mamba2-2.7b").reduced()
     assert build_model(ssm).prefix_seq_axes() is None
     assert lm.lm_schema(ssm)["layers"]["b0"].keys() == {"ln1", "ssd"}
+
+
+def test_arch_ids_match_reference():
+    """The port lists the reference's architectures in the reference's
+    order, element for element."""
+    from repro.configs import ARCH_IDS as ref_ids
+    from repro_torch.configs import ARCH_IDS
+    assert ARCH_IDS == ref_ids
