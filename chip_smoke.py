@@ -36,7 +36,10 @@ Phases, each printing one JSON line:
              causal at its decoder's prefill self-attention (S = T = 4),
              each with NaN past the inputs' last rows giving a bit-equal
              output, and decode attention at its self cache (C = 448)
-             and cross memory (C = 1500, every slot valid).
+             and cross memory (C = 1500, every slot valid).  Paged
+             decode and flash's prefix chunk (pad 512, 384 valid) also
+             run at the tensor-parallel shards' shapes of stablelm-3b
+             (16 and 8 heads of 80: ``stablelm-3b/tp2``, ``/tp4``).
 3. serve   — full-width stablelm-3b (32 layers, bf16, random weights from
              a seeded generator on the card) behind the port's paged
              ServingEngine: a warmed 384-token shared prefix, then 8
@@ -153,8 +156,9 @@ Phases, each printing one JSON line:
              ``ServingEngine``'s on the path it took (over the primed
              prefix, or prefilled whole: the paths round bf16
              differently; a fleet whose every request routed warm must
-             give the warm path's tokens exactly), affinity's warm share
-             (``prefix_hits / prefix_probed``) strictly above
+             give the warm path's tokens exactly), one replica's warm
+             share (``prefix_hits / prefix_probed``) at 1 (it holds all
+             four sessions), affinity's strictly above
              least-outstanding's, each replica's decode graph, exact
              launches over all replicas (paged decode a layer a step,
              flash a layer a chunk), and that one ``generate_batch`` wave
@@ -178,6 +182,27 @@ Phases, each printing one JSON line:
              with its recompute), the check at 2 + 2 layers; ``mfu``
              counts the encoder and the cross K/V projections over the
              frames.
+15. serve_tp — full-width stablelm-3b (bf16, the serve phase's seeded
+             weights and traffic) behind the paged engine at tp = 1, 2
+             and 4, every shard on this card (``make_serving_mesh(tp,
+             devices=["cuda"] * tp)``: the cost of splitting, not scale
+             out).  Each shard runs the paged decode and flash kernels on
+             its own 32/tp heads.  Prints tokens agreeing with tp = 1,
+             the max abs difference of a prefill's last logits, decode
+             step ms (median, p90), prefill chunk ms, launches by shape
+             (exact: tp per layer per step / chunk) and each shard's pool
+             bytes, held to ``serving_kv_estimate`` / tp.  Then the same
+             at full width in float32 with the depth cut to 4 layers:
+             greedy tokens must equal tp = 1's exactly.
+16. ef_allreduce — the int8 error-feedback compressed mean over a
+             ``data`` axis of 2 shards on this card, over full-width
+             stablelm-3b's gradient trees of two train-step batches (4 ×
+             1024 each, float32), all leaves but the MLP's three
+             (``EF_VALUE_BUDGET``: the outputs of two calls over all 2.8 B
+             values would not fit beside the inputs): max abs error
+             against the exact mean, the residual's norm, ``wire_bytes``
+             against 4 B a value, and ms a call (the second, with the
+             first call's errors fed back).
 
 The kernels phase also holds each trained wrapper's
 ``torch.autograd.Function`` on the card at these phases' shapes: flash
@@ -236,7 +261,8 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
           "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
-          "train_hybrid", "serve_fleet", "train_moe", "train_encdec")
+          "train_hybrid", "serve_fleet", "train_moe", "train_encdec",
+          "serve_tp", "ef_allreduce")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -672,7 +698,9 @@ def phase_kernels():
     shapes = {"stablelm-3b": dict(H=32, KVH=32, d=80),
               "gqa-40:8": dict(H=40, KVH=8, d=128),
               "olmoe-1b-7b": dict(H=16, KVH=16, d=128),
-              "pixtral-12b": dict(H=32, KVH=8, d=160)}
+              "pixtral-12b": dict(H=32, KVH=8, d=160),
+              **{name: dict(H=32 // tp, KVH=32 // tp, d=80)
+                 for name, tp in SHARD_SHAPES.items()}}
     B, ps, N = 8, 16, 64
     lengths = [1024, 777, 512, 300, 129, 64, 1, 600]   # last: retired slot
     results = []
@@ -698,8 +726,10 @@ def phase_kernels():
                     < lens[:, None]
                 return sdpa(q.transpose(1, 2), k, v, valid[:, None, None])
 
-            cases = check_paged_cases(gen, sname, sh, dname, dtype, out,
-                                      args)
+            # the shards' shapes: the timed row and the prefix chunk only
+            shard = sname in SHARD_SHAPES
+            cases = [] if shard else check_paged_cases(
+                gen, sname, sh, dname, dtype, out, args)
             toks = sum(min(x, N * ps) for x in lengths)
             rows = int(paged_kv_keys(table, lengths, ps).size)
             nbytes = 2 * q.numel() * es + 2 * rows * KVH * d * es \
@@ -721,7 +751,8 @@ def phase_kernels():
             # -- flash, exact causal and with a padded prefix: ragged, and
             #    with no valid row
             S = 256
-            for pad, plen in ((0, 0), (512, 384), (512, 0)):
+            for pad, plen in ((512, 384),) if shard else (
+                    (0, 0), (512, 384), (512, 0)):
                 T = pad + S
                 q = torch.randn(1, S, H, d, generator=gen,
                                 device="cuda").to(dtype)
@@ -1250,6 +1281,8 @@ def check_flash_tail_nan(label, q, k, v, kw, out):
 # phase 3: serve full-width stablelm-3b
 
 
+# the tensor-parallel shards' shapes of stablelm-3b in the kernels phase
+SHARD_SHAPES = {"stablelm-3b/tp2": 2, "stablelm-3b/tp4": 4}
 # the paged serve phases' engine and traffic: a 384-token shared prefix,
 # then 8 concurrent requests with these suffix lengths and 32 new tokens
 # each
@@ -1366,13 +1399,13 @@ def prefill_chunk_ms(model, params, inp):
         }
 
 
-def check_paged_serve(label, cfg, st, outs, launches):
+def check_paged_serve(label, cfg, st, outs, launches, shards=1):
     """A paged engine's first warm-prefix fan-out: 32 in-vocab tokens a
     request, the prefix reused, no KV copied at admission, one paged
     decode launch per layer per decode step and one flash launch per
-    layer per prefill chunk, and the decode graph (:func:`check_graph`).
-    → the graph's stats."""
-    L = cfg.num_layers
+    layer per prefill chunk (each per shard of a tensor-parallel engine),
+    and the decode graph (:func:`check_graph`).  → the graph's stats."""
+    L = cfg.num_layers * shards
     for i, o in enumerate(outs):
         if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
             fail(f"{label} request {i}: {len(o)} tokens, or a token outside "
@@ -3367,10 +3400,9 @@ def phase_serve_fleet(seed):
     priming, timed = fleet_prompts()
 
     # the single engine's tokens on both paths a request can take: over
-    # its session's primed prefix (one session at a time: the paged radix
-    # trie keys a node by its first token, and every session's prompt
-    # starts with the same page-0 tokens, so a second session's prefix
-    # replaces the first's), and prefilled whole (no prefix cache)
+    # its session's primed prefix (one session at a time, so that each
+    # wave's prefill chunks are those of a replica holding that session
+    # alone), and prefilled whole (no prefix cache)
     def engine_wave(engine, prompts):
         return serve_counted(engine, [tok.encode(p) for p in prompts],
                              FLEET_NEW, {})[0]
@@ -3422,6 +3454,11 @@ def phase_serve_fleet(seed):
     one = report["one_replica"]["drain_s"]
     for r in report.values():
         r["drain_ratio_vs_one_replica"] = one / r["drain_s"]
+    # one replica holds all four sessions: the paged trie keys a node by
+    # its first page, so sessions that share their first tokens coexist
+    if report["one_replica"]["warm_share"] != 1.0:
+        fail(f"serve_fleet: one replica's warm share "
+             f"{report['one_replica']['warm_share']} != 1.0")
     if not report["affinity"]["warm_share"] \
             > report["least_outstanding"]["warm_share"]:
         fail(f"serve_fleet: prefix-affinity warm share "
@@ -3451,6 +3488,234 @@ def phase_serve_fleet(seed):
           "fleets": report, "generate_batch_wave": batch_wave,
           "profiled_wave": profiled, "peak_memory_gb": peak_gb})
     return launches, shapes
+
+
+# phase 15: the paged engine over tensor-parallel meshes of this one card
+SERVE_TP = (1, 2, 4)
+SERVE_TP_F32_LAYERS = 4
+
+
+def tp_engine(model, params, tp):
+    """The serve phase's engine over a (1, tp) mesh of this card (no mesh
+    at tp = 1)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.engine import ServingEngine
+    mesh = None if tp == 1 else make_serving_mesh(
+        tp, devices=["cuda"] * tp)
+    return ServingEngine(model, params, mesh=mesh, **SERVE_ENGINE)
+
+
+def tp_prefill_ms(model, params, prefix, prompt):
+    """Milliseconds of a cold 256-token prefill chunk and of a 128-token
+    suffix over the 384-token prefix padded to 512, host work included,
+    over ``params`` (a tree or an engine's sharded parameters); and the
+    cold chunk's last logits."""
+    toks = torch.tensor([prompt[:256]], dtype=torch.int32, device="cuda")
+    pre = torch.tensor([prefix], dtype=torch.int32, device="cuda")
+    suf = torch.tensor([prompt[SERVE_PREFIX:SERVE_PREFIX + 128]],
+                       dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits = model.prefill(params, {"tokens": toks}, capacity=256)[0]
+        pfx = model.prefill(params, {"tokens": pre}, capacity=512)[1]
+        return {
+            "cold_256": call_ms(lambda: model.prefill(
+                params, {"tokens": toks}, capacity=256), warmup=1, reps=5),
+            "prefix512_suffix128": call_ms(lambda: model.prefill(
+                params, {"tokens": suf}, capacity=128, prefix=pfx,
+                prefix_len=SERVE_PREFIX), warmup=1, reps=5),
+        }, logits.float()
+
+
+def serve_tp_wave(cfg, model, params, tp, prefix, prompts, counters):
+    """One engine at ``tp``: the warm-prefix fan-out with exact launches
+    (``shards`` = tp), its decode graph, each shard's pool against the
+    estimate, decode and prefill times.  → (outputs, report, launches,
+    launches by key, first-chunk logits)."""
+    from repro_torch.launch.dryrun import serving_kv_estimate
+    from repro_torch.serving.prefix_cache import tree_nbytes
+    engine = tp_engine(model, params, tp)
+    outs, launches, shapes, serve_s = serve_counted(
+        engine, prompts, 32, counters, warm=prefix)
+    launches = {n: launches[n] for n in ("paged_decode_attention",
+                                         "flash_attention")}
+    st = engine.stats()
+    graph = check_paged_serve(f"serve_tp tp={tp}", cfg, st, outs, launches,
+                              shards=tp)
+    est = serving_kv_estimate(cfg, max_slots=SERVE_ENGINE["max_slots"],
+                              max_len=SERVE_ENGINE["max_len"],
+                              page_size=SERVE_ENGINE["page_size"])
+    pools = [tree_nbytes(engine.kv_pages)] if tp == 1 else \
+        [tree_nbytes(t) for t in engine.kv_pages.values()]
+    if pools != [est["paged_bytes"] // tp] * tp:
+        fail(f"serve_tp tp={tp}: shard pools {pools} bytes, the estimate "
+             f"{est['paged_bytes']} / {tp}")
+    chunk_ms, logits = tp_prefill_ms(model, engine.params, prefix,
+                                     prompts[-1])
+    report = {"tp": tp, "serve_s": serve_s, **decode_stats(engine),
+              "prefill_chunks": st["prefill_chunks"],
+              "prefill_chunk_ms": chunk_ms, "launches": launches,
+              "launches_by_shape": shape_table(shapes),
+              "shard_pool_bytes": pools,
+              "estimate_paged_bytes": est["paged_bytes"],
+              "graph": graph}
+    del engine
+    return [list(o) for o in outs], report, launches, shapes, logits
+
+
+def phase_serve_tp(seed):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+
+    cfg = get_config("stablelm-3b")
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    prefix = [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                          size=SERVE_PREFIX)]
+    prompts = [prefix + [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                     size=n)]
+               for n in SERVE_SUFFIXES]
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    base = base_logits = None
+    launches, shapes, bf16 = {}, {}, []
+    for tp in SERVE_TP:
+        outs, rep, got, got_shapes, logits = serve_tp_wave(
+            cfg, model, params, tp, prefix, prompts, counters)
+        if tp == 1:
+            base, base_logits = outs, logits
+        rep["tokens_agreeing_with_tp1"] = sum(
+            a == b for o, p in zip(outs, base) for a, b in zip(o, p))
+        rep["tokens"] = sum(len(o) for o in outs)
+        rep["prefill_logits_max_abs_diff_vs_tp1"] = float(
+            (logits - base_logits).abs().max())
+        bf16.append(rep)
+        launches = {n: launches.get(n, 0) + got.get(n, 0)
+                    for n in set(launches) | set(got)}
+        shapes = add_shapes(shapes, got_shapes)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+
+    # float32 at 4 layers: the shards' sums may round differently, but
+    # greedy tokens must not move
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=SERVE_TP_F32_LAYERS)
+    model32 = build_model(cfg32)
+    params32 = model32.init(seed, device="cuda", dtype=torch.float32)
+    f32, base = [], None
+    for tp in SERVE_TP:
+        outs, rep, got, got_shapes, logits = serve_tp_wave(
+            cfg32, model32, params32, tp, prefix, prompts, counters)
+        if tp == 1:
+            base, base_logits = outs, logits
+        elif outs != base:
+            fail(f"serve_tp f32 tp={tp}: greedy tokens differ from tp = 1's")
+        f32.append({"tp": tp, "tokens_equal_tp1": outs == base,
+                    "prefill_logits_max_abs_diff_vs_tp1": float(
+                        (logits - base_logits).abs().max()),
+                    **{k: rep[k] for k in (
+                        "decode_step_median_ms", "decode_step_p90_ms",
+                        "launches", "shard_pool_bytes")}})
+        launches = {n: launches.get(n, 0) + got.get(n, 0)
+                    for n in set(launches) | set(got)}
+        shapes = add_shapes(shapes, got_shapes)
+    del params32
+    emit({"phase": "serve_tp", "card": card(), "model": cfg.name,
+          "layers": cfg.num_layers, "requests": len(prompts),
+          "shards_on_one_card": True, "bfloat16": bf16,
+          "float32": {"layers": SERVE_TP_F32_LAYERS, "by_tp": f32},
+          "peak_memory_gb": peak_gb})
+    return launches, shapes
+
+
+# phase 16: the int8 error-feedback all-reduce over two data shards.
+# Values of the gradient tree it reduces: stablelm-3b's leaves in order of
+# size up to this many (all but the MLP's three: two calls' outputs over
+# all 2.8 B values would not fit the card beside their inputs)
+EF_VALUE_BUDGET = 1_200_000_000
+EF_SHARDS = 2
+
+
+def phase_ef_allreduce(seed):
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.training import compression as comp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("stablelm-3b").replace(remat="full", microbatches=1)
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    B, S = TRAIN_CASES["train"]["batch"], TRAIN_CASES["train"]["seq"]
+    grads = []
+    for r in range(EF_SHARDS):    # shard r's batch: batch r of the stream
+        batch = train_device_batch(cfg, train_batch(cfg, B, S, r, seed))
+        grads.append(steps.loss_and_grads(model, params, batch)[2])
+    del params, batch
+    total = sum(g.numel() for g in grads[0].values())
+    n_leaves = len(grads[0])
+    keep, n = [], 0
+    for k in sorted(grads[0], key=lambda k: grads[0][k].numel()):
+        if n + grads[0][k].numel() > EF_VALUE_BUDGET:
+            break
+        keep.append(k)
+        n += grads[0][k].numel()
+    left_out = sorted(set(grads[0]) - set(keep))
+    grads = [{k: g[k] for k in sorted(keep)} for g in grads]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = Mesh(np.array(["cuda"] * EF_SHARDS,
+                         dtype=object).reshape(EF_SHARDS, 1),
+                ("data", "model"))
+    reduce = comp.make_compressed_dp_allreduce(mesh, "data")
+    zeros = comp.init_error_buffers(grads[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means, errs = reduce(grads, [zeros] * EF_SHARDS)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del zeros
+    # one int8 step of a chunk is its largest |value| over the shards / 127
+    err_abs = exact_abs = grad_abs = 0.0
+    for k in keep:
+        exact = (grads[0][k] + grads[1][k]) / EF_SHARDS
+        err_abs = max(err_abs, float((means[0][k] - exact).abs().max()))
+        exact_abs = max(exact_abs, float(exact.abs().max()))
+        grad_abs = max(grad_abs, *(float(g[k].abs().max()) for g in grads))
+    resid = [math.sqrt(sum(float(e.double().square().sum())
+                           for e in shard.values())) for shard in errs]
+    grad_norm = math.sqrt(sum(float(g.double().square().sum())
+                              for g in grads[0].values()))
+    del means
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = reduce(grads, errs)
+    torch.cuda.synchronize()
+    second_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    if not math.isfinite(err_abs) or err_abs > grad_abs / 127:
+        fail(f"ef_allreduce: max abs error {err_abs} against the exact mean "
+             f"exceeds one int8 step of the largest gradient ({grad_abs} / "
+             f"127)")
+    wire = sum(comp.wire_bytes(grads[0][k].numel()) for k in keep)
+    emit({"phase": "ef_allreduce", "card": card(), "model": cfg.name,
+          "shards": EF_SHARDS, "batch": [B, S], "chunk": 256,
+          "leaves": len(keep), "leaves_of_tree": n_leaves,
+          "values": n, "values_of_tree": total, "left_out": left_out,
+          "max_abs_err_vs_exact_mean": err_abs,
+          "max_abs_exact_mean": exact_abs,
+          "residual_norm_per_shard": resid, "grad_norm_shard0": grad_norm,
+          "wire_bytes": wire, "fp32_bytes": 4 * n,
+          "wire_ratio": 4 * n / wire,
+          "first_call_ms": first_ms, "ms_a_call": second_ms,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return {}, {}
 
 
 # the fields that tell a kernel's rows apart, in the summary line
@@ -3508,7 +3773,9 @@ def main(argv=None):
         kernel_rows = timed("kernels", phase_kernels)
     if "serve" in phases:
         launches, shapes["serve"] = timed("serve", phase_serve, args.seed)
-    runners = {"serve_hybrid": phase_serve_hybrid,
+    runners = {"serve_tp": phase_serve_tp,
+               "ef_allreduce": phase_ef_allreduce,
+               "serve_hybrid": phase_serve_hybrid,
                "serve_ssm": phase_serve_ssm,
                "serve_moe": phase_serve_moe,
                "encdec": phase_encdec,

@@ -15,6 +15,7 @@ from . import (
     yi_34b,
 )
 from .base import ModelConfig, torch_dtype  # noqa: F401
+from .shapes import SHAPES, ShapeSpec, input_specs, shape_applicable  # noqa: F401
 
 REGISTRY = {m.CONFIG.name: m.CONFIG
             for m in (qwen3_14b, stablelm_3b, yi_34b, qwen2_5_32b,

@@ -108,6 +108,18 @@ class ModelConfig:
     def activation_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Bounded state over very long contexts (the ``long_500k``
+        shape): the SSM, and the hybrid with windowed attention."""
+        if self.family == "ssm":
+            return True
+        return self.family == "hybrid" and self.attn_window > 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

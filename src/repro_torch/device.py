@@ -7,12 +7,13 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device`` for ``device``; raises when CUDA is asked for and
-    no GPU is present, rather than quietly running on the CPU."""
+    no GPU is present, rather than quietly running on the CPU.  ``meta``
+    (shapes and dtypes, no storage) serves layout planning."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev

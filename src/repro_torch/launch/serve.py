@@ -5,11 +5,13 @@ config and run a demo workload of concurrent requests through it.
     python -m repro_torch.launch.serve --arch stablelm-3b --requests 8
     python -m repro_torch.launch.serve --replicas 4 --router-policy prefix_affinity
     python -m repro_torch.launch.serve --replicas 2 --device cpu
+    python -m repro_torch.launch.serve --tp 2 --device cpu
 
 ``--device`` defaults to ``cuda`` and raises without a GPU; ``cpu`` runs
 the plain versions of the kernels.  Parameters come from the port's
-seeded init (seed 0).  ``--tp`` > 1 raises: tensor-parallel replicas are
-not ported yet.
+seeded init (seed 0).  ``--tp`` > 1 gives every replica a
+tensor-parallel mesh over ``tp`` devices: the host's CUDA devices, or on
+the CPU the one CPU device repeated.
 """
 
 from __future__ import annotations
@@ -46,9 +48,11 @@ def main(argv=None):
     cfg = get_config(args.arch).reduced()
     model = build_model(cfg)
     params = model.init(0, device=device)
+    devices = [device] * (args.replicas * args.tp) \
+        if device.type == "cpu" else None
     fleet = EngineFleet(model, params, replicas=args.replicas, tp=args.tp,
                         policy=args.router_policy, max_slots=args.slots,
-                        max_len=128, device=device)
+                        max_len=128, device=device, devices=devices)
     tok = ByteTokenizer(cfg.vocab_size)
     backend = fleet.dispatcher
 

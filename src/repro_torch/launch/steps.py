@@ -1,7 +1,8 @@
-"""The train step and the train state (counterpart of the training half of
-``repro/launch/steps.py``).  The serving half (``lower_cell``, the
-prefill and decode steps) and the sharding trees wait for ROADMAP §A.11
-and §A.12.
+"""The train step, the train state and its layout on a mesh (counterpart
+of ``repro/launch/steps.py``): ``pick_microbatches``,
+``abstract_train_state`` (meta tensors) and ``train_state_pspecs``.
+``lower_cell`` (the reference's XLA lowering for the dry-run) waits for
+ROADMAP A.12b.
 
 The step runs eagerly: autograd through the model, whose flash, RG-LRU
 and SSD calls are ``torch.autograd.Function`` s around the hand-written
@@ -20,6 +21,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.sharding import rules as R
 from repro_torch.training.tree import flatten, tree_map, unflatten
 
 
@@ -110,3 +112,61 @@ def init_train_state(model, optimizer, seed=0, *, device="cuda") -> dict:
     return {"params": params, "opt": opt,
             "step": torch.zeros((), dtype=torch.int32,
                                 device=resolve_device(device))}
+
+
+def pick_microbatches(cfg, shape, mesh, *, target_bytes=None) -> int:
+    """Choose gradient-accumulation depth so the remat-saved per-layer
+    hidden states (the dominant training activation term) fit the
+    per-device budget: saved ≈ tokens/device × d_model × 2 B × n_layers
+    (the reference's rule)."""
+    if target_bytes is None:
+        target_bytes = (2 if cfg.num_experts else 4) * 2**30
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= sizes.get(a, 1)
+    model_size = sizes.get("model", 1)
+    tokens_per_chip = shape.global_batch * shape.seq_len // max(dp, 1)
+    saved = tokens_per_chip * cfg.d_model * 2 * cfg.num_layers
+    if cfg.num_experts:
+        # expert dispatch buffers per device ≈ 3·K·cf·N_global·D·2/E-shards
+        tokens_global = shape.global_batch * shape.seq_len
+        expert_buf = (3 * cfg.num_experts_per_tok * cfg.moe_capacity_factor
+                      * tokens_global * cfg.d_model * 2 / model_size)
+        saved = max(saved, expert_buf)
+    m = 1
+    while saved / m > target_bytes and m < shape.global_batch // max(dp, 1):
+        m *= 2
+    return m
+
+
+def abstract_train_state(model, optimizer=None) -> dict:
+    """The train state as ``meta`` tensors: params (in the activation
+    dtype under master weights), float32 moments (and master), int32
+    count and step."""
+    master = optimizer is not None and optimizer.master_weights
+    params = model.abstract_params(dtype=model.cfg.dtype if master
+                                   else None)
+
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    def scalar():
+        return torch.empty((), dtype=torch.int32, device="meta")
+
+    opt = {"mu": tree_map(f32, params), "nu": tree_map(f32, params),
+           "count": scalar()}
+    if master:
+        opt["master"] = tree_map(f32, params)
+    return {"params": params, "opt": opt, "step": scalar()}
+
+
+def train_state_pspecs(rls, model, optimizer=None) -> dict:
+    """The train state's specs under ``rls``: params by the rules,
+    moments (and master) in the FSDP layout, scalars replicated."""
+    pspec = R.params_pspecs(rls, model)
+    mspec = R.opt_state_pspecs(rls, model)
+    opt = {"mu": mspec, "nu": mspec, "count": ()}
+    if optimizer is not None and optimizer.master_weights:
+        opt["master"] = mspec
+    return {"params": pspec, "opt": opt, "step": ()}

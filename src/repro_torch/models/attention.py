@@ -10,6 +10,14 @@ runs in a hand-written kernel: ``full_attention`` in the flash kernel,
 ``paged_decode_attention`` in the paged decode kernel.  Their wrappers
 pick the kernel or its plain version by the tensors' device, so this
 module has no implementation switch.
+
+Under tensor parallelism (:mod:`.lm`'s sharded path) each shard calls
+these functions with its own parameters: its q heads (and, where they
+divide the shard count, its KV heads) and its rows of ``wo``, whose
+product is a partial sum the caller reduces.  Where the KV heads are
+replicated but the q heads are not, ``kv_heads`` names the KV heads the
+shard's q heads read (:func:`kv_head_range`); only those reach the
+kernel, so its ``q_head // G`` mapping stays right.
 """
 
 from __future__ import annotations
@@ -30,18 +38,19 @@ def attn_schema(cfg, *, cross=False) -> dict:
     QKV bias and no qk-norm."""
     D, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
-        "wq": PSpec((D, H, hd)),
-        "wk": PSpec((D, KVH, hd)),
-        "wv": PSpec((D, KVH, hd)),
-        "wo": PSpec((H, hd, D), fan_in_axes=(0, 1)),
+        "wq": PSpec((D, H, hd), axes=("embed", "heads", "head_dim")),
+        "wk": PSpec((D, KVH, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wv": PSpec((D, KVH, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wo": PSpec((H, hd, D), fan_in_axes=(0, 1),
+                    axes=("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias and not cross:
-        s["bq"] = PSpec((H, hd), "zeros")
-        s["bk"] = PSpec((KVH, hd), "zeros")
-        s["bv"] = PSpec((KVH, hd), "zeros")
+        s["bq"] = PSpec((H, hd), "zeros", axes=("heads", "head_dim"))
+        s["bk"] = PSpec((KVH, hd), "zeros", axes=("kv_heads", "head_dim"))
+        s["bv"] = PSpec((KVH, hd), "zeros", axes=("kv_heads", "head_dim"))
     if cfg.qk_norm and not cross:
-        s["q_norm"] = PSpec((hd,), "zeros")
-        s["k_norm"] = PSpec((hd,), "zeros")
+        s["q_norm"] = PSpec((hd,), "zeros", axes=("head_dim",))
+        s["k_norm"] = PSpec((hd,), "zeros", axes=("head_dim",))
     return s
 
 
@@ -69,6 +78,31 @@ def _project_kv(cfg, p, x):
     if "k_norm" in p:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return k, v
+
+
+def kv_head_range(num_heads, num_kv_heads, first, count):
+    """(lo, hi): the KV heads that q heads ``[first, first + count)`` read
+    under GQA (q head h reads KV head ``h // (num_heads // num_kv_heads)``).
+    Raises unless they read ``[lo, hi)`` in equal consecutive groups, the
+    only mapping a kernel given those KV heads alone computes."""
+    G = num_heads // num_kv_heads
+    lo, hi = first // G, (first + count - 1) // G + 1
+    g = count // (hi - lo)
+    if g * (hi - lo) != count or any(
+            (first + i) // G - lo != i // g for i in range(count)):
+        raise NotImplementedError(
+            f"q heads [{first}, {first + count}) of {num_heads} read KV "
+            f"heads [{lo}, {hi}) of {num_kv_heads} in unequal groups")
+    return lo, hi
+
+
+def _kv_for_kernel(t, kv_heads):
+    """K or V ``[..., KVH, hd]`` narrowed to the KV heads ``(lo, hi)``,
+    contiguous for the kernels."""
+    if kv_heads is None:
+        return t.contiguous()
+    lo, hi = kv_heads
+    return t[..., lo:hi, :].contiguous()
 
 
 def _out_proj(out, wo):
@@ -117,7 +151,7 @@ def prefix_causal_mask(S, Tpad, prefix_len, device=None):
 
 def full_attention(cfg, p, x, *, positions, kv_x=None, kv=None,
                    causal=True, window=0, return_kv=False, prefix_kv=None,
-                   prefix_len=0):
+                   prefix_len=0, kv_heads=None):
     """Full-sequence attention (forward / prefill / encoder / cross).
 
     kv_x: source of keys and values (cross-attention, no RoPE; non-causal:
@@ -131,6 +165,9 @@ def full_attention(cfg, p, x, *, positions, kv_x=None, kv=None,
         the valid prefix keys plus their own causal keys; ``return_kv``
         returns only the suffix K/V.  Requires causal global
         self-attention.
+    kv_heads: ``(lo, hi)``, the KV heads the kernel reads (a shard whose
+        q heads are sharded over replicated KV heads); the returned K/V
+        keep every head.
     """
     cross = kv_x is not None or kv is not None
     if cross and causal:
@@ -152,13 +189,15 @@ def full_attention(cfg, p, x, *, positions, kv_x=None, kv=None,
         pk, pv = prefix_kv
         Tpad = pk.shape[1]
         out = fa_ops.flash_attention(
-            q.contiguous(), torch.cat([pk.to(k.dtype), k], 1),
-            torch.cat([pv.to(v.dtype), v], 1), causal=True,
-            prefix_pad=Tpad, prefix_len=prefix_len)
+            q.contiguous(),
+            _kv_for_kernel(torch.cat([pk.to(k.dtype), k], 1), kv_heads),
+            _kv_for_kernel(torch.cat([pv.to(v.dtype), v], 1), kv_heads),
+            causal=True, prefix_pad=Tpad, prefix_len=prefix_len)
     else:
-        out = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), causal=causal,
-                                     window=window)
+        out = fa_ops.flash_attention(q.contiguous(),
+                                     _kv_for_kernel(k, kv_heads),
+                                     _kv_for_kernel(v, kv_heads),
+                                     causal=causal, window=window)
     out = _out_proj(out, p["wo"])
     if return_kv:
         return out, (k, v)
@@ -292,7 +331,8 @@ def init_paged_kv_cache(cfg, num_pages, page_size, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def paged_decode_attention(cfg, p, x, cache, positions, page_table):
+def paged_decode_attention(cfg, p, x, cache, positions, page_table, *,
+                           kv_heads=None):
     """One-token decode over paged KV: x [B,1,D]; cache k/v pools
     [P,ps,KVH,hd]; positions [B] (index of the current token); page_table
     [B,N] int32 — entry n holds the pool page storing positions
@@ -303,6 +343,8 @@ def paged_decode_attention(cfg, p, x, cache, positions, page_table):
     reference donated the pool buffer and returned a new one; writing in
     place is the same without the copy).  Retired slots point every table
     entry at the scratch page 0, where their dead writes land harmlessly.
+    ``kv_heads``: as :func:`full_attention`'s (the kernel then reads a
+    copy of the pool narrowed to those heads).
     """
     ps = cache["k"].shape[1]
     N = page_table.shape[1]
@@ -320,6 +362,7 @@ def paged_decode_attention(cfg, p, x, cache, positions, page_table):
     cache["k"][page_ids, offs] = k[:, 0].to(cache["k"].dtype)
     cache["v"][page_ids, offs] = v[:, 0].to(cache["v"].dtype)
     lengths = (positions + 1).to(torch.int32)
-    out = pa_ops.paged_decode_attention(q.contiguous(), cache["k"],
-                                        cache["v"], page_table, lengths)
+    out = pa_ops.paged_decode_attention(
+        q.contiguous(), _kv_for_kernel(cache["k"], kv_heads),
+        _kv_for_kernel(cache["v"], kv_heads), page_table, lengths)
     return _out_proj(out, p["wo"])

@@ -3,7 +3,9 @@ sinusoidal positions.
 
 Parameters are nested dicts of tensors with the reference's tree layout
 (``repro/models/common.py``), so :mod:`repro_torch.models.convert` maps a
-JAX parameter tree onto them leaf by leaf.
+JAX parameter tree onto them leaf by leaf.  Every leaf's schema entry
+names its logical axes (the reference's), from which the sharding rules
+(:mod:`repro_torch.sharding.rules`) derive its layout on a mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ class PSpec:
     shape: tuple
     init: str = "normal"      # normal | zeros | ones | embed
     fan_in_axes: tuple = ()   # dims to treat as fan-in for scaling
+    axes: tuple = ()          # logical axis names, parallel to shape
 
 
 def init_param(gen: torch.Generator, spec: PSpec, dtype, device):
@@ -50,16 +53,31 @@ def init_tree(gen, schema: dict, dtype, device) -> dict:
             for k, v in schema.items()}
 
 
-def stack_schema(schema: dict, n: int) -> dict:
+def abstract_tree(schema: dict, dtype) -> dict:
+    """The schema's leaves as ``meta`` tensors: shapes and dtype, no
+    storage (the reference's ``jax.eval_shape`` of the init)."""
+    return {k: abstract_tree(v, dtype) if isinstance(v, dict)
+            else torch.empty(v.shape, dtype=dtype, device="meta")
+            for k, v in schema.items()}
+
+
+def axes_tree(schema: dict) -> dict:
+    """The schema's logical axis names, leaf by leaf."""
+    return {k: axes_tree(v) if isinstance(v, dict) else v.axes
+            for k, v in schema.items()}
+
+
+def stack_schema(schema: dict, n: int, axis_name: str = "layers") -> dict:
     """Prepend a stacked-layer axis to every leaf (the reference's
     ``lax.scan`` layout; the port loops over it in Python)."""
     out = {}
     for k, v in schema.items():
         if isinstance(v, dict):
-            out[k] = stack_schema(v, n)
+            out[k] = stack_schema(v, n, axis_name)
         else:
             out[k] = PSpec((n,) + v.shape, v.init,
-                           tuple(a + 1 for a in (v.fan_in_axes or (0,))))
+                           tuple(a + 1 for a in (v.fan_in_axes or (0,))),
+                           (axis_name,) + v.axes)
     return out
 
 
@@ -125,8 +143,9 @@ def layernorm(x, scale, bias, eps):
 def norm_schema(cfg, d=None) -> dict:
     d = d or cfg.d_model
     if cfg.norm_type == "layernorm":
-        return {"scale": PSpec((d,), "ones"), "bias": PSpec((d,), "zeros")}
-    return {"scale": PSpec((d,), "zeros")}
+        return {"scale": PSpec((d,), "ones", axes=("embed",)),
+                "bias": PSpec((d,), "zeros", axes=("embed",))}
+    return {"scale": PSpec((d,), "zeros", axes=("embed",))}
 
 
 def apply_norm(cfg, p, x):

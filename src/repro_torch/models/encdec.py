@@ -42,7 +42,7 @@ def dec_block_schema(cfg):
 def encdec_schema(cfg) -> dict:
     V, D = cfg.vocab_padded, cfg.d_model
     return {
-        "embed": PSpec((V, D), "embed"),
+        "embed": PSpec((V, D), "embed", axes=("vocab", "embed")),
         "enc_final_norm": norm_schema(cfg),
         "dec_final_norm": norm_schema(cfg),
         "enc_layers": stack_schema(enc_block_schema(cfg), cfg.enc_layers),

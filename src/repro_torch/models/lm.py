@@ -10,6 +10,20 @@ leaves of the i-th block of the repeating pattern (the reference's
 and ``tail{i}`` the unrolled remainder blocks; layers run in a Python loop
 in that order.
 
+Tensor parallelism: given :class:`~repro_torch.sharding.placement.
+ShardedParams` (parameters laid out on a mesh's ``model`` axis by the
+serving rules), :func:`prefill` and :func:`decode_step_paged` run the
+sharded program of the dense and VLM families: every shard runs its own
+q heads through the attention kernels and its slice of the MLP's hidden
+dim; the row-parallel products (``wo``, the down projection) are partial
+sums that one :func:`~repro_torch.sharding.placement.reduce_sum` adds up;
+the embedding is a masked lookup of each shard's vocab rows plus a
+reduce_sum, and the logits are the shards' vocab slices concatenated.
+Where a dim falls back to replication, every shard holds the whole
+product and nothing is summed.  The residual stream, the norms and the
+sampling stay replicated: computed once, on shard 0's device.  The KV
+cache is one tree per shard under :func:`shard_key`.
+
 Two cache layouts:
 - the **paged** and **prefix-aware** path of the attention-only families
   (dense, MoE and VLM; the default engine path) keeps flat ``{"k", "v"}``
@@ -26,6 +40,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.placement import (
+    ShardedParams,
+    broadcast,
+    gather,
+    reduce_sum,
+)
+from repro_torch.sharding.rules import constrain_activation
 
 from . import attention as att
 from . import mlp as mlpmod
@@ -108,12 +130,12 @@ def lm_schema(cfg) -> dict:
     V, D = cfg.vocab_padded, cfg.d_model
     group = {f"b{i}": block_schema(cfg, k) for i, k in enumerate(group_kinds)}
     s = {
-        "embed": PSpec((V, D), "embed"),
+        "embed": PSpec((V, D), "embed", axes=("vocab", "embed")),
         "final_norm": norm_schema(cfg),
         "layers": stack_schema(group, n_groups),
     }
     if not cfg.tie_embeddings:
-        s["lm_head"] = PSpec((D, V))
+        s["lm_head"] = PSpec((D, V), axes=("embed", "vocab"))
     for i, k in enumerate(tail_kinds):
         s[f"tail{i}"] = block_schema(cfg, k)
     return s
@@ -289,7 +311,11 @@ def prefill(cfg, params, batch, capacity, *, prefix=None, prefix_len=None,
     batch then holds only the prompt suffix, whose positions start at
     ``prefix_len``, and the returned cache covers the suffix alone.
     ``last_index`` selects which position's logits to return (default:
-    the last)."""
+    the last).  With :class:`ShardedParams` the sharded prefill
+    (:func:`prefill_tp`)."""
+    if isinstance(params, ShardedParams):
+        return prefill_tp(cfg, params, batch, capacity, prefix=prefix,
+                          prefix_len=prefix_len, last_index=last_index)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     if capacity < S and any(k in ("attn_mlp", "attn_moe")
@@ -416,7 +442,12 @@ def init_paged_cache(cfg, num_pages, page_size, device):
 def decode_step_paged(cfg, params, cache, tokens, positions, page_table):
     """One decode step over block-paged KV pools: tokens [B,1], positions
     [B], page_table [B,N] int32 (shared by every layer).  Writes the
-    step's K/V into ``cache`` in place and returns (logits [B,V], cache)."""
+    step's K/V into ``cache`` in place and returns (logits [B,V], cache).
+    With :class:`ShardedParams` the sharded step
+    (:func:`decode_step_paged_tp`)."""
+    if isinstance(params, ShardedParams):
+        return decode_step_paged_tp(cfg, params, cache, tokens, positions,
+                                    page_table)
     h = params["embed"].to(cfg.activation_dtype)[tokens.long()]
     for i, (kind, p) in enumerate(blocks(cfg, params)):
         layer_kv = {"k": cache["k"][i], "v": cache["v"][i]}
@@ -426,3 +457,192 @@ def decode_step_paged(cfg, params, cache, tokens, positions, page_table):
         h = feed_forward(cfg, kind, p, h)[0]
     h = apply_norm(cfg, params["final_norm"], h)
     return logits_from_hidden(cfg, params, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's "model" axis (ShardedParams)
+
+
+def shard_key(rank: int) -> str:
+    """The key of shard ``rank``'s cache tree in a sharded cache."""
+    return f"shard{rank}"
+
+
+def _on_model(entry) -> bool:
+    return entry == "model" or (isinstance(entry, tuple)
+                                and "model" in entry)
+
+
+class TensorParallel:
+    """What the resolved parameter specs shard, for the sharded program:
+    ``attn_sum`` (``wo``'s contraction dims name ``model``: each shard's
+    attention output is a partial sum), ``ffn_sum`` (likewise the MLP's
+    down projection), ``vocab`` (the embedding and the logits are split
+    by vocab rows), and per shard the KV heads its q heads read when the
+    q heads are sharded over replicated KV heads (else None)."""
+
+    def __init__(self, cfg, params: ShardedParams):
+        if cfg.family not in ("dense", "vlm") or is_contiguous(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: tensor parallelism covers the dense and VLM "
+                f"families on the paged layout (MoE and the contiguous "
+                f"layout under a mesh: ROADMAP A.11d)")
+        sp = params.specs
+        attn = sp["layers"]["b0"]["attn"]   # leaves [L, ...]
+        if any(_on_model(e) for e in (attn["wq"][3], attn["wo"][2])):
+            raise NotImplementedError(
+                "head_dim sharded over model (the ulysses strategies): "
+                "serving runs the heads strategy")
+        self.devices = params.devices
+        self.attn_sum = _on_model(attn["wo"][1])
+        self.ffn_sum = _on_model(sp["layers"]["b0"]["mlp"]["w_down"][1])
+        self.vocab = _on_model(sp["embed"][0])
+        self.kv_heads = [None] * params.tp
+        if _on_model(attn["wq"][2]) and not _on_model(attn["wk"][2]):
+            Hl = params.shards[0]["layers"]["b0"]["attn"]["wq"].shape[2]
+            self.kv_heads = [att.kv_head_range(cfg.num_heads,
+                                               cfg.num_kv_heads, r * Hl, Hl)
+                             for r in range(params.tp)]
+
+
+def _tp_layers(cfg, params):
+    """Per layer: (kind, [shard r's block parameters for r in ranks])."""
+    per_rank = [blocks(cfg, s) for s in params.shards]
+    return [(layer[0][0], [p for _, p in layer])
+            for layer in zip(*per_rank)]
+
+
+def _tp_embed_inputs(cfg, params, tp, batch):
+    """:func:`embed_inputs` over vocab-split embedding shards: each shard
+    looks up the tokens in its rows (zeros elsewhere) and one reduce_sum
+    adds the shards' rows (exact: one term is nonzero)."""
+    tokens = batch["tokens"]
+    dt = cfg.activation_dtype
+    if not tp.vocab:
+        h = params.shards[0]["embed"].to(dt)[tokens.long()]
+    else:
+        parts = []
+        for r, (p, t) in enumerate(zip(params.shards,
+                                       broadcast(tokens, tp.devices))):
+            E = p["embed"]
+            Vl = E.shape[0]
+            idx = t.long() - r * Vl
+            keep = (idx >= 0) & (idx < Vl)
+            parts.append(E.to(dt)[idx.clamp(0, Vl - 1)]
+                         * keep[..., None].to(dt))
+        h = reduce_sum(parts)[0]
+    B, S = tokens.shape
+    if cfg.frontend == "patch_stub" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(h.dtype)
+        h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None, :].repeat(B, 1)
+    return h, positions
+
+
+def _tp_logits(cfg, params, tp, h):
+    """Each shard's vocab slice of the logits, concatenated in rank order,
+    then the padding masked (shard 0's whole table where vocab is not
+    split)."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    parts = []
+    for p, hr in zip(params.shards, broadcast(h, tp.devices)):
+        w = p[name].to(hr.dtype)
+        parts.append(hr @ (w.T if cfg.tie_embeddings else w))
+        if not tp.vocab:
+            break
+    constrain_activation(
+        "act_logits", h.shape[:-1] + (cfg.vocab_padded,),
+        [t.shape for t in parts])
+    return mask_vocab_padding(cfg, gather(parts, -1) if tp.vocab
+                              else parts[0])
+
+
+def _tp_attention(cfg, tp, ps, h, attend):
+    """h + the attention of every shard: ``attend(r, p, x)`` runs shard
+    r's heads on its copy of the normed input; the outputs are partial
+    sums under ``tp.attn_sum``, else shard 0's is the whole."""
+    x = apply_norm(cfg, ps[0]["ln1"], h)
+    constrain_activation("act_qkv", x.shape[:-1] + (cfg.num_heads,
+                                                    cfg.head_dim),
+                         [x.shape[:-1] + p["attn"]["wq"].shape[1:]
+                          for p in ps])
+    outs = [attend(r, p, xr) for r, (p, xr) in
+            enumerate(zip(ps, broadcast(x, tp.devices)))]
+    return h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
+
+
+def _tp_feed_forward(cfg, tp, ps, h):
+    x = apply_norm(cfg, ps[0]["ln2"], h)
+    constrain_activation("act_ffn", x.shape[:-1] + (cfg.d_ff,),
+                         [x.shape[:-1] + p["mlp"]["w_up"].shape[1:]
+                          for p in ps])
+    return h + mlpmod.apply_mlp_tp(cfg, [p["mlp"] for p in ps], x,
+                                   tp.devices, row_parallel=tp.ffn_sum)
+
+
+def prefill_tp(cfg, params, batch, capacity, *, prefix=None,
+               prefix_len=None, last_index=None):
+    """:func:`prefill` of the dense and VLM families over sharded
+    parameters → (last_logits [B,V] on shard 0's device, cache): the
+    cache is ``{shard_key(r): {"k", "v"}}``, each shard's K/V ``[L, B,
+    capacity, KVH_r, hd]`` on its device; ``prefix`` (prefix-aware mode)
+    is such a tree too."""
+    tp = TensorParallel(cfg, params)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    if capacity < S:
+        raise ValueError(f"capacity {capacity} < prompt length {S}")
+    h, positions = _tp_embed_inputs(cfg, params, tp, batch)
+    plen = int(prefix_len or 0)
+    pos = broadcast(positions + plen, tp.devices)
+    ks = [[] for _ in tp.devices]
+    vs = [[] for _ in tp.devices]
+    for i, (kind, ps) in enumerate(_tp_layers(cfg, params)):
+        def attend(r, p, x, i=i):
+            kw = {}
+            if prefix is not None:
+                pr = prefix[shard_key(r)]
+                kw = {"prefix_kv": (pr["k"][i], pr["v"][i]),
+                      "prefix_len": plen}
+            out, (k, v) = att.full_attention(
+                cfg, p["attn"], x, positions=pos[r], return_kv=True,
+                kv_heads=tp.kv_heads[r], **kw)
+            ks[r].append(k)
+            vs[r].append(v)
+            return out
+        h = _tp_attention(cfg, tp, ps, h, attend)
+        h = _tp_feed_forward(cfg, tp, ps, h)
+    cache = {}
+    for r in range(len(tp.devices)):
+        shard = {"k": torch.stack(ks[r]), "v": torch.stack(vs[r])}
+        if capacity > S:
+            shard = {n: F.pad(t, (0, 0, 0, 0, 0, capacity - S))
+                     for n, t in shard.items()}
+        cache[shard_key(r)] = shard
+    h = apply_norm(cfg, params.shards[0]["final_norm"], h)
+    idx = S - 1 if last_index is None else int(last_index)
+    logits = _tp_logits(cfg, params, tp, h[:, idx:idx + 1])
+    return logits[:, 0], cache
+
+
+def decode_step_paged_tp(cfg, params, cache, tokens, positions, page_table):
+    """:func:`decode_step_paged` over sharded parameters and a sharded pool
+    (``{shard_key(r): {"k", "v"}}``, each shard's pool ``[L, P, ps,
+    KVH_r, hd]`` on its device); every shard runs the paged decode kernel
+    on its own heads.  → (logits [B,V] on shard 0's device, cache)."""
+    tp = TensorParallel(cfg, params)
+    h = _tp_embed_inputs(cfg, params, tp, {"tokens": tokens})[0]
+    pos = broadcast(positions, tp.devices)
+    tables = broadcast(page_table, tp.devices)
+    pools = [cache[shard_key(r)] for r in range(len(tp.devices))]
+    for i, (kind, ps) in enumerate(_tp_layers(cfg, params)):
+        def attend(r, p, x, i=i):
+            layer_kv = {"k": pools[r]["k"][i], "v": pools[r]["v"][i]}
+            return att.paged_decode_attention(
+                cfg, p["attn"], x, layer_kv, pos[r], tables[r],
+                kv_heads=tp.kv_heads[r])
+        h = _tp_attention(cfg, tp, ps, h, attend)
+        h = _tp_feed_forward(cfg, tp, ps, h)
+    h = apply_norm(cfg, params.shards[0]["final_norm"], h)
+    return _tp_logits(cfg, params, tp, h)[:, 0], cache

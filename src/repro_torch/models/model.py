@@ -10,7 +10,7 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
 
 from . import encdec, lm
-from .common import init_tree
+from .common import abstract_tree, axes_tree, init_tree
 
 
 class Model:
@@ -39,6 +39,19 @@ class Model:
         dt = dtype or torch_dtype(self.cfg.param_dtype)
         with torch.no_grad():
             return init_tree(gen, self.schema(), dt, dev)
+
+    def abstract_params(self, dtype=None) -> dict:
+        """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+        storage) in ``dtype`` (a torch dtype or a config dtype name;
+        default the config's ``param_dtype``)."""
+        dt = dtype or self.cfg.param_dtype
+        return abstract_tree(self.schema(),
+                             torch_dtype(dt) if isinstance(dt, str) else dt)
+
+    def param_logical_axes(self) -> dict:
+        """Each parameter leaf's logical axis names (the sharding rules'
+        input)."""
+        return axes_tree(self.schema())
 
     def num_params(self) -> int:
         def count(tree):

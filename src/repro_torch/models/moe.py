@@ -29,10 +29,13 @@ from .common import PSpec
 def moe_schema(cfg) -> dict:
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
-        "router": PSpec((D, E)),
-        "w_gate": PSpec((E, D, Fd), fan_in_axes=(1,)),
-        "w_up": PSpec((E, D, Fd), fan_in_axes=(1,)),
-        "w_down": PSpec((E, Fd, D), fan_in_axes=(1,)),
+        "router": PSpec((D, E), axes=("embed", "experts_router")),
+        "w_gate": PSpec((E, D, Fd), fan_in_axes=(1,),
+                        axes=("experts", "embed", "moe_ffn")),
+        "w_up": PSpec((E, D, Fd), fan_in_axes=(1,),
+                      axes=("experts", "embed", "moe_ffn")),
+        "w_down": PSpec((E, Fd, D), fan_in_axes=(1,),
+                        axes=("experts", "moe_ffn", "embed")),
     }
 
 

@@ -27,17 +27,17 @@ def rglru_schema(cfg) -> dict:
     D, W = cfg.d_model, cfg.lru_width
     K = cfg.conv_width
     return {
-        "w_in": PSpec((D, W)),
-        "w_gate_branch": PSpec((D, W)),
-        "conv_w": PSpec((K, W), "normal", (0,)),
-        "conv_b": PSpec((W,), "zeros"),
+        "w_in": PSpec((D, W), axes=("embed", "lru")),
+        "w_gate_branch": PSpec((D, W), axes=("embed", "lru")),
+        "conv_w": PSpec((K, W), "normal", (0,), ("conv", "lru")),
+        "conv_b": PSpec((W,), "zeros", axes=("lru",)),
         # RG-LRU gates
-        "w_a": PSpec((W, W)),
-        "b_a": PSpec((W,), "zeros"),
-        "w_x": PSpec((W, W)),
-        "b_x": PSpec((W,), "zeros"),
-        "lambda_p": PSpec((W,), "ones"),
-        "w_out": PSpec((W, D)),
+        "w_a": PSpec((W, W), axes=("lru", "lru_in")),
+        "b_a": PSpec((W,), "zeros", axes=("lru",)),
+        "w_x": PSpec((W, W), axes=("lru", "lru_in")),
+        "b_x": PSpec((W,), "zeros", axes=("lru",)),
+        "lambda_p": PSpec((W,), "ones", axes=("lru",)),
+        "w_out": PSpec((W, D), axes=("lru", "embed")),
     }
 
 

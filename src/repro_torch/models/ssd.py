@@ -27,14 +27,14 @@ def ssd_schema(cfg) -> dict:
     K = cfg.conv_width
     return {
         # fused input projection → [z (DI), x (DI), B (N), C (N), dt (H)]
-        "w_in": PSpec((D, 2 * DI + 2 * N + H)),
-        "conv_w": PSpec((K, DI + 2 * N), "normal", (0,)),
-        "conv_b": PSpec((DI + 2 * N,), "zeros"),
-        "a_log": PSpec((H,), "ones"),
-        "dt_bias": PSpec((H,), "zeros"),
-        "d_skip": PSpec((H,), "ones"),
-        "norm_scale": PSpec((DI,), "zeros"),
-        "w_out": PSpec((DI, D)),
+        "w_in": PSpec((D, 2 * DI + 2 * N + H), axes=("embed", "inner_fused")),
+        "conv_w": PSpec((K, DI + 2 * N), "normal", (0,), ("conv", "inner")),
+        "conv_b": PSpec((DI + 2 * N,), "zeros", axes=("inner",)),
+        "a_log": PSpec((H,), "ones", axes=("ssm_heads",)),
+        "dt_bias": PSpec((H,), "zeros", axes=("ssm_heads",)),
+        "d_skip": PSpec((H,), "ones", axes=("ssm_heads",)),
+        "norm_scale": PSpec((DI,), "zeros", axes=("inner",)),
+        "w_out": PSpec((DI, D), axes=("inner", "embed")),
     }
 
 

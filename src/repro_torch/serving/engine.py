@@ -30,8 +30,19 @@ cache tensors, and its jitted decode step one CUDA graph per engine
 (:mod:`.decode_graph`): on a CUDA device the first decode step runs
 eagerly, the step is captured right after it and replayed from then on;
 on the CPU every step runs eagerly over the same static input buffers.
-Spans and metrics follow the reference's (:mod:`repro_torch.obs`).  Not
-in this slice (the argument raises): ``mesh=``.
+Spans and metrics follow the reference's (:mod:`repro_torch.obs`).
+
+Tensor parallelism (``mesh=``, a ``("data", "model")`` mesh from
+:func:`repro_torch.launch.mesh.make_serving_mesh`): the parameters are
+placed per the serving rules (``make_serving_rules``, ``params_pspecs``)
+and every prefill and decode step runs the sharded program of
+:mod:`repro_torch.models.lm`; each shard holds its own page pool, split
+on the KV heads only (``cache_pspecs``' paged rule), while the page
+tables, the allocator and the radix trie stay one host namespace.  The
+decode step is captured as one CUDA graph when every shard sits on the
+engine's device; a mesh over several devices runs it eagerly.  This
+covers the paged layout (the dense and VLM families); the contiguous
+layout and MoE under a mesh raise (ROADMAP A.11d).
 """
 
 from __future__ import annotations
@@ -44,13 +55,21 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import shard_key
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.spans import DETACHED, current_tracer, maybe_span
+from repro_torch.sharding.placement import ShardedParams, local_zeros
+from repro_torch.sharding.rules import (
+    cache_pspecs,
+    make_serving_rules,
+    params_pspecs,
+)
 
 from .decode_graph import DecodeGraph, tensors
 from .prefix_cache import (
     PagedPrefixCache,
     PrefixCache,
+    _map,
     tree_concat,
     tree_nbytes,
     tree_pad_to,
@@ -221,7 +240,8 @@ class ServingEngine:
     :class:`~repro_torch.obs.MetricsRegistry`; default a new one) and
     ``name`` (prefixes this engine's trace tracks, ``<name>:decode`` …).
     Exact-length admission ignores the prefix-cache, chunk and bucket
-    knobs.  ``mesh=`` (tensor parallelism) raises: not ported yet."""
+    knobs.  ``mesh`` (tensor parallelism; see the module docstring)
+    places the engine on the mesh's devices, ``device`` then unused."""
 
     def __init__(self, model, params, *, max_slots=8, max_len=256,
                  eos_token=None, step_sleep=0.0,
@@ -233,9 +253,6 @@ class ServingEngine:
         if kv_layout not in (None, "paged", "contiguous"):
             raise ValueError(f"kv_layout must be 'paged' or 'contiguous', "
                              f"got {kv_layout!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: tensor-parallel serving waits for ROADMAP.md §A.11")
         if model.cfg.family == "enc_dec":
             raise NotImplementedError(
                 f"{model.cfg.name}: the engine admits token prompts only "
@@ -243,8 +260,15 @@ class ServingEngine:
                 f"{{'tokens': prompt}} alone), so an encoder-decoder "
                 f"request has no way to carry its encoder frames; run it "
                 f"through Model.prefill and Model.decode_step")
+        self.mesh = mesh
+        self._rules = None
+        if mesh is not None:
+            self._rules = self._check_mesh(model, mesh, kv_layout)
+            params = ShardedParams(params,
+                                   params_pspecs(self._rules, model), mesh)
+            device = params.devices[0]
         self.device = resolve_device(device)
-        for leaf in tensors(params):
+        for leaf in tensors(params if mesh is None else params.shards):
             if leaf.device.type != self.device.type:
                 raise ValueError(f"params are on {leaf.device}, the engine "
                                  f"on {self.device}")
@@ -310,6 +334,10 @@ class ServingEngine:
         # keep the exact-length path
         self._seq_axes = model.prefix_seq_axes()
         self._paged = self._seq_axes is not None
+        if mesh is not None:
+            # the sharded cache: one {"k", "v"} tree per shard
+            self._seq_axes = {shard_key(r): self._seq_axes
+                              for r in range(self.params.tp)}
         self.kv_layout = "contiguous" if not self._paged \
             else (kv_layout or "paged")
         self.paged_kv = self.kv_layout == "paged"
@@ -354,6 +382,19 @@ class ServingEngine:
                 self.prefix_cache = PrefixCache(self._seq_axes,
                                                 prefix_cache_budget)
 
+    @staticmethod
+    def _check_mesh(model, mesh, kv_layout):
+        """The serving rules of a mesh engine; raises for what this slice
+        does not shard."""
+        cfg = model.cfg
+        if cfg.family == "moe" or model.prefix_seq_axes() is None \
+                or kv_layout == "contiguous":
+            raise NotImplementedError(
+                f"{cfg.name}: mesh= covers the paged layout of the dense and "
+                f"VLM families; MoE and the contiguous layout under a mesh "
+                f"come with ROADMAP A.11d")
+        return make_serving_rules(mesh, cfg)
+
     def _init_paged(self, page_size, num_pages, prefix_cache_budget):
         """Block-paged KV state: the page pool shared by all slots, the
         radix trie and the per-slot page tables."""
@@ -367,8 +408,11 @@ class ServingEngine:
         self.allocator = PageAllocator(self.num_pages, page_size,
                                        metrics=self.metrics)
         # pool leaves [L, num_pages + 1, page_size, KVH, hd]; page 0 scratch
+        meta = self.model.init_paged_cache(self.num_pages + 1, page_size,
+                                           device="meta")
         self.kv_pages = self.model.init_paged_cache(
-            self.num_pages + 1, page_size, device=self.device)
+            self.num_pages + 1, page_size, device=self.device) \
+            if self.mesh is None else self._sharded_pool(meta)
         self._empty_prefix = _empty_prefix(self.kv_pages)
         self._table_host = torch.zeros(
             (max_slots, self.pages_per_slot), dtype=torch.int32,
@@ -382,7 +426,7 @@ class ServingEngine:
         self.page_op_shapes: set = set()
         self.cache = None
         if prefix_cache_budget:
-            page_bytes = tree_nbytes(self.kv_pages) // (self.num_pages + 1)
+            page_bytes = tree_nbytes(meta) // (self.num_pages + 1)
             budget_pages = int(prefix_cache_budget // max(1, page_bytes))
             self.prefix_cache = (PagedPrefixCache(self.allocator,
                                                   budget_pages)
@@ -390,35 +434,51 @@ class ServingEngine:
         else:
             self.prefix_cache = None
 
+    def _sharded_pool(self, meta):
+        """Each shard's page pool, on its device: its shard of the pool
+        ``meta`` describes, under the serving rules' paged spec (split on
+        KV heads where they divide the shard count, else whole)."""
+        specs = cache_pspecs(self._rules, meta, layout="paged")
+        return {shard_key(r): {
+            name: local_zeros(leaf.shape, leaf.dtype, specs[name],
+                              self.mesh, coord)
+            for name, leaf in meta.items()}
+            for r, coord in enumerate(self.params.ranks)}
+
     # -- page ops ---------------------------------------------------------------
+
+    def _page_ids(self, ids):
+        """{device: the page ids as a tensor there} for every pool leaf."""
+        return {dev: torch.as_tensor(ids, dtype=torch.long, device=dev)
+                for dev in {t.device for t in tensors(self.kv_pages)}}
 
     def _gather_fn(self, ids):
         """Pages ``ids`` as a contiguous [L, 1, n·ps, ...] prefix view for
         prefix-aware prefill: a transient copy for attention; the slot's
         KV stays in the shared pages."""
-        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        idx = self._page_ids(ids)
 
         def g(ax, pool):
-            t = pool.index_select(ax - 1, idx)
+            t = pool.index_select(ax - 1, idx[pool.device])
             shp = list(t.shape)
             return t.reshape(shp[:ax - 1] + [1, shp[ax - 1] * shp[ax]]
                              + shp[ax + 1:])
-        return {name: g(self._seq_axes[name], pool)
-                for name, pool in self.kv_pages.items()}
+        return _map(g, self._seq_axes, self.kv_pages)
 
     def _fill_fn(self, seg, ids):
         """Scatter freshly prefilled KV ``seg`` ([L, 1, n·ps, ...]) into
         pool pages ``ids``, in place.  Padding ids are 0: the scratch page
         absorbs them."""
         n = len(ids)
-        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        for name, pool in self.kv_pages.items():
-            ax = self._seq_axes[name]
-            s = seg[name]
+        idx = self._page_ids(ids)
+
+        def w(ax, pool, s):
             shp = list(s.shape)
             pages = s.reshape(shp[:ax - 1] + [n, self.page_size]
                               + shp[ax + 1:])
-            pool[(slice(None),) * (ax - 1) + (idx,)] = pages.to(pool.dtype)
+            pool[(slice(None),) * (ax - 1) + (idx[pool.device],)] = \
+                pages.to(pool.dtype)
+        _map(w, self._seq_axes, self.kv_pages, seg)
 
     def _splice(self, seg, slot):
         """Write a prefilled [L, 1, S, ...] KV segment into positions [0, S)
@@ -1103,9 +1163,12 @@ class ServingEngine:
             self._positions[slot] += 1
         if dsp is not None:
             trz.end(dsp)
-        if self._graph is None and self.device.type == "cuda":
+        if self._graph is None and self.device.type == "cuda" and (
+                self.mesh is None or all(
+                    d == self.device for d in self.params.devices)):
             # the eager step above was the warm-up (kernel libraries
-            # loaded); capture the same step for every later one
+            # loaded); capture the same step for every later one (a mesh
+            # over several devices runs eagerly)
             graph = DecodeGraph(self._decode_step, self._step_state)
             graph.capture()
             self._graph = graph
@@ -1142,8 +1205,9 @@ class ServingEngine:
 
 def _empty_prefix(kv):
     """A zero-length prefix of flat KV leaves [L, X, Y, ...]: [L, 1, 0,
-    ...]."""
-    return {name: leaf.new_zeros((leaf.shape[0], 1, 0) + leaf.shape[3:])
+    ...] (of each shard's leaves, for a sharded cache)."""
+    return {name: _empty_prefix(leaf) if isinstance(leaf, dict)
+            else leaf.new_zeros((leaf.shape[0], 1, 0) + leaf.shape[3:])
             for name, leaf in kv.items()}
 
 

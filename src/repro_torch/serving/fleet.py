@@ -7,14 +7,17 @@ fleet scales out: N engine replicas, each wrapped in a
 so PopPy's fan-out traffic spreads across replicas with no client-side
 changes (the dispatcher *is* a ``Backend``).
 
-Devices: the fleet counts ``torch.cuda.device_count()`` devices on
-``cuda`` and one on ``cpu``.  Every replica runs on the one device the
+Devices: with ``tp`` = 1 every replica runs on the one device the
 engines are given, shares the caller's parameter tensors (the reference
 copies parameters only per mesh) and issues its work on the same CUDA
 stream from the same host thread, so the replicas' steps serialise; each
 keeps its own slots, queue, page pool, radix prefix cache, decode graph
-(with its own graph memory pool) and sampling generator.  ``tp`` > 1
-(a replica over a tensor-parallel mesh) is not ported yet.
+(with its own graph memory pool) and sampling generator.  With ``tp`` > 1
+replica ``i`` spans a ``make_serving_mesh(tp)`` over the ``tp`` devices
+starting at ``i * tp`` of ``devices`` (default: the host's CUDA
+devices), or the first ``tp`` when there are fewer than ``replicas *
+tp``; ``devices`` may repeat a device (``["cpu"] * 4``), and each replica
+then holds its own shards of the parameters.
 
 Routing: the default ``prefix_affinity`` policy probes each replica's
 radix prefix cache (``LocalEngineBackend.prefix_probe``) and sends a
@@ -26,24 +29,20 @@ from __future__ import annotations
 
 import asyncio
 
-import torch
-
 from repro_torch.device import resolve_device
 from repro_torch.dispatch import Dispatcher
+from repro_torch.launch.mesh import host_devices, make_serving_mesh
 from repro_torch.serving.backend import LocalEngineBackend
 from repro_torch.serving.engine import ServingEngine
-
-
-def device_count(device) -> int:
-    """Devices a fleet on ``device`` may place replicas over."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 class EngineFleet:
     """N serving-engine replicas behind a prefix-affinity router.
 
     ``replicas`` engines are built from one ``(model, params)`` pair and
-    share its parameter tensors.  Remaining keyword arguments go to every
+    share its parameter tensors (``tp`` = 1) or each place its own shards
+    of them on its mesh over a slice of ``devices`` (``tp`` > 1; see the
+    module docstring).  Remaining keyword arguments go to every
     ``ServingEngine`` (``device`` among them, default ``cuda``);
     ``dispatcher_kwargs`` (e.g. ``cache=``, ``hedge=``) go to the fleet's
     ``Dispatcher``.  Every replica samples from the engine's own seeded
@@ -54,26 +53,31 @@ class EngineFleet:
     def __init__(self, model, params, *, replicas: int = 1, tp: int = 1,
                  policy: str = "prefix_affinity", tokenizer=None,
                  hedge_timeout=None, dispatcher_kwargs: dict | None = None,
-                 **engine_kwargs):
+                 devices=None, **engine_kwargs):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         if tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
-        n_devices = device_count(
-            resolve_device(engine_kwargs.get("device", "cuda")))
-        if tp > n_devices:
+        if devices is None:
+            devices = host_devices(
+                resolve_device(engine_kwargs.get("device", "cuda")).type)
+        devices = list(devices)
+        if tp > len(devices):
             raise RuntimeError(
-                f"tp={tp} needs {tp} devices, have {n_devices}")
-        if tp > 1:
-            raise NotImplementedError(
-                f"tp={tp}: tensor-parallel replicas wait for ROADMAP.md "
-                f"§A.11")
+                f"tp={tp} needs {tp} devices, have {len(devices)}")
         self.replicas = replicas
         self.tp = tp
         self.names = [f"replica{i}" for i in range(replicas)]
-        self.engines: list[ServingEngine] = [
-            ServingEngine(model, params, name=name, **engine_kwargs)
-            for name in self.names]
+        self.engines: list[ServingEngine] = []
+        for i, name in enumerate(self.names):
+            mesh = None
+            if tp > 1:
+                lo = i * tp
+                sl = devices[lo:lo + tp] if lo + tp <= len(devices) \
+                    else devices[:tp]
+                mesh = make_serving_mesh(tp, devices=sl)
+            self.engines.append(ServingEngine(model, params, mesh=mesh,
+                                              name=name, **engine_kwargs))
         self.backends = [
             LocalEngineBackend(e, tokenizer, hedge_timeout=hedge_timeout)
             for e in self.engines]

@@ -1,6 +1,10 @@
 """Radix (prefix-trie) KV caches and the cache-tree tensor helpers.
 
-Copy of ``repro/serving/prefix_cache.py``.  Two tries:
+Copy of ``repro/serving/prefix_cache.py``, except that the paged trie
+keys a node's children by the first *page* of their edge: the
+reference's key, the first token, lets a prompt that diverges inside
+the first page (every prompt starts with BOS) replace its sibling, whose
+pages then stay referenced and out of eviction's reach.  Two tries:
 :class:`PagedPrefixCache` (the paged layout) holds *page ids* of the
 engine's KV pool, so a cache hit appends page references to the
 requester's page table and copies no KV; :class:`PrefixCache` (the
@@ -71,7 +75,7 @@ class _PagedNode:
     def __init__(self, tokens, pages, parent):
         self.tokens = tokens          # edge label (length ≡ 0 mod page_size)
         self.pages = tuple(pages)     # pool page ids covering these tokens
-        self.children = {}            # first token -> _PagedNode
+        self.children = {}            # first page (tokens) -> _PagedNode
         self.parent = parent
         self.refs = 0                 # pinned readers
         self.last_used = 0
@@ -123,20 +127,22 @@ class PagedPrefixCache:
         lo.last_used = node.last_used
         node.tokens = node.tokens[:m]
         node.pages = node.pages[:m // ps]
-        node.children = {lo.tokens[0]: lo}
+        node.children = {lo.tokens[:ps]: lo}
         self.splits += 1
 
     def _walk(self, tokens, *, split=True):
         """Walk over ``tokens``; partial edge matches floor to the page
-        boundary.  Returns (path, matched_len)."""
+        boundary.  Children are keyed by their edge's first page, so a
+        match inside a first page is a miss and two prompts that diverge
+        there are siblings.  Returns (path, matched_len)."""
         ps = self.page_size
         path, node, pos = [], self.root, 0
         while pos < len(tokens):
-            child = node.children.get(tokens[pos])
+            child = node.children.get(tokens[pos:pos + ps])
             if child is None:
                 break
             et = child.tokens
-            m, n = 1, len(et)
+            m, n = ps, len(et)
             while m < n and pos + m < len(tokens) \
                     and et[m] == tokens[pos + m]:
                 m += 1
@@ -163,7 +169,7 @@ class PagedPrefixCache:
         return out
 
     def _drop(self, node):
-        node.parent.children.pop(node.tokens[0])
+        node.parent.children.pop(node.tokens[:self.page_size])
         self.pages -= len(node.pages)
         self.evictions += 1
         self.evicted_pages += len(node.pages)
@@ -197,9 +203,10 @@ class PagedPrefixCache:
 
     def release(self, handle):
         tokens, length = handle
+        ps = self.page_size
         node, pos = self.root, 0
         while pos < length:
-            child = node.children.get(tokens[pos])
+            child = node.children.get(tokens[pos:pos + ps])
             assert child is not None, "pinned path evicted?!"
             child.refs -= 1
             pos += len(child.tokens)
@@ -230,7 +237,7 @@ class PagedPrefixCache:
                 return False
         parent = path[-1] if path else self.root
         node = _PagedNode(tokens[pos:], tail, parent)
-        parent.children[tokens[pos]] = node
+        parent.children[tokens[pos:pos + ps]] = node
         self._touch(node)
         self.alloc.incref(tail)
         self.pages += len(tail)

@@ -1,7 +1,7 @@
 """Training (counterpart of ``repro.training``): AdamW, the deterministic
-data stream, checkpoints in the reference's layout and the crash-restart
-loop.  The int8 error-feedback all-reduce (``compression.py``) comes with
-the multi-process work (ROADMAP §A.11)."""
+data stream, checkpoints in the reference's layout (restorable onto a
+mesh), the crash-restart loop and the int8 error-feedback all-reduce
+(``compression.py``)."""
 
 from .checkpoint import AsyncSaver, latest_step, restore, save  # noqa: F401
 from .data import LMDataset  # noqa: F401

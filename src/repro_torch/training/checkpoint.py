@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.placement import ShardedTensor, place
 
 from .tree import flatten, unflatten
 
@@ -42,7 +43,10 @@ def _snapshot(leaf) -> tuple:
     """(numpy array, manifest dtype) of a leaf on the host, as the
     reference's ``np.asarray`` gives it; bfloat16 as its raw 16-bit
     records (int16, written under ``BF16_DESCR``).  A copy: the train
-    step updates its tensors in place while an async save writes."""
+    step updates its tensors in place while an async save writes.  A
+    :class:`ShardedTensor` is written whole, assembled on the host."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.full("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -133,12 +137,14 @@ def restore(ckpt_dir, tree_like, *, step=None, shardings=None,
             device="cuda"):
     """Restore into the structure of ``tree_like`` → (tree of tensors on
     ``device`` in the saved dtypes, step).  ``step`` defaults to the
-    latest.  The reference's ``shardings`` (elastic restore onto another
-    mesh) waits for tensor parallelism (ROADMAP §A.11) and raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) needs tensor parallelism (ROADMAP A.11)")
-    dev = resolve_device(device)
+    latest.  ``shardings`` (a tree of
+    :class:`~repro_torch.sharding.placement.NamedSharding` of the same
+    structure, e.g. ``named(mesh, train_state_pspecs(...))``) restores
+    onto a mesh instead: every leaf becomes a
+    :class:`~repro_torch.sharding.placement.ShardedTensor` split per its
+    spec over the mesh's devices, whatever mesh wrote the checkpoint
+    (elastic restore)."""
+    dev = resolve_device(device) if shardings is None else None
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -146,8 +152,10 @@ def restore(ckpt_dir, tree_like, *, step=None, shardings=None,
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())["leaves"]
+    where = flatten(shardings) if shardings is not None else None
     out = {}
     for key in flatten(tree_like):
         info = manifest[key]
-        out[key] = _read_leaf(d / info["file"], info["dtype"]).to(dev)
+        leaf = _read_leaf(d / info["file"], info["dtype"])
+        out[key] = leaf.to(dev) if where is None else place(leaf, where[key])
     return unflatten(tree_like, out), step

@@ -456,20 +456,22 @@ def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
 
 
 def test_train_phases_parse():
-    """The five train phases and the fleet phase are phases of the script,
-    the three newest last and in this order: ``--phases`` takes them (and
-    without a card the script stops before running any), and an unknown
-    name is refused."""
+    """The five train phases, the fleet phase and the tensor-parallel and
+    all-reduce phases are phases of the script, the newest last and in
+    this order: ``--phases`` takes them (and without a card the script
+    stops before running any), and an unknown name is refused."""
     train = ("train", "train_ssm", "train_hybrid", "train_moe",
              "train_encdec")
-    assert chip_smoke.PHASES[-6:] == ("train", "train_ssm", "train_hybrid",
+    assert chip_smoke.PHASES[-8:] == ("train", "train_ssm", "train_hybrid",
                                       "serve_fleet", "train_moe",
-                                      "train_encdec")
+                                      "train_encdec", "serve_tp",
+                                      "ef_allreduce")
     assert tuple(chip_smoke.TRAIN_CASES) == train
     assert set(train) < set(chip_smoke.PHASES)
     if not torch.cuda.is_available():
         assert chip_smoke.main(["--phases", ",".join(train)
-                                + ",serve_fleet"]) == 2
+                                + ",serve_fleet,serve_tp,ef_allreduce"]) \
+            == 2
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phases", "train,train_vlm"])
 
@@ -744,10 +746,10 @@ def test_serve_fleet_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
     assert line["phase"] == "serve_fleet" and line["layers"] == 2
     fleets = line["fleets"]
     assert list(fleets) == ["one_replica", "affinity", "least_outstanding"]
-    # one replica holds one session's prefix where the router can see it:
-    # the sessions' prompts share their first page's leading tokens, and
-    # the paged radix trie keys a node by its first token
-    assert fleets["one_replica"]["warm_share"] == 0.25
+    # one replica holds every session's prefix: the paged radix trie keys
+    # a node by its first page, so the sessions' prompts, which share
+    # their first page's leading tokens, are siblings
+    assert fleets["one_replica"]["warm_share"] == 1.0
     assert fleets["affinity"]["warm_share"] == 1.0
     assert fleets["least_outstanding"]["warm_share"] == 0.25
     assert fleets["one_replica"]["drain_ratio_vs_one_replica"] == 1.0
@@ -842,3 +844,90 @@ def test_profiled_train_step_ranges():
         "train:backward:rglru_scan": 2, "train:backward:flash_attention": 1}
     assert {n: c.backwards for n, c in counters.items() if c.backwards} \
         == {"rglru_scan": 2, "flash_attention": 1}
+
+
+def _count_paged_on_cpu(monkeypatch):
+    """Each CPU call of paged decode's plain version counted as its
+    launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import ops as pa
+    ref = pa.paged_decode_attention_ref
+
+    def counted(q, kp, vp, table, lengths, *, window=0):
+        _build.count_launch(pa.paged_decode_attention,
+                            pa.launch_key(q, kp, table, window=window))
+        return ref(q, kp, vp, table, lengths, window=window)
+    monkeypatch.setattr(pa, "paged_decode_attention_ref", counted)
+
+
+def test_serve_tp_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch, capsys):
+    """The tensor-parallel phase on reduced stablelm-3b: tp = 1, 2, 4 over
+    repeated CPU devices, exact launches per shard, each shard's pool at
+    the estimate / tp, the float32 tokens equal across tp, and launch
+    keys at 4/tp heads.  The CPU engine captures no graph."""
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda name: real(name).reduced())
+    _count_paged_on_cpu(monkeypatch)
+    mod = cpu_chip_smoke
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    graphs = []
+
+    def no_graph(label, graph, steps, per_step):
+        assert graph is None and steps > 0
+        graphs.append((label, per_step))
+        return {"steps": steps}
+    mod.check_graph = no_graph
+    launches, shapes = mod.phase_serve_tp(0)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_tp" and line["shards_on_one_card"]
+    assert [r["tp"] for r in line["bfloat16"]] == [1, 2, 4]
+    for r in line["bfloat16"]:
+        assert len(r["shard_pool_bytes"]) == r["tp"]
+        assert sum(r["shard_pool_bytes"]) == r["estimate_paged_bytes"]
+        assert r["launches"]["paged_decode_attention"] == \
+            2 * r["tp"] * r["decode_steps"]
+        assert r["launches"]["flash_attention"] == \
+            2 * r["tp"] * r["prefill_chunks"]
+        heads = {k["H"] for k in r["launches_by_shape"][
+            "paged_decode_attention"]}
+        assert heads == {4 // r["tp"]}
+    assert line["bfloat16"][0]["tokens_agreeing_with_tp1"] == \
+        line["bfloat16"][0]["tokens"]
+    assert all(r["tokens_equal_tp1"] for r in line["float32"]["by_tp"])
+    assert [p["paged_decode_attention"] for _, p in graphs] == \
+        [2, 4, 8, 4, 8, 16]
+    assert launches["paged_decode_attention"] == sum(
+        r["launches"]["paged_decode_attention"] for r in line["bfloat16"]
+        + line["float32"]["by_tp"])
+
+
+def test_ef_allreduce_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
+                                           capsys):
+    """The compressed all-reduce phase on reduced stablelm-3b's two
+    gradient trees, with the value budget cut so that leaves are left
+    out: the error within one int8 step, the wire bytes those of
+    ``wire_bytes``."""
+    import json
+
+    import repro_torch.configs as configs
+    from repro_torch.training import compression as comp
+    real = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda name: real(name).reduced())
+    mod = cpu_chip_smoke
+    mod.EF_VALUE_BUDGET = 40_000
+    assert mod.phase_ef_allreduce(0) == ({}, {})
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "ef_allreduce" and line["shards"] == 2
+    assert 0 < line["values"] <= 40_000 < line["values_of_tree"]
+    assert line["left_out"] and line["leaves"] + len(line["left_out"]) \
+        == line["leaves_of_tree"]
+    assert 0 < line["max_abs_err_vs_exact_mean"] < \
+        line["max_abs_exact_mean"]
+    assert line["fp32_bytes"] == 4 * line["values"]
+    assert line["wire_bytes"] >= comp.wire_bytes(line["values"])
+    assert all(r > 0 for r in line["residual_norm_per_shard"])

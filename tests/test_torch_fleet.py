@@ -217,10 +217,11 @@ def test_fleet_validation(tiny, monkeypatch):
         EngineFleet(model, params, tp=0, device="cpu")
     with pytest.raises(RuntimeError, match="devices"):
         EngineFleet(model, params, tp=2, device="cpu")
-    # enough devices: tensor-parallel replicas are not ported yet
-    monkeypatch.setattr(fleet_port, "device_count", lambda device: 4)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        EngineFleet(model, params, tp=2, device="cpu")
+    # enough devices: each replica spans its own tensor-parallel mesh
+    fleet = EngineFleet(model, params, replicas=2, tp=2,
+                        devices=["cpu"] * 4, device="cpu")
+    assert [e.mesh.shape for e in fleet.engines] == [
+        {"data": 1, "model": 2}] * 2
 
 
 def test_fleet_default_device_needs_a_gpu(tiny, monkeypatch):

@@ -399,10 +399,18 @@ def test_failed_save_leaves_no_step_directory(tmp_path, monkeypatch):
 
 
 def test_restore_refuses_shardings(tmp_path):
-    ckpt.save(tmp_path, 1, {"a": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ckpt.restore(tmp_path, {"a": torch.zeros(2)}, shardings={"a": None},
-                     device="cpu")
+    """A sharding that does not split its leaf evenly is refused; one
+    that does restores the leaf onto the mesh."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.sharding.placement import NamedSharding
+    ckpt.save(tmp_path, 1, {"a": torch.arange(3.0)})
+    mesh = make_serving_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="split"):
+        ckpt.restore(tmp_path, {"a": torch.zeros(3)},
+                     shardings={"a": NamedSharding(mesh, ("model",))})
+    got, _ = ckpt.restore(tmp_path, {"a": torch.zeros(3)},
+                          shardings={"a": NamedSharding(mesh, (None,))})
+    assert torch.equal(got["a"].full(), torch.arange(3.0))
 
 
 # ---------------------------------------------------------------------------
