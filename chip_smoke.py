@@ -262,7 +262,7 @@ OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
           "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
           "train_hybrid", "serve_fleet", "train_moe", "train_encdec",
-          "serve_tp", "ef_allreduce")
+          "serve_tp", "ef_allreduce", "serve_tp_families")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -301,6 +301,13 @@ REPLACES = {
         "src/repro/kernels/decode_attention/kernel.py:143",
     "rglru_scan": "src/repro/kernels/rglru/kernel.py:47",
     "ssd_chunk_scan": "src/repro/kernels/ssd/kernel.py:69",
+    # the split-K parts of the two decode kernels, under a cache split by
+    # sequence: the partial entries and their merge
+    "decode_attention_partial":
+        "src/repro/kernels/decode_attention/kernel.py:63",
+    "decode_attention_int8_partial":
+        "src/repro/kernels/decode_attention/kernel.py:143",
+    "decode_combine": "src/repro/kernels/decode_attention/kernel.py:63",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -313,6 +320,9 @@ SOURCES = {
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
     "ssd_chunk_scan": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+    **{n: "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+       for n in ("decode_attention_partial", "decode_attention_int8_partial",
+                 "decode_combine")},
 }
 # the CUDA functions of the port's kernels, as the profiler names them
 PORT_KERNEL_FUNCS = ("paged_decode_kernel", "paged_mma_kernel",
@@ -338,6 +348,11 @@ SUMMARY_CASE = {
                        B=1, S=2100, h0=False),
     "ssd_chunk_scan": dict(shape="mamba2-2.7b", dtype="float32", S=2048,
                            h0=False, decay="init"),
+    "decode_attention_partial": dict(shape="recurrentgemma-9b/tp2",
+                                     dtype="bfloat16"),
+    "decode_attention_int8_partial": dict(shape="recurrentgemma-9b/tp2",
+                                          dtype="bfloat16"),
+    "decode_combine": dict(shape="recurrentgemma-9b/tp2", dtype="bfloat16"),
 }
 
 
@@ -699,8 +714,7 @@ def phase_kernels():
               "gqa-40:8": dict(H=40, KVH=8, d=128),
               "olmoe-1b-7b": dict(H=16, KVH=16, d=128),
               "pixtral-12b": dict(H=32, KVH=8, d=160),
-              **{name: dict(H=32 // tp, KVH=32 // tp, d=80)
-                 for name, tp in SHARD_SHAPES.items()}}
+              **SHARD_SHAPES}
     B, ps, N = 8, 16, 64
     lengths = [1024, 777, 512, 300, 129, 64, 1, 600]   # last: retired slot
     results = []
@@ -788,7 +802,7 @@ def phase_kernels():
                 emit({"phase": "kernels", **results[-1]})
     for row in (hybrid_kernel_rows(gen) + ssd_kernel_rows(gen)
                 + encdec_kernel_rows(gen) + train_flash_rows(gen)
-                + backward_kernel_rows(gen)):
+                + backward_kernel_rows(gen) + tp_family_kernel_rows(gen)):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
@@ -940,8 +954,6 @@ def hybrid_kernel_rows(gen):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_ref, keep_mask)
-    from repro_torch.kernels.rglru import ops as lru_ops
-    from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
     dev = "cuda"
     rows = []
@@ -990,9 +1002,20 @@ def hybrid_kernel_rows(gen):
     # the RG-LRU scan is float32 only, as the reference kernel is: the
     # prefill's 2100 steps, a length inside one tile (37) and a single
     # step, and two batch rows (blocks slice the channels of one row)
-    Wd = 4096
-    for B, S, with_h0 in ((1, 2100, False), (1, 2100, True), (1, 37, True),
-                          (1, 1, False), (2, 2100, True)):
+    return rows + rglru_rows(gen, 4096, "recurrentgemma-9b", (
+        (1, 2100, False), (1, 2100, True), (1, 37, True), (1, 1, False),
+        (2, 2100, True)))
+
+
+def rglru_rows(gen, Wd, shape, cases):
+    """The RG-LRU scan against its plain version at width ``Wd``, for each
+    (B, S, with an initial state) of ``cases``."""
+    from repro_torch.kernels.rglru import ops as lru_ops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+
+    dev = "cuda"
+    rows = []
+    for B, S, with_h0 in cases:
         a = torch.sigmoid(torch.randn(B, S, Wd, generator=gen, device=dev))
         b = torch.randn(B, S, Wd, generator=gen, device=dev)
         h = torch.randn(B, Wd, generator=gen, device=dev) \
@@ -1004,7 +1027,7 @@ def hybrid_kernel_rows(gen):
         b_ms, b_by = bound(3 * a.numel() * 4 + (B * Wd * 4 if with_h0 else 0),
                            2 * a.numel(), "float32")
         rows.append(dict(
-            kernel="rglru_scan", shape="recurrentgemma-9b", dtype="float32",
+            kernel="rglru_scan", shape=shape, dtype="float32",
             B=B, S=S, W=Wd, h0=with_h0, max_abs_err=err, tol=TOL["float32"],
             launch_key=dict(lru_ops.launch_key(a, h)),
             **kernel_times(lru_ops.rglru_scan, rglru_scan_ref, None,
@@ -1015,7 +1038,12 @@ def hybrid_kernel_rows(gen):
     return rows
 
 
-def ssd_kernel_rows(gen):
+SSD_CASES = ((2048, False, "init"), (2048, True, "init"),
+             (2100, False, "init"), (120, False, "init"), (2, False, "init"),
+             (2048, False, "strong"))
+
+
+def ssd_kernel_rows(gen, *, H=80, shape="mamba2-2.7b", cases=SSD_CASES):
     """The SSD chunk scan against its plain version at mamba2-2.7b's
     widths (H = 80 heads of P = 64, state N = 128, model chunk 256): the
     serving prefill's S = 2048 with and without an initial state, a ragged
@@ -1030,11 +1058,9 @@ def ssd_kernel_rows(gen):
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
     dev = "cuda"
-    H, P, N, chunk = 80, 64, 128, 256
+    P, N, chunk = 64, 128, 256
     rows = []
-    for S, with_h0, decay in ((2048, False, "init"), (2048, True, "init"),
-                              (2100, False, "init"), (120, False, "init"),
-                              (2, False, "init"), (2048, False, "strong")):
+    for S, with_h0, decay in cases:
         xh = torch.randn(1, S, H, P, generator=gen, device=dev)
         dt = F.softplus(torch.randn(1, S, H, generator=gen, device=dev))
         a_log = torch.full((H,), 1.0 if decay == "init" else 2.0,
@@ -1062,7 +1088,7 @@ def ssd_kernel_rows(gen):
         flops = ssd_needed_flops((dt * -torch.exp(a_log))[0], with_h0, N, P)
         b_ms, b_by = bound(nbytes, flops, "float32")
         rows.append(dict(
-            kernel="ssd_chunk_scan", shape="mamba2-2.7b", dtype="float32",
+            kernel="ssd_chunk_scan", shape=shape, dtype="float32",
             B=1, S=S, H=H, P=P, N=N, model_chunk=chunk, kernel_chunk=Q,
             h0=with_h0, decay=decay, min_in_chunk_cum=min_cum,
             max_abs_err=err, tol=SSD_TOL,
@@ -1082,7 +1108,7 @@ def ssd_kernel_rows(gen):
                 lambda *a: ssd_ops.ssd_chunked(*a[:5], chunk=chunk,
                                                initial_state=a[5]),
                 (*args, h0), WRAPPER_FUNCS["ssd_chunk_scan"])
-            if S == 2048 and decay == "init" else None,
+            if S == 2048 and decay == "init" and not with_h0 else None,
             bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -1281,8 +1307,12 @@ def check_flash_tail_nan(label, q, k, v, kw, out):
 # phase 3: serve full-width stablelm-3b
 
 
-# the tensor-parallel shards' shapes of stablelm-3b in the kernels phase
-SHARD_SHAPES = {"stablelm-3b/tp2": 2, "stablelm-3b/tp4": 4}
+# the tensor-parallel shards' attention shapes in the kernels phase:
+# stablelm-3b's (serve_tp) and olmoe-1b-7b's (serve_tp_families)
+SHARD_SHAPES = {"stablelm-3b/tp2": dict(H=16, KVH=16, d=80),
+                "stablelm-3b/tp4": dict(H=8, KVH=8, d=80),
+                "olmoe-1b-7b/tp2": dict(H=8, KVH=8, d=128),
+                "olmoe-1b-7b/tp4": dict(H=4, KVH=4, d=128)}
 # the paged serve phases' engine and traffic: a 384-token shared prefix,
 # then 8 concurrent requests with these suffix lengths and 32 new tokens
 # each
@@ -3718,9 +3748,484 @@ def phase_ef_allreduce(seed):
     return {}, {}
 
 
+# phase 17: the families beyond serve_tp's dense one (MoE, the contiguous
+# layout, the encoder-decoder at the model level), over tensor-parallel
+# meshes of this one card
+TP_FAMILY_TPS = (1, 2, 4)
+# new tokens a request: half the single-device phases' 32, so that three
+# engines a model fit the phase's time
+TP_FAMILY_NEW = 16
+# the reduced depths of the float32 check
+TP_F32_DEPTH = {"olmoe-1b-7b": dict(num_layers=4),
+                "recurrentgemma-9b": dict(num_layers=3),
+                "mamba2-2.7b": dict(num_layers=4),
+                "whisper-medium": dict(num_layers=2, enc_layers=2)}
+# recurrentgemma-9b's decode batch positions (serve_hybrid's, 16 tokens in)
+# over its 2048-slot ring, the first two past the wrap
+RG_TP_POS = [2114, 2044, 1514, 714, 314, 134, 54, 16]
+
+
+def tp_family_kernel_rows(gen):
+    """The kernels at the shard shapes of serve_tp_families: the decode
+    kernel's partial entries (dense and int8) over one shard's slots of
+    recurrentgemma-9b's ring (1024 and 512 of 2048) and the combine of
+    the tp shards' stacked partials; the RG-LRU scan at W = 2048 and 1024
+    and the SSD scan at 40 and 20 heads (a 2048-token prefill); whisper's
+    decode attention at 8 heads.  (Paged decode and flash at olmoe-1b-7b's
+    8 and 4 heads run with the other shard shapes.)"""
+    rows = []
+    for tp in (2, 4):
+        for dname, dtype in (("bfloat16", torch.bfloat16),
+                             ("float32", torch.float32)):
+            for kname in ("decode_attention_partial",
+                          "decode_attention_int8_partial"):
+                rows += decode_split_rows(gen, kname, tp, dname, dtype)
+        rows += rglru_rows(gen, 4096 // tp, f"recurrentgemma-9b/tp{tp}",
+                           ((1, 2100, False),))
+        rows += ssd_kernel_rows(gen, H=80 // tp, shape=f"mamba2-2.7b/tp{tp}",
+                                cases=((2048, False, "init"),))
+    w = WHISPER_ATTN
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        for case, C, pos in (
+                ("decode self", w["C"], [447, 300, 129, 67, 64, 63, 4, 0]),
+                ("decode cross", w["T"], None)):
+            rows.append(decode_kernel_row(
+                gen, "decode_attention", "whisper-medium/tp2",
+                dict(B=w["B"], H=w["H"] // 2, KVH=w["KVH"] // 2, d=w["d"],
+                     C=C, pos=pos), dname, dtype, case=case))
+    return rows
+
+
+def partial_view(acc, ml):
+    """Partials as what does not depend on their scale: each split's
+    normalised output and its log-sum-exp (-1e30 for an empty split)."""
+    m, l = ml[..., 0], ml[..., 1]
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(m, -1e30))
+    return torch.cat([(acc / l.clamp_min(1e-30)[..., None]).flatten(),
+                      lse.flatten().clamp_min(-1e4)])
+
+
+def decode_split_rows(gen, kname, tp, dname, dtype):
+    """recurrentgemma-9b's decode over its ring split ``tp`` ways: the
+    partial entry ``kname`` over shard 0's slots against its plain version
+    at the kernel's chunk plan (each split's normalised output and
+    log-sum-exp), NaN in the invalid slots changing nothing; then the
+    combine (``decode_combine``) of all tp shards' partials against the
+    plain combine, and the merged output against the unsplit plain
+    decode.  Library call of the partial row: SDPA over the shard's
+    slots (it normalises, so it computes the partial's output alone)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.models.attention import dequantize_kv, quantize_kv
+
+    B, H, KVH, d, C = 8, 16, 1, 256, 2048
+    Cl = C // tp
+    es = torch.finfo(dtype).bits // 8
+    shape = f"recurrentgemma-9b/tp{tp}"
+    valid = ring_valid(RG_TP_POS, C)
+    q = torch.randn(B, 1, H, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, C, KVH, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, C, KVH, d, generator=gen, device="cuda").to(dtype)
+    int8 = "int8" in kname
+    if int8:
+        k8, ks = quantize_kv(k)
+        v8, vs = quantize_kv(v)
+        cache = (k8, v8, ks, vs)
+        fn, ref_fn = da_ops.decode_attention_int8_partial, \
+            da_ref.decode_partial_int8_ref
+        full_ref = da_ref.decode_attention_int8_ref
+        kv_es = 1 + 4 / d
+    else:
+        cache = (k, v)
+        fn, ref_fn = da_ops.decode_attention_partial, da_ref.decode_partial_ref
+        full_ref = da_ref.decode_attention_ref
+        kv_es = es
+
+    def shard(r):
+        return tuple(t[:, r * Cl:(r + 1) * Cl].contiguous()
+                     for t in (*cache, valid))
+    args = (q, *shard(0))
+    chunk, n_split = da_ops.launch_plan(q, args[1])
+    label = f"{kname} {shape} {dname}"
+    got = fn(*args)
+    err = check_close(label, partial_view(*got),
+                      partial_view(*ref_fn(*args, chunk=chunk)), dname)
+    poisoned = [a.clone() for a in args]
+    vr = args[-1]
+    for t in (poisoned[3:5] if int8 else poisoned[1:3]):
+        t[~vr] = float("nan")
+    if not all(torch.equal(a, b) for a, b in zip(fn(*poisoned), got)):
+        fail(f"{label}: NaN in invalid slots changed the partials")
+
+    def library(q, *rest, dtype=dtype):
+        kk, vv, valid = rest[0], rest[1], rest[-1]
+        if int8:
+            kk = dequantize_kv(kk, rest[2], dtype)
+            vv = dequantize_kv(vv, rest[3], dtype)
+        return sdpa(q.transpose(1, 2), kk.transpose(1, 2),
+                    vv.transpose(1, 2), valid[:, None, None, :])
+
+    n_valid = int(vr.sum().item())
+    part_bytes = B * H * n_split * (d + 2) * 4
+    b_ms, b_by = bound(q.numel() * es + 2 * n_valid * KVH * d * kv_es
+                       + vr.numel() + part_bytes, 4 * n_valid * H * d, dname)
+    rows = [dict(
+        kernel=kname, shape=shape, dtype=dname, B=B, H=H, KVH=KVH, d=d,
+        C=Cl, of_slots=C, positions=RG_TP_POS, valid_rows=n_valid,
+        chunk=chunk, n_split=n_split, launch_key=dict(da_ops.launch_key(
+            q, args[1])), max_abs_err=err, tol=TOL[dname],
+        compared="each split's normalised output and log-sum-exp",
+        **kernel_times(fn, lambda *a: ref_fn(*a, chunk=chunk), library,
+                       args),
+        bound_ms=b_ms, bound_by=b_by)]
+    if int8:        # one combine row a dtype and tp: under the dense rows
+        return rows
+    parts = [fn(q, *shard(r)) for r in range(tp)]
+    acc = torch.cat([a for a, _ in parts], 2)
+    ml = torch.cat([m for _, m in parts], 2)
+    out = da_ops.decode_combine(acc, ml, dtype)
+    cerr = check_close(f"decode_combine {shape} {dname}", out,
+                       da_ref.decode_combine_ref(acc, ml, dtype), dname)
+    unsplit = check_close(f"decode split {shape} {dname} vs unsplit", out,
+                          full_ref(q, *cache, valid), dname)
+    b_ms, b_by = bound(acc.numel() * 4 + ml.numel() * 4 + out.numel() * es,
+                       3 * acc.numel(), "float32")
+    rows.append(dict(
+        kernel="decode_combine", shape=shape, dtype=dname, B=B, H=H, d=d,
+        n_split=acc.shape[2], shards=tp,
+        launch_key=dict(da_ops.combine_key(acc, dtype)), max_abs_err=cerr,
+        merged_vs_unsplit_decode_err=unsplit, tol=TOL[dname],
+        **kernel_times(lambda a, m: da_ops.decode_combine(a, m, dtype),
+                       lambda a, m: da_ref.decode_combine_ref(a, m, dtype),
+                       None, (acc, ml)),
+        library_note="no single PyTorch call merges softmax partials",
+        bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def tp_family_engine(model, params, tp, kw):
+    """An engine of ``model`` over a (1, tp) mesh of this card (no mesh at
+    tp = 1)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.engine import ServingEngine
+    mesh = None if tp == 1 else make_serving_mesh(tp,
+                                                  devices=["cuda"] * tp)
+    return ServingEngine(model, params, mesh=mesh, **{"device": "cuda", **kw})
+
+
+def shard_cache_bytes(engine):
+    """Each shard's decode-cache bytes (the page pool or the slot cache)."""
+    from repro_torch.serving.prefix_cache import tree_nbytes
+    tree = engine.kv_pages if engine.paged_kv else engine.cache
+    if engine.mesh is None:
+        return [tree_nbytes(tree)]
+    return [tree_nbytes(t) for t in tree.values()]
+
+
+def tp_family_wave(label, spec, model, params, tp, counters):
+    """One engine of a family at ``tp``: ``spec`` gives its engine
+    arguments, prompts, warm prefix, the cache estimate and the exact
+    launches a decode step and an admission make (``per_step(tp)``,
+    ``per_admission(tp)``).  Holds the launches, the decode graph and
+    each shard's cache bytes against the estimate / tp; → (outputs,
+    report, launches, launches by key, the prefill's last logits)."""
+    import gc
+    engine = tp_family_engine(model, params, tp, spec["engine"])
+    outs, launches, shapes, serve_s = serve_counted(
+        engine, spec["prompts"], TP_FAMILY_NEW, counters, warm=spec["warm"])
+    st = engine.stats()
+    per_step, per_adm = spec["per_step"](tp), spec["per_admission"](tp)
+    want = {n: per_step.get(n, 0) * st["steps"]
+            + per_adm.get(n, 0) * st["prefill_chunks"]
+            for n in set(per_step) | set(per_adm)}
+    check_launches(f"{label} tp={tp}", launches, want)
+    graph = check_graph(f"{label} tp={tp}", st["decode_graph"], st["steps"],
+                        per_step)
+    for i, o in enumerate(outs):
+        if len(o) != TP_FAMILY_NEW or not all(
+                0 <= t < model.cfg.vocab_size for t in o):
+            fail(f"{label} tp={tp} request {i}: {len(o)} tokens, or one "
+                 f"outside the vocab")
+    caches = shard_cache_bytes(engine)
+    if caches != [spec["estimate"] // tp] * tp:
+        fail(f"{label} tp={tp}: shard caches of {caches} bytes, the "
+             f"estimate {spec['estimate']} / {tp}")
+    toks = torch.tensor([spec["prefill"]], dtype=torch.int32, device="cuda")
+    cap = spec["prefill_capacity"]
+    with torch.no_grad():
+        logits = model.prefill(engine.params, {"tokens": toks},
+                               capacity=cap)[0][..., :model.cfg.vocab_size]
+        logits = logits.float()
+        prefill_ms = call_ms(lambda: model.prefill(
+            engine.params, {"tokens": toks}, capacity=cap), warmup=1, reps=3)
+    report = {"tp": tp, "serve_s": serve_s, **decode_stats(engine),
+              "admissions": st["prefill_chunks"],
+              f"prefill_{toks.shape[1]}_tokens_ms": prefill_ms,
+              "launches": {n: k for n, k in launches.items() if k},
+              "launches_per_step": graph["launches_per_replay"],
+              "shard_cache_bytes": caches,
+              "estimate_cache_bytes": spec["estimate"], "graph": graph}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [list(o) for o in outs], report, launches, shapes, logits
+
+
+def tp_family_specs(cfg, seed):
+    """Per family: its engine, traffic and exact launch counts (the
+    existing serve phases' traffic)."""
+    from repro_torch.launch.dryrun import serving_kv_estimate
+    from repro_torch.models import lm
+    from repro_torch.serving.prefix_cache import tree_nbytes
+    rng = np.random.RandomState(seed)
+    V = cfg.vocab_size
+    if cfg.family == "moe":
+        prefix = [int(t) for t in rng.randint(0, V, size=SERVE_PREFIX)]
+        prompts = [prefix + [int(t) for t in rng.randint(0, V, size=n)]
+                   for n in SERVE_SUFFIXES]
+        L = cfg.num_layers
+        est = serving_kv_estimate(cfg, max_slots=SERVE_ENGINE["max_slots"],
+                                  max_len=SERVE_ENGINE["max_len"],
+                                  page_size=SERVE_ENGINE["page_size"])
+        return dict(engine=SERVE_ENGINE, prompts=prompts, warm=prefix,
+                    estimate=est["paged_bytes"], prefill=prompts[-1][:256],
+                    prefill_capacity=256,
+                    per_step=lambda tp: {"paged_decode_attention": L * tp},
+                    per_admission=lambda tp: {"flash_attention": L * tp})
+    lens = HYBRID_PROMPTS if cfg.family == "hybrid" else SSM_PROMPTS
+    prompts = [[int(t) for t in rng.randint(0, V, size=n)] for n in lens]
+    kinds = lm.block_kinds(cfg)
+    n_attn = sum(k == "attn_mlp_local" for k in kinds)
+    n_rec = len(kinds) - n_attn
+    int8 = cfg.kv_cache_dtype == "int8"
+
+    def per_step(tp):
+        if not n_attn:
+            return {}
+        if tp == 1:
+            return {"decode_attention_int8" if int8 else "decode_attention":
+                    n_attn}
+        return {"decode_attention_int8_partial" if int8
+                else "decode_attention_partial": n_attn * tp,
+                "decode_combine": n_attn}
+
+    def per_admission(tp):
+        if cfg.family == "ssm":
+            return {"ssd_chunk_scan": n_rec * tp}
+        return {"flash_attention": n_attn * tp, "rglru_scan": n_rec * tp}
+    return dict(engine=dict(max_slots=8, max_len=MAX_LEN), prompts=prompts,
+                warm=None, estimate=tree_nbytes(lm.init_cache(
+                    cfg, 8, MAX_LEN, "meta")),
+                prefill=prompts[0], prefill_capacity=MAX_LEN,
+                per_step=per_step, per_admission=per_admission)
+
+
+def tp_family_model(label, cfg, seed, counters, *, tps=TP_FAMILY_TPS,
+                    prompts=None):
+    """A full-width bf16 family at each tp, then the float32 check at its
+    reduced depth: tokens equal to tp = 1's and the prefill's logits
+    within LOGITS_TOL_F32 relative L2.  → (report, launches, shapes)."""
+    import gc
+
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    def specs(cfg):
+        spec = tp_family_specs(cfg, seed)
+        if prompts is not None:
+            spec["prompts"] = [spec["prompts"][i] for i in prompts]
+            spec["prefill"] = spec["prompts"][0]
+        return spec
+    spec = specs(cfg)
+    launches, shapes, bf16, base = {}, {}, [], None
+    for tp in tps:
+        outs, rep, got, got_shapes, logits = tp_family_wave(
+            label, spec, model, params, tp, counters)
+        if tp == tps[0]:
+            base, base_logits = outs, logits
+        pairs = [(a, b) for o, p in zip(outs, base) for a, b in zip(o, p)]
+        rep["tokens_equal_tp1_share"] = sum(a == b for a, b in pairs) \
+            / len(pairs)
+        rep["prefill_logits_rel_l2_vs_tp1"] = rel_l2(logits, base_logits)
+        bf16.append(rep)
+        launches = {n: launches.get(n, 0) + got.get(n, 0)
+                    for n in set(launches) | set(got)}
+        shapes = add_shapes(shapes, got_shapes)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                **TP_F32_DEPTH[cfg.name])
+    m32 = build_model(cfg32)
+    p32 = m32.init(seed, device="cuda", dtype=torch.float32)
+    f32, base = [], None
+    for tp in tps:
+        outs, rep, _, _, logits = tp_family_wave(
+            f"{label} f32", specs(cfg32), m32, p32, tp, counters)
+        if tp == tps[0]:
+            base, base_logits = outs, logits
+        err = rel_l2(logits, base_logits)
+        if outs != base or not err <= LOGITS_TOL_F32:
+            fail(f"{label} f32 tp={tp}: tokens equal {outs == base}, "
+                 f"prefill logits rel L2 {err} vs tp = 1 (tol "
+                 f"{LOGITS_TOL_F32})")
+        f32.append({"tp": tp, "tokens_equal_tp1": True,
+                    "prefill_logits_rel_l2_vs_tp1": err,
+                    **{k: rep[k] for k in ("decode_step_median_ms",
+                                           "launches_per_step",
+                                           "shard_cache_bytes")}})
+    del p32
+    return ({"model": cfg.name, "layers": cfg.num_layers,
+             "kv_cache_dtype": cfg.kv_cache_dtype or "activation",
+             "bfloat16": bf16,
+             "float32": {"depth": TP_F32_DEPTH[cfg.name], "by_tp": f32},
+             "peak_memory_gb": peak_gb}, launches, shapes)
+
+
+def tp_encdec(cfg, seed, counters, *, tps=(1, 2)):
+    """whisper-medium at the model level over sharded parameters: the
+    encdec phase's batch, prefill and TP_FAMILY_NEW greedy decode steps at
+    each tp, exact launches (per shard: flash for each encoder layer and
+    each decoder layer's self- and cross-attention, decode attention for
+    each decoder layer's two attentions a step); then float32 at 2 + 2
+    layers, tokens equal to tp = 1's."""
+    import gc
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.placement import ShardedParams
+    from repro_torch.sharding.rules import make_serving_rules, params_pspecs
+
+    def run(model, params, dtype, tp, label):
+        cfg = model.cfg
+        if tp > 1:
+            mesh = make_serving_mesh(tp, devices=["cuda"] * tp)
+            params = ShardedParams(params, params_pspecs(
+                make_serving_rules(mesh, cfg), model), mesh)
+        batch = encdec_inputs(cfg, seed, dtype)
+        zero_launches(counters)
+        t0 = time.perf_counter()
+        toks, step_s, cache, _ = encdec_greedy(model, params, batch,
+                                               TP_FAMILY_NEW)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, shapes = read_launches(counters)
+        L, E = cfg.num_layers, cfg.enc_layers
+        check_launches(label, launches, {
+            "flash_attention": (E + 2 * L) * tp,
+            "decode_attention": 2 * L * tp * TP_FAMILY_NEW})
+        with torch.no_grad():
+            logits = model.prefill(params, batch, ENCDEC_CAPACITY)[0]
+            logits = logits[..., :cfg.vocab_size].float()
+            prefill_ms = call_ms(lambda: model.prefill(
+                params, batch, ENCDEC_CAPACITY), warmup=1, reps=3)
+        caches = [sum(t.numel() * t.element_size() for t in c["dec"].values())
+                  for c in (cache.values() if tp > 1 else [cache])]
+        dec = sorted(step_s)
+        rep = {"tp": tp, "seconds": seconds, "prefill_ms": prefill_ms,
+               "decode_step_median_ms": statistics.median(dec) * 1e3,
+               "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
+               "launches": {n: k for n, k in launches.items() if k},
+               "shard_cache_bytes": caches}
+        del cache, params
+        return toks, logits, rep, launches, shapes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    launches, shapes, bf16 = {}, {}, []
+    for tp in tps:
+        toks, logits, rep, got, got_shapes = run(
+            model, params, torch.bfloat16, tp, f"tp_encdec tp={tp}")
+        if tp == tps[0]:
+            base, base_logits = toks, logits
+        rep["tokens_equal_tp1_share"] = float((toks == base).float().mean())
+        rep["prefill_logits_rel_l2_vs_tp1"] = rel_l2(logits, base_logits)
+        whole = bf16[0]["shard_cache_bytes"][0] if bf16 \
+            else rep["shard_cache_bytes"][0]
+        if rep["shard_cache_bytes"] != [whole // tp] * tp:
+            fail(f"tp_encdec tp={tp}: shard caches of "
+                 f"{rep['shard_cache_bytes']} bytes, tp = 1's {whole} / {tp}")
+        bf16.append(rep)
+        launches = {n: launches.get(n, 0) + got.get(n, 0)
+                    for n in set(launches) | set(got)}
+        shapes = add_shapes(shapes, got_shapes)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32",
+                                          **TP_F32_DEPTH[cfg.name]))
+    p32 = m32.init(seed, device="cuda", dtype=torch.float32)
+    f32 = []
+    for tp in tps:
+        toks, logits, rep, _, _ = run(m32, p32, torch.float32, tp,
+                                      f"tp_encdec f32 tp={tp}")
+        if tp == tps[0]:
+            base, base_logits = toks, logits
+        err = rel_l2(logits, base_logits)
+        if not torch.equal(toks, base) or not err <= LOGITS_TOL_F32:
+            fail(f"tp_encdec f32 tp={tp}: tokens equal "
+                 f"{torch.equal(toks, base)}, prefill logits rel L2 {err}")
+        f32.append({"tp": tp, "tokens_equal_tp1": True,
+                    "prefill_logits_rel_l2_vs_tp1": err})
+    del p32
+    return ({"model": cfg.name, "layers": [cfg.enc_layers, cfg.num_layers],
+             "level": "model", "bfloat16": bf16,
+             "float32": {"depth": TP_F32_DEPTH[cfg.name], "by_tp": f32},
+             "peak_memory_gb": peak_gb}, launches, shapes)
+
+
+def phase_serve_tp_families(seed):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.sharding.placement import regroup
+
+    counters = launch_counters()
+    launches, shapes, models = {}, {}, []
+
+    def add(rep, got, got_shapes):
+        nonlocal launches, shapes
+        models.append(rep)
+        launches = {n: launches.get(n, 0) + got.get(n, 0)
+                    for n in set(launches) | set(got)}
+        shapes = add_shapes(shapes, got_shapes)
+
+    add(*tp_family_model("tp_moe", get_config("olmoe-1b-7b"), seed,
+                         counters))
+    rg = get_config("recurrentgemma-9b")
+    add(*tp_family_model("tp_hybrid", rg, seed, counters))
+    add(*tp_family_model("tp_hybrid_int8",
+                         dataclasses.replace(rg, kv_cache_dtype="int8"),
+                         seed, counters, tps=(1, 2),
+                         prompts=[HYBRID_PROMPTS.index(n)
+                                  for n in HYBRID_INT8_PROMPTS]))
+    copies = (regroup.pieces, regroup.copies)
+    add(*tp_family_model("tp_ssm", get_config("mamba2-2.7b"), seed,
+                         counters))
+    models[-1]["reshard"] = {"pieces": regroup.pieces - copies[0],
+                             "copies_from_other_shards":
+                             regroup.copies - copies[1]}
+    add(*tp_encdec(get_config("whisper-medium"), seed, counters))
+    emit({"phase": "serve_tp_families", "card": card(),
+          "shards_on_one_card": True, "new_tokens": TP_FAMILY_NEW,
+          "models": models})
+    return launches, shapes
+
+
 # the fields that tell a kernel's rows apart, in the summary line
 ROW_KEYS = ("shape", "case", "dtype", "B", "S", "T", "C", "prefix_pad",
-            "prefix_len", "window", "h0", "decay")
+            "prefix_len", "window", "h0", "decay", "n_split")
 
 
 def summary_row(r, shapes):
@@ -3774,6 +4279,7 @@ def main(argv=None):
     if "serve" in phases:
         launches, shapes["serve"] = timed("serve", phase_serve, args.seed)
     runners = {"serve_tp": phase_serve_tp,
+               "serve_tp_families": phase_serve_tp_families,
                "ef_allreduce": phase_ef_allreduce,
                "serve_hybrid": phase_serve_hybrid,
                "serve_ssm": phase_serve_ssm,

@@ -336,7 +336,9 @@ struct Args {
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)  \
   X(192) X(208) X(224) X(240) X(256)
 
-// Merge the splits' partials into out (every split wrote one).
+// Merge the splits' partials into out (every split wrote one).  A null
+// out (the partial entries) skips it: the caller merges the partials of
+// several caches, e.g. the shards of a sequence-split one.
 template <typename Tq>
 cudaError_t combine(const Args& a) {
   attn_tile::decode_combine_kernel<Tq>
@@ -385,7 +387,7 @@ cudaError_t launch_e(const Args& a) {
       static_cast<const uint8_t*>(a.valid), a.part_acc, a.part_ml, a.C, a.H,
       a.KVH, a.d, a.chunk, a.n_split, a.scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || a.out == nullptr) return err;
   return combine<Tq>(a);
 }
 
@@ -422,7 +424,7 @@ cudaError_t launch_mma(const Args& a) {
     default:
       return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || a.out == nullptr) return err;
   return combine<__nv_bfloat16>(a);
 }
 
@@ -434,6 +436,10 @@ bool bad_args(const Args& a) {
 
 }  // namespace
 
+// The entries: with out null (the *_partial_fwd entries) they stop after
+// the partial kernel and leave part_acc [B, H, n_split, d] and part_ml
+// [B, H, n_split, 2] (m in natural-log units of the scaled scores, l) to
+// the caller, who merges them with decode_combine_fwd.
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
                                     const void* v, const void* valid,
                                     void* part_acc, void* part_ml, void* out,
@@ -481,4 +487,49 @@ extern "C" int decode_attention_int8_fwd(
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+extern "C" int decode_attention_partial_fwd(int dtype, const void* q,
+                                            const void* k, const void* v,
+                                            const void* valid, void* part_acc,
+                                            void* part_ml, int B, int C,
+                                            int H, int KVH, int d, int chunk,
+                                            int n_split, float scale,
+                                            void* stream) {
+  return decode_attention_fwd(dtype, q, k, v, valid, part_acc, part_ml,
+                              nullptr, B, C, H, KVH, d, chunk, n_split, scale,
+                              stream);
+}
+
+extern "C" int decode_attention_int8_partial_fwd(
+    int dtype, const void* q, const void* k_q, const void* v_q,
+    const void* k_scale, const void* v_scale, const void* valid,
+    void* part_acc, void* part_ml, int B, int C, int H, int KVH, int d,
+    int chunk, int n_split, float scale, void* stream) {
+  return decode_attention_int8_fwd(dtype, q, k_q, v_q, k_scale, v_scale,
+                                   valid, part_acc, part_ml, nullptr, B, C, H,
+                                   KVH, d, chunk, n_split, scale, stream);
+}
+
+// Merge n_split partials per (b, head) -- the splits of one cache or the
+// stacked splits of several -- into out [B, H, d] of q's type (dtype 0
+// f32, 1 bf16): the combine kernel of ../../_attn_split.cuh over every
+// split.
+extern "C" int decode_combine_fwd(int dtype, const void* part_acc,
+                                  const void* part_ml, void* out, int B,
+                                  int H, int d, int n_split, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (n_split <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.part_acc = const_cast<float*>(static_cast<const float*>(part_acc));
+  a.part_ml = const_cast<float*>(static_cast<const float*>(part_ml));
+  a.out = out;
+  a.B = B;
+  a.H = H;
+  a.d = d;
+  a.n_split = n_split;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(combine<float>(a));
+  if (dtype == 1) return static_cast<int>(combine<__nv_bfloat16>(a));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

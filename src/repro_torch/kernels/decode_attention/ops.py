@@ -5,6 +5,13 @@ Replace ``repro/kernels/decode_attention/kernel.py::decode_attention_fwd``
 and ``::decode_attention_int8_fwd`` (Pallas ``_dec_kernel`` and
 ``_dec_int8_kernel``).  CPU tensors take the plain versions (:mod:`.ref`);
 CUDA tensors launch ``csrc/decode_attention.cu`` or raise.
+
+The ``*_partial`` wrappers stop before the merge and return the split-K
+partials (``acc`` [B,H,n,d], ``ml`` [B,H,n,2]: the max scaled score in
+natural-log units and the sum of exponentials); :func:`decode_combine`
+merges any stack of such partials along n, e.g. those of the shards of a
+cache split by sequence (:func:`repro_torch.models.attention.
+decode_attention_seq_split`).
 """
 
 from __future__ import annotations
@@ -15,7 +22,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-from .ref import decode_attention_int8_ref, decode_attention_ref
+from .ref import (
+    decode_attention_int8_ref,
+    decode_attention_ref,
+    decode_combine_ref,
+    decode_partial_int8_ref,
+    decode_partial_ref,
+)
 
 MAX_GROUP = 16    # q heads per kv head: the 16 rows of the mma A tile
 MAX_HEAD_DIM = 256
@@ -28,6 +41,10 @@ _TAIL = [_I] * 7 + [_F, _P]   # B, C, H, KVH, d, chunk, n_split, scale, stream
 _SIGNATURES = {
     "decode_attention_fwd": [_I] + [_P] * 7 + _TAIL,
     "decode_attention_int8_fwd": [_I] + [_P] * 9 + _TAIL,
+    "decode_attention_partial_fwd": [_I] + [_P] * 6 + _TAIL,
+    "decode_attention_int8_partial_fwd": [_I] + [_P] * 8 + _TAIL,
+    # dtype, part_acc, part_ml, out, B, H, d, n_split, stream
+    "decode_combine_fwd": [_I] + [_P] * 3 + [_I] * 4 + [_P],
 }
 
 
@@ -87,26 +104,39 @@ def _uses_mma(q_dtype, kv_dtype):
                                                       torch.int8)
 
 
-def _launch(fn, q, k, tensors):
+def launch_plan(q, k) -> tuple:
+    """(chunk, n_split) of a launch over cache ``k`` on q's device: the
+    plan the kernel runs on a card (and the plain partial's at its
+    check); on the CPU the plain version's one chunk."""
     B, _, H, d = q.shape
     C, KVH = k.shape[1], k.shape[2]
+    if q.device.type == "cpu":
+        return C, 1
     plan = {} if _uses_mma(q.dtype, k.dtype) else dict(tile=TILE,
                                                       blocks_per_sm=2)
-    chunk, n_split = split_plan(
-        B, KVH, C, torch.cuda.get_device_properties(q.device)
-        .multi_processor_count, **plan)
-    out = torch.empty_like(q)
-    part_acc = torch.empty(B * H * n_split * d, dtype=torch.float32,
+    return split_plan(B, KVH, C, torch.cuda.get_device_properties(
+        q.device).multi_processor_count, **plan)
+
+
+def _launch(fn, q, k, tensors, *, partial=False):
+    """Run entry ``fn``: → out [B,1,H,d], or with ``partial`` the
+    partials (acc [B,H,n,d], ml [B,H,n,2])."""
+    B, _, H, d = q.shape
+    C, KVH = k.shape[1], k.shape[2]
+    chunk, n_split = launch_plan(q, k)
+    part_acc = torch.empty((B, H, n_split, d), dtype=torch.float32,
                            device=q.device)
-    part_ml = torch.empty(B * H * n_split * 2, dtype=torch.float32,
+    part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32,
                           device=q.device)
+    out = None if partial else torch.empty_like(q)
     lib = _build.load("decode_attention", _SIGNATURES)
     err = getattr(lib, fn)(
         _DTYPES[q.dtype], *(t.data_ptr() for t in tensors),
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, C, H,
+        part_acc.data_ptr(), part_ml.data_ptr(),
+        *(() if partial else (out.data_ptr(),)), B, C, H,
         KVH, d, chunk, n_split, d ** -0.5, _build.stream_ptr(q.device))
     _build.check(err, fn)
-    return out
+    return (part_acc, part_ml) if partial else out
 
 
 def launch_key(q, k) -> tuple:
@@ -145,4 +175,68 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, valid):
     out = _launch("decode_attention_int8_fwd", q, k_q,
                   (q, k_q, v_q, k_scale, v_scale, valid))
     _build.count_launch(decode_attention_int8, launch_key(q, k_q))
+    return out
+
+
+@_build.counted
+def decode_attention_partial(q, k, v, valid):
+    """:func:`decode_attention` without its merge → (acc [B,H,n,d] f32,
+    ml [B,H,n,2] f32): one partial per chunk of the cache (the kernel's
+    split plan; one chunk on the CPU).  Merge with :func:`decode_combine`,
+    alone or stacked along n with other caches' partials."""
+    if q.device.type == "cpu":
+        return decode_partial_ref(q, k, v, valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, valid, q.dtype)
+    out = _launch("decode_attention_partial_fwd", q, k, (q, k, v, valid),
+                  partial=True)
+    _build.count_launch(decode_attention_partial, launch_key(q, k))
+    return out
+
+
+@_build.counted
+def decode_attention_int8_partial(q, k_q, v_q, k_scale, v_scale, valid):
+    """:func:`decode_attention_int8` without its merge; as
+    :func:`decode_attention_partial`."""
+    if q.device.type == "cpu":
+        return decode_partial_int8_ref(q, k_q, v_q, k_scale, v_scale, valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
+    out = _launch("decode_attention_int8_partial_fwd", q, k_q,
+                  (q, k_q, v_q, k_scale, v_scale, valid), partial=True)
+    _build.count_launch(decode_attention_int8_partial, launch_key(q, k_q))
+    return out
+
+
+def combine_key(acc, dtype) -> tuple:
+    B, H, n, d = acc.shape
+    return (("dtype", _build.dtype_name(dtype)), ("B", B), ("H", H),
+            ("n_split", n), ("d", d))
+
+
+@_build.counted
+def decode_combine(acc, ml, dtype):
+    """Merge partials acc [B,H,n,d] and ml [B,H,n,2] (f32, contiguous)
+    over n → out [B,1,H,d] in ``dtype`` (float32 or bfloat16)."""
+    if acc.device.type == "cpu":
+        return decode_combine_ref(acc, ml, dtype)
+    if acc.device.type != "cuda":
+        raise ValueError(f"unsupported device {acc.device}")
+    B, H, n, d = acc.shape
+    if dtype not in _DTYPES or acc.dtype != torch.float32 \
+            or ml.dtype != torch.float32 or ml.shape != (B, H, n, 2) \
+            or ml.device != acc.device:
+        raise ValueError(f"partials {acc.dtype} {tuple(acc.shape)} / "
+                         f"{ml.dtype} {tuple(ml.shape)} to {dtype}")
+    if not (acc.is_contiguous() and ml.is_contiguous()):
+        raise ValueError("partials must be contiguous")
+    out = torch.empty((B, 1, H, d), dtype=dtype, device=acc.device)
+    lib = _build.load("decode_attention", _SIGNATURES)
+    err = lib.decode_combine_fwd(_DTYPES[dtype], acc.data_ptr(),
+                                 ml.data_ptr(), out.data_ptr(), B, H, d, n,
+                                 _build.stream_ptr(acc.device))
+    _build.check(err, "decode_combine_fwd")
+    _build.count_launch(decode_combine, combine_key(acc, dtype))
     return out

@@ -6,12 +6,14 @@ config and run a demo workload of concurrent requests through it.
     python -m repro_torch.launch.serve --replicas 4 --router-policy prefix_affinity
     python -m repro_torch.launch.serve --replicas 2 --device cpu
     python -m repro_torch.launch.serve --tp 2 --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --tp 2 --device cpu
 
 ``--device`` defaults to ``cuda`` and raises without a GPU; ``cpu`` runs
 the plain versions of the kernels.  Parameters come from the port's
 seeded init (seed 0).  ``--tp`` > 1 gives every replica a
 tensor-parallel mesh over ``tp`` devices: the host's CUDA devices, or on
-the CPU the one CPU device repeated.
+the CPU the one CPU device repeated; every decoder-only family shards
+(the encoder-decoder engine is refused at any ``tp``).
 """
 
 from __future__ import annotations

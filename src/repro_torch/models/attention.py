@@ -17,7 +17,10 @@ divide the shard count, its KV heads) and its rows of ``wo``, whose
 product is a partial sum the caller reduces.  Where the KV heads are
 replicated but the q heads are not, ``kv_heads`` names the KV heads the
 shard's q heads read (:func:`kv_head_range`); only those reach the
-kernel, so its ``q_head // G`` mapping stays right.
+kernel, so its ``q_head // G`` mapping stays right.  A contiguous cache
+whose KV heads do not split is split by *sequence* instead (the serving
+rules' ``cache_pspecs``): :func:`decode_attention_seq_split` runs every q
+head over each shard's slots and merges the shards' partials.
 """
 
 from __future__ import annotations
@@ -281,19 +284,10 @@ def decode_attention(cfg, p, x, cache, positions, *, window=0):
     reference donated the cache and returned a new one).  Keys are
     stored post-RoPE, so ring order does not matter under the validity
     mask."""
-    B = x.shape[0]
     C = cache["k"].shape[1]
-    q = _project_q(cfg, p, x)
-    k, v = _project_kv(cfg, p, x)
-    if cfg.use_rope:
-        cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim,
-                                cfg.rope_theta, x.dtype)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    slots = (positions % C if window > 0 else positions).long()
-    rows = torch.arange(B, device=x.device)
-    for name, new in pack_kv(cfg, k, v).items():
-        cache[name][rows, slots] = new[:, 0].to(cache[name].dtype)
+    q, k, v = decode_qkv(cfg, p, x, positions)
+    write_decode_kv(cfg, cache, k, v,
+                    (positions % C if window > 0 else positions).long())
     valid = decode_valid(positions, C, window)
     if cfg.kv_cache_dtype == "int8":
         out = da_ops.decode_attention_int8(
@@ -303,6 +297,60 @@ def decode_attention(cfg, p, x, cache, positions, *, window=0):
         out = da_ops.decode_attention(q.contiguous(), cache["k"],
                                       cache["v"], valid)
     return _out_proj(out, p["wo"])
+
+
+def decode_qkv(cfg, p, x, positions):
+    """q, k, v [B,1,·,hd] of one decode token, RoPE applied."""
+    q = _project_q(cfg, p, x)
+    k, v = _project_kv(cfg, p, x)
+    if cfg.use_rope:
+        cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim,
+                                cfg.rope_theta, x.dtype)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def write_decode_kv(cfg, cache, k, v, slots, own=None):
+    """Write the step's packed K/V [B,1,KVH,hd] into slot ``slots[b]`` of
+    each row of ``cache`` in place.  ``own`` [B] bool (a shard of a cache
+    split by sequence): only the rows it marks write; the others rewrite
+    what their (clamped) slot holds, so the step reads nothing back to
+    the host and stays capturable."""
+    B = k.shape[0]
+    rows = torch.arange(B, device=k.device)
+    C = cache["k"].shape[1]
+    if own is not None:
+        slots = slots.clamp(0, C - 1)
+    for name, new in pack_kv(cfg, k, v).items():
+        buf = cache[name]
+        val = new[:, 0].to(buf.dtype)
+        if own is not None:
+            keep = own.view((B,) + (1,) * (val.dim() - 1))
+            val = torch.where(keep, val, buf[rows, slots])
+        buf[rows, slots] = val
+
+
+def decode_attention_seq_split(cfg, qs, caches, valids):
+    """One-token attention over a contiguous cache split by sequence
+    across shards: ``qs[r]`` [B,1,H,hd] (every q head, on shard r's
+    device), ``caches[r]`` shard r's slots (dense or int8 with scales)
+    and ``valids[r]`` [B, C_r] which of them the token attends.  Each
+    shard runs the decode kernel's partial entry over its slots; the
+    partials are stacked in rank order on shard 0's device and merged by
+    one combine.  → out [B,1,H,hd] on shard 0's device."""
+    parts = []
+    for q, c, valid in zip(qs, caches, valids):
+        if cfg.kv_cache_dtype == "int8":
+            parts.append(da_ops.decode_attention_int8_partial(
+                q, c["k"], c["v"], c["k_scale"], c["v_scale"], valid))
+        else:
+            parts.append(da_ops.decode_attention_partial(q, c["k"], c["v"],
+                                                         valid))
+    dev0 = parts[0][0].device
+    acc = torch.cat([a.to(dev0) for a, _ in parts], dim=2)
+    ml = torch.cat([m.to(dev0) for _, m in parts], dim=2)
+    return da_ops.decode_combine(acc, ml, qs[0].dtype)
 
 
 def cross_decode_attention(cfg, p, x, ck, cv, valid):

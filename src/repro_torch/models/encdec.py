@@ -12,6 +12,14 @@ cross-attention (S query rows over ``enc_seq`` keys) in flash; a decode
 step's self-attention over its contiguous cache and its cross-attention
 over the encoder memory in the contiguous decode kernel (the reference
 computes the cross-attention and the encoder with plain attention).
+
+Under tensor parallelism (:class:`~repro_torch.sharding.placement.
+ShardedParams`; :func:`prefill_tp`, :func:`decode_step_tp`) the model
+runs at the model level, as the reference runs it (its engine cannot
+admit an encoder-decoder request): the encoder's and decoder's
+attentions at each shard's heads, the self cache and the cross memory
+split by KV heads, the MLPs column- then row-parallel and the logits
+split by vocab, with the pieces of :mod:`.lm`'s sharded program.
 """
 
 from __future__ import annotations
@@ -22,7 +30,20 @@ from . import attention as att
 from . import mlp as mlpmod
 from .common import (PSpec, apply_norm, norm_schema, remat,
                      sinusoidal_positions, stack_schema)
-from .lm import _seq_to_cache, mask_vocab_padding, unstack
+from repro_torch.sharding.placement import ShardedParams, broadcast, reduce_sum
+
+from .lm import (
+    _on_model,
+    _seq_to_cache,
+    _tp_attention,
+    _tp_feed_forward,
+    mask_vocab_padding,
+    shard_key,
+    tp_decode_attention,
+    tp_embed,
+    tp_logits,
+    unstack,
+)
 
 
 def enc_block_schema(cfg):
@@ -141,7 +162,10 @@ def init_cache(cfg, batch, capacity, device):
 
 def prefill(cfg, params, batch, capacity):
     """Encode the frames and run the decoder prompt → (last logits [B,V],
-    cache)."""
+    cache).  With :class:`ShardedParams` the sharded prefill
+    (:func:`prefill_tp`)."""
+    if isinstance(params, ShardedParams):
+        return prefill_tp(cfg, params, batch, capacity)
     if capacity < batch["tokens"].shape[1]:
         raise ValueError(f"capacity {capacity} < prompt length "
                          f"{batch['tokens'].shape[1]}")
@@ -154,7 +178,10 @@ def prefill(cfg, params, batch, capacity):
 def decode_step(cfg, params, cache, tokens, positions):
     """tokens [B,1]; positions [B] (index of the current token) →
     (logits [B,V], cache).  The step's self-attention K/V are written into
-    ``cache`` in place; the cross-attention memory is read only."""
+    ``cache`` in place; the cross-attention memory is read only.  With
+    :class:`ShardedParams` the sharded step (:func:`decode_step_tp`)."""
+    if isinstance(params, ShardedParams):
+        return decode_step_tp(cfg, params, cache, tokens, positions)
     B = tokens.shape[0]
     h = params["embed"].to(cfg.activation_dtype)[tokens.long()]
     h = h + sinusoidal_positions(positions[:, None], cfg.d_model, h.dtype)
@@ -171,3 +198,133 @@ def decode_step(cfg, params, cache, tokens, positions):
                                  gated=False)
     h = apply_norm(cfg, params["dec_final_norm"], h)
     return _logits(cfg, params, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the mesh's "model" axis (ShardedParams)
+
+
+class EncDecTP:
+    """What the resolved specs shard (the fields :mod:`.lm`'s sharded
+    pieces read): ``attn_sum`` (heads split: each attention's output is a
+    partial sum), ``kv_split``, ``ffn_sum`` (the MLPs' hidden dim),
+    ``vocab``.  The caches split by KV heads only: a mesh whose shard
+    count does not divide them raises."""
+
+    experts = False
+
+    def __init__(self, cfg, params: ShardedParams):
+        dec = params.specs["dec_layers"]
+        attn = dec["self_attn"]     # leaves [L, ...]
+        if _on_model(attn["wq"][3]) or _on_model(attn["wo"][2]):
+            raise NotImplementedError(
+                "head_dim sharded over model (the ulysses strategies): "
+                "serving runs the heads strategy")
+        self.devices = params.devices
+        self.tp = params.tp
+        self.attn_sum = _on_model(attn["wo"][1])
+        self.kv_split = _on_model(attn["wk"][2])
+        if not self.kv_split and self.tp > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.num_kv_heads} KV heads do not split "
+                f"{self.tp} ways")
+        self.ffn_sum = _on_model(dec["mlp"]["w_down"][1])
+        self.vocab = _on_model(params.specs["embed"][0])
+        self.kv_heads = [None] * self.tp
+
+
+def _tp_stack(params, name, n):
+    """Per layer: [shard r's layer parameters for r in ranks]."""
+    return list(zip(*[unstack(s[name], n) for s in params.shards]))
+
+
+def encode_tp(cfg, params, tp, frames):
+    """:func:`encode` over the shards → the encoder output on shard 0's
+    device."""
+    B, T, D = frames.shape
+    pos = torch.arange(T, dtype=torch.int32, device=frames.device)
+    h = frames + sinusoidal_positions(pos, D, frames.dtype)[None]
+    positions = broadcast(pos[None, :].repeat(B, 1), tp.devices)
+    for ps in _tp_stack(params, "enc_layers", cfg.enc_layers):
+        h = _tp_attention(cfg, tp, ps, h, lambda r, p, x: att.full_attention(
+            cfg, p["attn"], x, positions=positions[r], causal=False))
+        h = _tp_feed_forward(cfg, tp, "mlp", ps, h, gated=False)
+    return apply_norm(cfg, params.shards[0]["enc_final_norm"], h)
+
+
+def _tp_dec_embed(cfg, params, tp, tokens, positions):
+    h = tp_embed(cfg, [p["embed"] for p in params.shards], tp, tokens)
+    return h + sinusoidal_positions(positions, cfg.d_model, h.dtype)
+
+
+def prefill_tp(cfg, params, batch, capacity):
+    """:func:`prefill` over sharded parameters → (last logits [B,V] on
+    shard 0's device, ``{shard_key(r): {"dec": {k, v, cross_k,
+    cross_v}}}``: each shard's caches at its KV heads, on its device)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if capacity < S:
+        raise ValueError(f"capacity {capacity} < prompt length {S}")
+    tp = EncDecTP(cfg, params)
+    enc = broadcast(encode_tp(cfg, params, tp, batch["encoder_frames"]),
+                    tp.devices)
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    h = _tp_dec_embed(cfg, params, tp, tokens, pos[None])
+    positions = broadcast(pos[None, :].repeat(B, 1), tp.devices)
+    caches = [[] for _ in tp.devices]
+    for ps in _tp_stack(params, "dec_layers", cfg.num_layers):
+        def self_attend(r, p, x):
+            out, (k, v) = att.full_attention(
+                cfg, p["self_attn"], x, positions=positions[r], causal=True,
+                return_kv=True)
+            caches[r].append({"k": _seq_to_cache(k, capacity),
+                              "v": _seq_to_cache(v, capacity)})
+            return out
+
+        def cross_attend(r, p, x):
+            cross = att.cross_attention_cache(cfg, p["cross_attn"], enc[r])
+            caches[r][-1].update(cross_k=cross["k"], cross_v=cross["v"])
+            return att.full_attention(cfg, p["cross_attn"], x,
+                                      positions=positions[r],
+                                      kv=(cross["k"], cross["v"]),
+                                      causal=False)
+        h = _tp_attention(cfg, tp, ps, h, self_attend, key="self_attn")
+        h = _tp_attention(cfg, tp, ps, h, cross_attend, norm="ln2",
+                          key="cross_attn")
+        h = _tp_feed_forward(cfg, tp, "mlp", ps, h, norm="ln3", gated=False)
+    h = apply_norm(cfg, params.shards[0]["dec_final_norm"], h[:, -1:])
+    logits = tp_logits(cfg, [p["embed"] for p in params.shards], tp, h,
+                       transpose=True)
+    cache = {shard_key(r): {"dec": {n: torch.stack([c[n] for c in cs])
+                                    for n in cs[0]}}
+             for r, cs in enumerate(caches)}
+    return logits[:, 0], cache
+
+
+def decode_step_tp(cfg, params, cache, tokens, positions):
+    """:func:`decode_step` over sharded parameters and the sharded cache of
+    :func:`prefill_tp` (self K/V written in place) → (logits [B,V] on
+    shard 0's device, cache)."""
+    tp = EncDecTP(cfg, params)
+    B = tokens.shape[0]
+    h = _tp_dec_embed(cfg, params, tp, tokens, positions[:, None])
+    dcs = [cache[shard_key(r)]["dec"] for r in range(tp.tp)]
+    valid = broadcast(torch.ones(B, cfg.enc_seq, dtype=torch.bool,
+                                 device=h.device), tp.devices)
+    for i, ps in enumerate(_tp_stack(params, "dec_layers", cfg.num_layers)):
+        x = apply_norm(cfg, ps[0]["ln1"], h)
+        h = h + tp_decode_attention(
+            cfg, tp, ps, x, [{"k": c["k"][i], "v": c["v"][i]} for c in dcs],
+            positions, key="self_attn")
+        x = apply_norm(cfg, ps[0]["ln2"], h)
+        outs = [att.cross_decode_attention(cfg, p["cross_attn"], xr,
+                                           c["cross_k"][i], c["cross_v"][i],
+                                           vd)
+                for p, xr, c, vd in zip(ps, broadcast(x, tp.devices), dcs,
+                                        valid)]
+        h = h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
+        h = _tp_feed_forward(cfg, tp, "mlp", ps, h, norm="ln3", gated=False)
+    h = apply_norm(cfg, params.shards[0]["dec_final_norm"], h)
+    logits = tp_logits(cfg, [p["embed"] for p in params.shards], tp, h,
+                       transpose=True)
+    return logits[:, 0], cache

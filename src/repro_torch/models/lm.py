@@ -12,17 +12,23 @@ in that order.
 
 Tensor parallelism: given :class:`~repro_torch.sharding.placement.
 ShardedParams` (parameters laid out on a mesh's ``model`` axis by the
-serving rules), :func:`prefill` and :func:`decode_step_paged` run the
-sharded program of the dense and VLM families: every shard runs its own
-q heads through the attention kernels and its slice of the MLP's hidden
-dim; the row-parallel products (``wo``, the down projection) are partial
-sums that one :func:`~repro_torch.sharding.placement.reduce_sum` adds up;
-the embedding is a masked lookup of each shard's vocab rows plus a
+serving rules), :func:`prefill`, :func:`decode_step` and
+:func:`decode_step_paged` run the sharded program of every decoder-only
+family: every shard runs its own q heads through the attention kernels,
+its slice of the MLP's hidden dim, its experts (MoE, the ``shard_map``
+dispatch), its RG-LRU channels and its SSD heads; the row-parallel
+products (``wo``, the down projections, the recurrent blocks' output
+projections) are partial sums that one
+:func:`~repro_torch.sharding.placement.reduce_sum` adds up; the
+embedding is a masked lookup of each shard's vocab rows plus a
 reduce_sum, and the logits are the shards' vocab slices concatenated.
 Where a dim falls back to replication, every shard holds the whole
 product and nothing is summed.  The residual stream, the norms and the
-sampling stay replicated: computed once, on shard 0's device.  The KV
-cache is one tree per shard under :func:`shard_key`.
+sampling stay replicated: computed once, on shard 0's device.  The
+cache is one tree per shard under :func:`shard_key`, each laid out as
+the serving rules' ``cache_pspecs`` say: a contiguous K/V cache whose KV
+heads do not split (recurrentgemma's one KV head) is split by sequence,
+and its decode merges the shards' partial attentions.
 
 Two cache layouts:
 - the **paged** and **prefix-aware** path of the attention-only families
@@ -45,9 +51,15 @@ from repro_torch.sharding.placement import (
     ShardedParams,
     broadcast,
     gather,
+    local_zeros,
     reduce_sum,
+    shard_slices,
 )
-from repro_torch.sharding.rules import constrain_activation
+from repro_torch.sharding.rules import (
+    cache_pspecs,
+    constrain_activation,
+    make_serving_rules,
+)
 
 from . import attention as att
 from . import mlp as mlpmod
@@ -416,7 +428,10 @@ def decode_block(cfg, kind, p, h, cache, positions):
 def decode_step(cfg, params, cache, tokens, positions):
     """One decode step over the grouped contiguous cache: tokens [B,1],
     positions [B] (index of the current token).  Updates ``cache`` in
-    place and returns (logits [B,V], cache)."""
+    place and returns (logits [B,V], cache).  With :class:`ShardedParams`
+    the sharded step (:func:`decode_step_tp`)."""
+    if isinstance(params, ShardedParams):
+        return decode_step_tp(cfg, params, cache, tokens, positions)
     h = params["embed"].to(cfg.activation_dtype)[tokens.long()]
     for (kind, p), (_, c) in zip(blocks(cfg, params), blocks(cfg, cache)):
         h = decode_block(cfg, kind, p, h, c, positions)
@@ -476,33 +491,63 @@ def _on_model(entry) -> bool:
 class TensorParallel:
     """What the resolved parameter specs shard, for the sharded program:
     ``attn_sum`` (``wo``'s contraction dims name ``model``: each shard's
-    attention output is a partial sum), ``ffn_sum`` (likewise the MLP's
-    down projection), ``vocab`` (the embedding and the logits are split
-    by vocab rows), and per shard the KV heads its q heads read when the
-    q heads are sharded over replicated KV heads (else None)."""
+    attention output is a partial sum), ``kv_split`` (the KV heads are
+    split too; else a contiguous cache is split by sequence), ``ffn_sum``
+    (likewise the MLP's down projection), ``experts`` (the MoE experts
+    are split: the ``shard_map`` dispatch), ``vocab`` (the embedding and
+    the logits are split by vocab rows), and per shard the KV heads its q
+    heads read when the q heads are sharded over replicated KV heads
+    (else None).  The recurrent blocks must split (RG-LRU's width, SSD's
+    heads and fused columns); a mesh that would replicate them raises."""
 
     def __init__(self, cfg, params: ShardedParams):
-        if cfg.family not in ("dense", "vlm") or is_contiguous(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism covers the dense and VLM "
-                f"families on the paged layout (MoE and the contiguous "
-                f"layout under a mesh: ROADMAP A.11d)")
-        sp = params.specs
-        attn = sp["layers"]["b0"]["attn"]   # leaves [L, ...]
-        if any(_on_model(e) for e in (attn["wq"][3], attn["wo"][2])):
+        sp = _block_specs(cfg, params.specs)
+        attn = next((s["attn"] for s in sp if "attn" in s), None)
+        if attn is not None and any(
+                _on_model(e) for e in (attn["wq"][2], attn["wo"][1])):
             raise NotImplementedError(
                 "head_dim sharded over model (the ulysses strategies): "
                 "serving runs the heads strategy")
         self.devices = params.devices
-        self.attn_sum = _on_model(attn["wo"][1])
-        self.ffn_sum = _on_model(sp["layers"]["b0"]["mlp"]["w_down"][1])
-        self.vocab = _on_model(sp["embed"][0])
+        self.tp = params.tp
+        self.attn_sum = attn is not None and _on_model(attn["wo"][0])
+        self.kv_split = attn is not None and _on_model(attn["wk"][1])
+        mlp = next((s["mlp"] for s in sp if "mlp" in s), None)
+        self.ffn_sum = mlp is not None and _on_model(mlp["w_down"][0])
+        moe = next((s["moe"] for s in sp if "moe" in s), None)
+        self.experts = moe is not None and _on_model(moe["w_gate"][0])
+        self.vocab = _on_model(params.specs["embed"][0])
+        for s in sp:
+            if "rglru" in s and not _on_model(s["rglru"]["w_in"][1]):
+                raise NotImplementedError(
+                    f"{cfg.name}: lru_width {cfg.lru_width} does not split "
+                    f"{self.tp} ways")
+            if "ssd" in s:
+                ssdmod.tp_layout(cfg, self.tp)   # raises where heads do not
+                if not all(_on_model(e) for e in (
+                        s["ssd"]["w_in"][1], s["ssd"]["conv_w"][1],
+                        s["ssd"]["w_out"][0])):
+                    raise NotImplementedError(
+                        f"{cfg.name}: the SSD block's columns do not split "
+                        f"{self.tp} ways")
         self.kv_heads = [None] * params.tp
-        if _on_model(attn["wq"][2]) and not _on_model(attn["wk"][2]):
-            Hl = params.shards[0]["layers"]["b0"]["attn"]["wq"].shape[2]
+        if self.attn_sum and not self.kv_split:
+            Hl = cfg.num_heads // params.tp
             self.kv_heads = [att.kv_head_range(cfg.num_heads,
                                                cfg.num_kv_heads, r * Hl, Hl)
                              for r in range(params.tp)]
+
+
+def _block_specs(cfg, specs):
+    """The parameter specs of each distinct block (one per group slot,
+    the layer dim dropped, then the tail blocks)."""
+    group_kinds, _, tail_kinds = _layer_groups(cfg)
+
+    def drop(t):
+        return {k: drop(v) for k, v in t.items()} if isinstance(t, dict) \
+            else tuple(t)[1:]
+    return [drop(specs["layers"][f"b{i}"]) for i in range(len(group_kinds))] \
+        + [specs[f"tail{i}"] for i in range(len(tail_kinds))]
 
 
 def _tp_layers(cfg, params):
@@ -517,20 +562,7 @@ def _tp_embed_inputs(cfg, params, tp, batch):
     looks up the tokens in its rows (zeros elsewhere) and one reduce_sum
     adds the shards' rows (exact: one term is nonzero)."""
     tokens = batch["tokens"]
-    dt = cfg.activation_dtype
-    if not tp.vocab:
-        h = params.shards[0]["embed"].to(dt)[tokens.long()]
-    else:
-        parts = []
-        for r, (p, t) in enumerate(zip(params.shards,
-                                       broadcast(tokens, tp.devices))):
-            E = p["embed"]
-            Vl = E.shape[0]
-            idx = t.long() - r * Vl
-            keep = (idx >= 0) & (idx < Vl)
-            parts.append(E.to(dt)[idx.clamp(0, Vl - 1)]
-                         * keep[..., None].to(dt))
-        h = reduce_sum(parts)[0]
+    h = tp_embed(cfg, [p["embed"] for p in params.shards], tp, tokens)
     B, S = tokens.shape
     if cfg.frontend == "patch_stub" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(h.dtype)
@@ -540,15 +572,35 @@ def _tp_embed_inputs(cfg, params, tp, batch):
     return h, positions
 
 
+def tp_embed(cfg, tables, tp, tokens):
+    """The embedding rows of ``tokens`` from the shards' ``tables`` (vocab
+    rows under ``tp.vocab``, else whole: shard 0's)."""
+    dt = cfg.activation_dtype
+    if not tp.vocab:
+        return tables[0].to(dt)[tokens.long()]
+    parts = []
+    for r, (E, t) in enumerate(zip(tables, broadcast(tokens, tp.devices))):
+        Vl = E.shape[0]
+        idx = t.long() - r * Vl
+        keep = (idx >= 0) & (idx < Vl)
+        parts.append(E.to(dt)[idx.clamp(0, Vl - 1)] * keep[..., None].to(dt))
+    return reduce_sum(parts)[0]
+
+
 def _tp_logits(cfg, params, tp, h):
     """Each shard's vocab slice of the logits, concatenated in rank order,
     then the padding masked (shard 0's whole table where vocab is not
     split)."""
     name = "embed" if cfg.tie_embeddings else "lm_head"
+    return tp_logits(cfg, [p[name] for p in params.shards], tp, h,
+                     transpose=cfg.tie_embeddings)
+
+
+def tp_logits(cfg, tables, tp, h, *, transpose):
     parts = []
-    for p, hr in zip(params.shards, broadcast(h, tp.devices)):
-        w = p[name].to(hr.dtype)
-        parts.append(hr @ (w.T if cfg.tie_embeddings else w))
+    for w, hr in zip(tables, broadcast(h, tp.devices)):
+        w = w.to(hr.dtype)
+        parts.append(hr @ (w.T if transpose else w))
         if not tp.vocab:
             break
     constrain_activation(
@@ -558,37 +610,55 @@ def _tp_logits(cfg, params, tp, h):
                               else parts[0])
 
 
-def _tp_attention(cfg, tp, ps, h, attend):
+def _tp_attention(cfg, tp, ps, h, attend, *, norm="ln1", key="attn"):
     """h + the attention of every shard: ``attend(r, p, x)`` runs shard
     r's heads on its copy of the normed input; the outputs are partial
     sums under ``tp.attn_sum``, else shard 0's is the whole."""
-    x = apply_norm(cfg, ps[0]["ln1"], h)
+    x = apply_norm(cfg, ps[0][norm], h)
     constrain_activation("act_qkv", x.shape[:-1] + (cfg.num_heads,
                                                     cfg.head_dim),
-                         [x.shape[:-1] + p["attn"]["wq"].shape[1:]
+                         [x.shape[:-1] + p[key]["wq"].shape[1:]
                           for p in ps])
     outs = [attend(r, p, xr) for r, (p, xr) in
             enumerate(zip(ps, broadcast(x, tp.devices)))]
     return h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
 
 
-def _tp_feed_forward(cfg, tp, ps, h):
-    x = apply_norm(cfg, ps[0]["ln2"], h)
+def _tp_feed_forward(cfg, tp, kind, ps, h, *, norm="ln2", gated=True):
+    """h + the block's feed-forward over the shards: the MoE layer by the
+    ``shard_map`` dispatch (the global one where the experts do not
+    split), else the MLP, column- then row-parallel."""
+    x = apply_norm(cfg, ps[0][norm], h)
+    if kind == "attn_moe":
+        if tp.experts:
+            y, _ = moemod.apply_moe_tp(cfg, [p["moe"] for p in ps], x,
+                                       tp.devices)
+        else:
+            y, _ = moemod.apply_moe_global(cfg, ps[0]["moe"], x)
+        return h + y
     constrain_activation("act_ffn", x.shape[:-1] + (cfg.d_ff,),
                          [x.shape[:-1] + p["mlp"]["w_up"].shape[1:]
                           for p in ps])
     return h + mlpmod.apply_mlp_tp(cfg, [p["mlp"] for p in ps], x,
-                                   tp.devices, row_parallel=tp.ffn_sum)
+                                   tp.devices, row_parallel=tp.ffn_sum,
+                                   gated=gated)
 
 
 def prefill_tp(cfg, params, batch, capacity, *, prefix=None,
                prefix_len=None, last_index=None):
-    """:func:`prefill` of the dense and VLM families over sharded
-    parameters → (last_logits [B,V] on shard 0's device, cache): the
-    cache is ``{shard_key(r): {"k", "v"}}``, each shard's K/V ``[L, B,
-    capacity, KVH_r, hd]`` on its device; ``prefix`` (prefix-aware mode)
-    is such a tree too."""
+    """:func:`prefill` over sharded parameters → (last_logits [B,V] on
+    shard 0's device, cache).  Attention-only families: the cache is
+    ``{shard_key(r): {"k", "v"}}``, each shard's K/V ``[L, B, capacity,
+    KVH_r, hd]`` on its device; ``prefix`` (prefix-aware mode) is such a
+    tree too.  Contiguous models: ``{shard_key(r): grouped cache}``, each
+    shard's leaves at the serving rules' local shapes
+    (:func:`init_cache_tp`)."""
     tp = TensorParallel(cfg, params)
+    if is_contiguous(cfg):
+        if prefix is not None:
+            raise ValueError(f"{cfg.name}: prefix-aware prefill needs a "
+                             f"positionally sliceable cache")
+        return _prefill_contiguous_tp(cfg, params, tp, batch, capacity)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     if capacity < S:
@@ -612,7 +682,7 @@ def prefill_tp(cfg, params, batch, capacity, *, prefix=None,
             vs[r].append(v)
             return out
         h = _tp_attention(cfg, tp, ps, h, attend)
-        h = _tp_feed_forward(cfg, tp, ps, h)
+        h = _tp_feed_forward(cfg, tp, kind, ps, h)
     cache = {}
     for r in range(len(tp.devices)):
         shard = {"k": torch.stack(ks[r]), "v": torch.stack(vs[r])}
@@ -643,6 +713,186 @@ def decode_step_paged_tp(cfg, params, cache, tokens, positions, page_table):
                 cfg, p["attn"], x, layer_kv, pos[r], tables[r],
                 kv_heads=tp.kv_heads[r])
         h = _tp_attention(cfg, tp, ps, h, attend)
-        h = _tp_feed_forward(cfg, tp, ps, h)
+        h = _tp_feed_forward(cfg, tp, kind, ps, h)
+    h = apply_norm(cfg, params.shards[0]["final_norm"], h)
+    return _tp_logits(cfg, params, tp, h)[:, 0], cache
+
+
+# -- the contiguous layout under a mesh --------------------------------------
+
+
+def cache_layout_tp(cfg, params, batch, capacity):
+    """(the grouped cache as ``meta`` tensors, its leaves' specs under the
+    serving rules).  Raises where the rules would replicate a leaf the
+    sharded program keeps split: a K/V ring whose KV heads and slots both
+    fail to split."""
+    meta = init_cache(cfg, batch, capacity, "meta")
+    specs = cache_pspecs(make_serving_rules(params.mesh, cfg), meta,
+                         layout="contiguous")
+
+    def check(tree, sp, name=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                check(v, sp[k], k)
+            elif k in ("k", "v") and "model" not in sp[k]:
+                raise NotImplementedError(
+                    f"{cfg.name}: a K/V cache of {v.shape[-3]} slots and "
+                    f"{v.shape[-2]} KV heads splits neither way over "
+                    f"{params.tp} shards")
+    check(meta, specs)
+    return meta, specs
+
+
+def init_cache_tp(cfg, params, batch, capacity):
+    """Each shard's zeroed contiguous cache: ``{shard_key(r): grouped
+    cache}`` with the local shapes of the serving rules' ``cache_pspecs``,
+    on the shard's device."""
+    meta, specs = cache_layout_tp(cfg, params, batch, capacity)
+
+    def zeros(tree, sp, coord):
+        return {k: zeros(v, sp[k], coord) if isinstance(v, dict)
+                else local_zeros(v.shape, v.dtype, sp[k], params.mesh, coord)
+                for k, v in tree.items()}
+    return {shard_key(r): zeros(meta, specs, c)
+            for r, c in enumerate(params.ranks)}
+
+
+def _localize(tree, meta, specs, mesh, coord):
+    """Shard ``coord``'s part of a cache tree a shard computed: every dim
+    it holds whole but the spec splits is cut to the shard's slice (e.g.
+    a replicated KV head's slots); a dim already at its local size stays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _localize(v, meta[k], specs[k], mesh, coord)
+            continue
+        glob = meta[k].shape
+        idx = []
+        for d, sl in enumerate(shard_slices(glob, specs[k], mesh, coord)):
+            n = sl.stop - sl.start
+            if v.shape[d] == n:
+                idx.append(slice(None))
+            elif v.shape[d] == glob[d]:
+                idx.append(sl)
+            else:
+                raise ValueError(f"cache leaf {k!r} {tuple(v.shape)}: dim "
+                                 f"{d} is neither {glob[d]} nor {n}")
+        out[k] = v[tuple(idx)].contiguous()
+    return out
+
+
+def _tp_mixer_prefill(cfg, tp, kind, ps, h, pos, capacity):
+    """A block's first half over the prompt → (h, each shard's block
+    cache as the shard computed it)."""
+    x = apply_norm(cfg, ps[0]["ln1"], h)
+    if kind == "rglru_mlp":
+        out, caches = rgmod.apply_rglru_tp(cfg, [p["rglru"] for p in ps], x,
+                                           tp.devices, return_state=True)
+        return h + out, caches
+    if kind == "ssd":
+        out, caches = ssdmod.apply_ssd_tp(cfg, [p["ssd"] for p in ps], x,
+                                          tp.devices, return_state=True)
+        return h + out, caches
+    window = _window(cfg, kind)
+    cap = min(capacity, window) if window else capacity
+    caches = [None] * tp.tp
+
+    def attend(r, p, xr):
+        out, kv = att.full_attention(
+            cfg, p["attn"], xr, positions=pos[r], window=window,
+            return_kv=True, kv_heads=tp.kv_heads[r])
+        caches[r] = {n: _seq_to_cache(leaf, cap)
+                     for n, leaf in att.pack_kv(cfg, *kv).items()}
+        return out
+    return _tp_attention(cfg, tp, ps, h, attend), caches
+
+
+def _prefill_contiguous_tp(cfg, params, tp, batch, capacity):
+    S = batch["tokens"].shape[1]
+    if capacity < S and any(k in ("attn_mlp", "attn_moe")
+                            for k in block_kinds(cfg)):
+        raise ValueError(f"capacity {capacity} < prompt length {S}")
+    h, positions = _tp_embed_inputs(cfg, params, tp, batch)
+    B = h.shape[0]
+    meta, specs = cache_layout_tp(cfg, params, B, capacity)
+    pos = broadcast(positions, tp.devices)
+    per_shard = [[] for _ in tp.devices]
+    for kind, ps in _tp_layers(cfg, params):
+        h, caches = _tp_mixer_prefill(cfg, tp, kind, ps, h, pos, capacity)
+        for r, c in enumerate(caches):
+            per_shard[r].append(c)
+        if kind != "ssd":
+            h = _tp_feed_forward(cfg, tp, kind, ps, h)
+    cache = {shard_key(r): _localize(_group_caches(cfg, cs), meta, specs,
+                                     params.mesh, coord)
+             for r, (cs, coord) in enumerate(zip(per_shard, params.ranks))}
+    h = apply_norm(cfg, params.shards[0]["final_norm"], h)
+    logits = _tp_logits(cfg, params, tp, h[:, -1:])
+    return logits[:, 0], cache
+
+
+def tp_decode_attention(cfg, tp, ps, x, caches, positions, *, window=0,
+                        key="attn"):
+    """One decode token's attention over a sharded contiguous cache (the
+    block's normed input ``x`` on shard 0's device; ``caches[r]`` shard
+    r's layer cache, written in place) → the output on shard 0's device.
+
+    KV heads split: each shard attends its own heads.  Otherwise the
+    cache is split by sequence (shard r holds slots ``[r·C_r, (r+1)·C_r)``
+    of ``C = tp·C_r``): each shard writes the step's K/V only where the
+    row's slot is its own, q's heads are gathered to every shard, each
+    shard's slots give a partial attention of all heads, one combine
+    merges them (:func:`att.decode_attention_seq_split`) and each shard
+    takes its own heads of the result into its rows of ``wo``."""
+    xs = broadcast(x, tp.devices)
+    pos = broadcast(positions, tp.devices)
+    if tp.kv_split:
+        outs = [att.decode_attention(cfg, p[key], xr, c, pr, window=window)
+                for p, xr, c, pr in zip(ps, xs, caches, pos)]
+        return reduce_sum(outs)[0] if tp.attn_sum else outs[0]
+    Cl = caches[0]["k"].shape[1]
+    C = Cl * tp.tp
+    qs = []
+    for r, (p, xr, c, pr) in enumerate(zip(ps, xs, caches, pos)):
+        q, k, v = att.decode_qkv(cfg, p[key], xr, pr)
+        local = (pr % C if window > 0 else pr).long() - r * Cl
+        att.write_decode_kv(cfg, c, k, v, local, own=(local >= 0)
+                            & (local < Cl))
+        qs.append(q)
+    q = gather(qs, 2).contiguous() if tp.attn_sum else qs[0].contiguous()
+    valid = att.decode_valid(positions, C, window)
+    out = att.decode_attention_seq_split(
+        cfg, broadcast(q, tp.devices), caches,
+        [valid[:, r * Cl:(r + 1) * Cl].to(d).contiguous()
+         for r, d in enumerate(tp.devices)])
+    if not tp.attn_sum:
+        return att._out_proj(out, ps[0][key]["wo"])
+    Hl = ps[0][key]["wo"].shape[0]
+    return reduce_sum([
+        att._out_proj(o[:, :, r * Hl:(r + 1) * Hl], p[key]["wo"])
+        for r, (p, o) in enumerate(zip(ps, broadcast(out, tp.devices)))])[0]
+
+
+def decode_step_tp(cfg, params, cache, tokens, positions):
+    """:func:`decode_step` over sharded parameters and a sharded
+    contiguous cache (``{shard_key(r): grouped cache}``, updated in place)
+    → (logits [B,V] on shard 0's device, cache)."""
+    tp = TensorParallel(cfg, params)
+    h = _tp_embed_inputs(cfg, params, tp, {"tokens": tokens})[0]
+    shard_blocks = [blocks(cfg, cache[shard_key(r)]) for r in range(tp.tp)]
+    for i, (kind, ps) in enumerate(_tp_layers(cfg, params)):
+        cs = [sb[i][1] for sb in shard_blocks]
+        x = apply_norm(cfg, ps[0]["ln1"], h)
+        if kind == "ssd":
+            h = h + ssdmod.decode_ssd_tp(cfg, [p["ssd"] for p in ps], x, cs,
+                                         tp.devices)
+            continue
+        if kind == "rglru_mlp":
+            h = h + rgmod.decode_rglru_tp(cfg, [p["rglru"] for p in ps], x,
+                                          cs, tp.devices)
+        else:
+            h = h + tp_decode_attention(cfg, tp, ps, x, cs, positions,
+                                        window=_window(cfg, kind))
+        h = _tp_feed_forward(cfg, tp, kind, ps, h)
     h = apply_norm(cfg, params.shards[0]["final_norm"], h)
     return _tp_logits(cfg, params, tp, h)[:, 0], cache

@@ -9,6 +9,16 @@ kernel or its plain version by the tensors' device.  The reference's
 numerics are kept: the gates' two W×W products run in float32 even in a
 bf16 model, the GeLU is the tanh approximation (``jax.nn.gelu``'s
 default) and softplus is ``logaddexp(x, 0)``.
+
+Under tensor parallelism (:func:`apply_rglru_tp`, :func:`decode_rglru_tp`)
+each shard holds the serving rules' slices: the ``lru`` columns of
+``w_in``, ``w_gate_branch``, the conv and the per-channel vectors, the
+rows of ``w_a`` and ``w_x`` (their contraction dim) and of ``w_out``.
+Each gate is then the :func:`reduce_sum` of the shards' float32 partial
+products, of which a shard keeps its own columns; the scan runs at
+W/tp, and the output projection is a partial sum.  Summing the
+contraction in pieces changes its order: the gates agree with the
+one-device block to float32 rounding.
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import ops as lru_ops
+from repro_torch.sharding.placement import broadcast, reduce_sum
 
 from .common import PSpec, causal_conv, softplus
 
@@ -44,12 +55,37 @@ def rglru_schema(cfg) -> dict:
 def _gates(p, x):
     """x: [..., W] → (a, gated input) in f32."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"].float())
-    i = torch.sigmoid(xf @ p["w_x"].float() + p["b_x"].float())
+    return _gate_values(p, xf, xf @ p["w_a"].float(),
+                        xf @ p["w_x"].float())
+
+
+def _gate_values(p, xf, a_logits, x_logits):
+    """(a, gated input) from the gates' products (before their biases)."""
+    r = torch.sigmoid(a_logits + p["b_a"].float())
+    i = torch.sigmoid(x_logits + p["b_x"].float())
     log_a = -_C * softplus(p["lambda_p"].float()) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
     return a, beta * (i * xf)
+
+
+def _gates_tp(ps, convs):
+    """:func:`_gates` over shards: ``convs[r]`` [..., W/tp] is shard r's
+    columns of the conv output, ``ps[r]`` its parameters (``w_a``/``w_x``
+    rows [W/tp, W]).  The two products' partials go through one
+    :func:`reduce_sum`; each shard keeps its own columns."""
+    Wl = convs[0].shape[-1]
+    W = ps[0]["w_a"].shape[1]
+    xfs = [c.float() for c in convs]
+    sums = reduce_sum([torch.cat([xf @ p["w_a"].float(),
+                                  xf @ p["w_x"].float()], -1)
+                       for p, xf in zip(ps, xfs)])
+    out = []
+    for r, (p, xf, tot) in enumerate(zip(ps, xfs, sums)):
+        cols = slice(r * Wl, (r + 1) * Wl)
+        out.append(_gate_values(p, xf, tot[..., :W][..., cols],
+                                tot[..., W:][..., cols]))
+    return out
 
 
 def _branches(p, x):
@@ -72,10 +108,34 @@ def apply_rglru(cfg, p, x, *, return_state=False):
     y = h.to(x.dtype) * gate
     out = y @ p["w_out"].to(x.dtype)
     if return_state:
-        # copies, not views: the state must not keep [B, S, W] alive
-        K = p["conv_w"].shape[0]
-        hist = F.pad(u[:, -(K - 1):], (0, 0, max(0, K - 1 - u.shape[1]), 0))
-        return out, {"h": h[:, -1].clone(), "conv": hist.clone()}
+        return out, _final_state(p, u, h)
+    return out
+
+
+def _final_state(p, u, h):
+    """The decode cache a full sequence leaves: copies, not views (the
+    state must not keep [B, S, W] alive)."""
+    K = p["conv_w"].shape[0]
+    hist = F.pad(u[:, -(K - 1):], (0, 0, max(0, K - 1 - u.shape[1]), 0))
+    return {"h": h[:, -1].clone(), "conv": hist.clone()}
+
+
+def apply_rglru_tp(cfg, ps, x, devices, *, return_state=False):
+    """:func:`apply_rglru` over tensor-parallel shards (``ps[r]`` on
+    ``devices[r]``; x replicated, on shard 0's device) → the output on
+    shard 0's device, and with ``return_state`` each shard's decode cache
+    (its W/tp columns)."""
+    xs = broadcast(x, devices)
+    branches = [_branches(p, xr) for p, xr in zip(ps, xs)]
+    convs = [causal_conv(u, p["conv_w"], p["conv_b"])
+             for p, (_, u) in zip(ps, branches)]
+    hs = [lru_ops.rglru_scan(a.contiguous(), bx.contiguous())
+          for a, bx in _gates_tp(ps, convs)]
+    out = reduce_sum([(h.to(x.dtype) * g) @ p["w_out"].to(x.dtype)
+                      for p, h, (g, _) in zip(ps, hs, branches)])[0]
+    if return_state:
+        return out, [_final_state(p, u, h)
+                     for p, h, (_, u) in zip(ps, hs, branches)]
     return out
 
 
@@ -92,13 +152,39 @@ def decode_rglru(cfg, p, x, cache):
     updated **in place** (the reference returned a new cache).  Returns
     out [B,1,D]."""
     gate, u = _branches(p, x)                          # [B,1,W]
+    hist, conv_out = _conv_step(p, u, cache)
+    a, bx = _gates(p, conv_out[:, None])
+    return _step_out(p, x, cache, hist, gate, a, bx)
+
+
+def _conv_step(p, u, cache):
+    """The conv's history with the new input appended, and its output."""
     hist = torch.cat([cache["conv"], u.to(cache["conv"].dtype)], dim=1)
     w = p["conv_w"].to(u.dtype)
     conv_out = torch.einsum("bkw,kw->bw", hist.to(u.dtype), w) \
         + p["conv_b"].to(u.dtype)
-    a, bx = _gates(p, conv_out[:, None])
+    return hist, conv_out
+
+
+def _step_out(p, x, cache, hist, gate, a, bx):
+    """Advance the cache in place; → the step's output projection."""
     h = a[:, 0] * cache["h"] + bx[:, 0]
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
     y = h.to(x.dtype)[:, None] * gate
     return y @ p["w_out"].to(x.dtype)
+
+
+def decode_rglru_tp(cfg, ps, x, caches, devices):
+    """:func:`decode_rglru` over tensor-parallel shards: ``caches[r]`` is
+    shard r's cache (W/tp columns), updated in place → the output on
+    shard 0's device."""
+    xs = broadcast(x, devices)
+    branches = [_branches(p, xr) for p, xr in zip(ps, xs)]
+    steps = [_conv_step(p, u, c)
+             for p, (_, u), c in zip(ps, branches, caches)]
+    gates = _gates_tp(ps, [co[:, None] for _, co in steps])
+    return reduce_sum([
+        _step_out(p, xr, c, hist, g, a, bx)
+        for p, xr, c, (hist, _), (g, _), (a, bx)
+        in zip(ps, xs, caches, steps, branches, gates)])[0]

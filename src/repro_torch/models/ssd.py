@@ -8,6 +8,18 @@ the O(1)-state recurrent step in plain tensor code (the reference has no
 kernel there either).  The reference's numerics are kept: the ``D`` skip
 in float32, ``y`` cast to the activation dtype before the ``silu(z)``
 gate, the gated RMSNorm in float32 with eps 1e-6 and ``1 + norm_scale``.
+
+Under tensor parallelism (:func:`apply_ssd_tp`, :func:`decode_ssd_tp`) the
+parameters keep the serving rules' placement, which splits *fused* dims
+evenly: ``w_in``'s columns ``[z | x | B | C | dt]`` and the conv's ``[x |
+B | C]`` do not break at the segments.  So each step is explicit: the
+column-parallel projection, a :func:`~repro_torch.sharding.placement.
+regroup` into the conv layout (the conv's even split, which is also the
+conv state's) beside z and dt by heads, the conv, and a second regroup
+into the heads layout (x by heads, B and C on every shard).  The scan
+then runs at H/tp heads; the gated RMSNorm's mean over the whole
+``d_inner`` takes one :func:`reduce_sum` of the per-row sums of squares,
+and ``w_out`` (its rows split as the heads are) is row-parallel.
 """
 
 from __future__ import annotations
@@ -16,6 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.sharding.placement import (
+    broadcast,
+    even_bounds,
+    reduce_sum,
+    regroup,
+)
 
 from .common import PSpec, causal_conv, rmsnorm, softplus
 
@@ -120,3 +138,136 @@ def decode_ssd(cfg, p, x, cache):
     y = y + xh * p["d_skip"].float()[None, :, None]
     cache["conv"].copy_(hist[:, 1:])
     return _gate_norm_out(p, y.reshape(b, 1, cfg.d_inner), z)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: shards by heads, parameters in the rules' even split
+
+
+def tp_layout(cfg, tp):
+    """The column ranges of the sharded block: ``fused`` (w_in's even
+    split), ``proj`` (per shard: its z and dt by heads and its conv
+    columns, in w_in's coordinates), ``conv`` (the conv's even split) and
+    ``heads`` (per shard: its x by heads, then all of B and C, in the
+    conv's coordinates)."""
+    DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    if H % tp:
+        raise NotImplementedError(f"{H} SSM heads do not split {tp} ways")
+    fused = even_bounds(2 * DI + 2 * N + H, tp)
+    conv = even_bounds(DI + 2 * N, tp)
+    DIl, Hl = DI // tp, H // tp
+    proj = [[(r * DIl, (r + 1) * DIl), (DI + a, DI + b),
+             (2 * DI + 2 * N + r * Hl, 2 * DI + 2 * N + (r + 1) * Hl)]
+            for r, (a, b) in enumerate(conv)]
+    heads = [[(r * DIl, (r + 1) * DIl), (DI, DI + 2 * N)]
+             for r in range(tp)]
+    return {"fused": fused, "proj": proj, "conv": conv, "heads": heads}
+
+
+def _split_proj_tp(cfg, tp, projs, devices):
+    """Each shard's (z, conv input, dt) from the shards' column-parallel
+    projections."""
+    lay = tp_layout(cfg, tp)
+    DIl, Wcl = cfg.d_inner // tp, (cfg.d_inner + 2 * cfg.ssm_state) // tp
+    return [(t[..., :DIl], t[..., DIl:DIl + Wcl], t[..., DIl + Wcl:])
+            for t in regroup(projs, lay["fused"], lay["proj"], devices)]
+
+
+def _split_conv_tp(cfg, tp, convs, devices):
+    """Each shard's (x by heads, B, C) from the shards' conv outputs."""
+    lay = tp_layout(cfg, tp)
+    DIl, N = cfg.d_inner // tp, cfg.ssm_state
+    return [(t[..., :DIl], t[..., DIl:DIl + N], t[..., DIl + N:])
+            for t in regroup(convs, lay["conv"], lay["heads"], devices)]
+
+
+def _head_params(p, r, Hl):
+    """Shard r's slices of the replicated per-head vectors."""
+    hs = slice(r * Hl, (r + 1) * Hl)
+    return p["a_log"][hs], p["dt_bias"][hs], p["d_skip"][hs]
+
+
+def _gate_norm_out_tp(ps, ys, zs, d_inner):
+    """:func:`_gate_norm_out` over shards: ``ys[r]``/``zs[r]`` are shard
+    r's heads; the mean square over the whole ``d_inner`` is the
+    :func:`reduce_sum` of the shards' per-row sums, then each shard's
+    normed slice goes through its rows of ``w_out`` (a partial sum).
+    → the output on shard 0's device."""
+    gated = [y.to(z.dtype) * F.silu(z) for y, z in zip(ys, zs)]
+    sums = reduce_sum([g.float().square().sum(-1, keepdim=True)
+                       for g in gated])
+    outs = []
+    for p, g, ss in zip(ps, gated, sums):
+        normed = g.float() * torch.rsqrt(ss / d_inner + _NORM_EPS)
+        normed = (normed * (1.0 + p["norm_scale"].float())).to(g.dtype)
+        outs.append(normed @ p["w_out"].to(g.dtype))
+    return reduce_sum(outs)[0]
+
+
+def apply_ssd_tp(cfg, ps, x, devices, *, return_state=False):
+    """:func:`apply_ssd` over tensor-parallel shards (``ps[r]`` on
+    ``devices[r]``; x replicated, on shard 0's device) → the output on
+    shard 0's device, and with ``return_state`` each shard's decode cache:
+    ``ssm`` at its H/tp heads, ``conv`` its columns of the conv layout."""
+    b, S, _ = x.shape
+    tp = len(ps)
+    Hl, P = cfg.ssm_heads // tp, cfg.ssm_headdim
+    xs = broadcast(x, devices)
+    split = _split_proj_tp(cfg, tp, [xr @ p["w_in"].to(x.dtype)
+                                     for p, xr in zip(ps, xs)], devices)
+    convs = [F.silu(causal_conv(cin, p["conv_w"], p["conv_b"]))
+             for p, (_, cin, _) in zip(ps, split)]
+    ys, states = [], []
+    for r, (p, (xi, B_, C_), (_, _, dt)) in enumerate(zip(
+            ps, _split_conv_tp(cfg, tp, convs, devices), split)):
+        a_log, dt_bias, d_skip = _head_params(p, r, Hl)
+        dt = softplus(dt.float() + dt_bias.float())
+        xh = xi.reshape(b, S, Hl, P)
+        y, state = ssd_ops.ssd_chunked(xh, dt, a_log, B_, C_,
+                                       chunk=cfg.ssm_chunk)
+        y = y + xh.float() * d_skip.float()[None, None, :, None]
+        ys.append(y.reshape(b, S, Hl * P))
+        states.append(state)
+    out = _gate_norm_out_tp(ps, ys, [z for z, _, _ in split], cfg.d_inner)
+    if not return_state:
+        return out
+    K = ps[0]["conv_w"].shape[0]
+    return out, [{"ssm": st, "conv": F.pad(
+        cin[:, -(K - 1):], (0, 0, max(0, K - 1 - S), 0)).clone()}
+        for st, (_, cin, _) in zip(states, split)]
+
+
+def decode_ssd_tp(cfg, ps, x, caches, devices):
+    """:func:`decode_ssd` over tensor-parallel shards: ``caches[r]`` is
+    shard r's cache (its heads of ``ssm``, its conv-layout columns of
+    ``conv``), updated in place → the output on shard 0's device."""
+    b = x.shape[0]
+    tp = len(ps)
+    Hl, P = cfg.ssm_heads // tp, cfg.ssm_headdim
+    xs = broadcast(x, devices)
+    split = _split_proj_tp(cfg, tp, [xr @ p["w_in"].to(x.dtype)
+                                     for p, xr in zip(ps, xs)], devices)
+    hists, convs = [], []
+    for p, c, xr, (_, pre, _) in zip(ps, caches, xs, split):
+        hist = torch.cat([c["conv"], pre.to(c["conv"].dtype)], dim=1)
+        conv_out = torch.einsum("bkc,kc->bc", hist.to(xr.dtype),
+                                p["conv_w"].to(xr.dtype)) \
+            + p["conv_b"].to(xr.dtype)
+        hists.append(hist)
+        convs.append(F.silu(conv_out))
+    ys = []
+    for r, (p, c, hist, (xi, B_, C_), (_, _, dt)) in enumerate(zip(
+            ps, caches, hists, _split_conv_tp(cfg, tp, convs, devices),
+            split)):
+        a_log, dt_bias, d_skip = _head_params(p, r, Hl)
+        dt1 = softplus(dt[:, 0].float() + dt_bias.float())       # [B,Hl]
+        dA = torch.exp(dt1 * -torch.exp(a_log.float()))
+        xh = xi.reshape(b, Hl, P).float()
+        h = c["ssm"]
+        h.mul_(dA[..., None, None]).add_(
+            (xh * dt1[..., None])[..., None] * B_.float()[:, None, None, :])
+        y = (h @ C_.float()[:, None, :, None])[..., 0]
+        y = y + xh * d_skip.float()[None, :, None]
+        c["conv"].copy_(hist[:, 1:])
+        ys.append(y.reshape(b, 1, Hl * P))
+    return _gate_norm_out_tp(ps, ys, [z for z, _, _ in split], cfg.d_inner)

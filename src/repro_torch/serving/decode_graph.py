@@ -33,6 +33,10 @@ def launch_counters() -> dict:
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"decode_attention": da_ops.decode_attention,
             "decode_attention_int8": da_ops.decode_attention_int8,
+            "decode_attention_partial": da_ops.decode_attention_partial,
+            "decode_attention_int8_partial":
+                da_ops.decode_attention_int8_partial,
+            "decode_combine": da_ops.decode_combine,
             "flash_attention": fa_ops.flash_attention,
             "rglru_scan": lru_ops.rglru_scan,
             "paged_decode_attention": pa_ops.paged_decode_attention,

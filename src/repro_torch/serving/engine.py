@@ -40,9 +40,14 @@ and every prefill and decode step runs the sharded program of
 on the KV heads only (``cache_pspecs``' paged rule), while the page
 tables, the allocator and the radix trie stay one host namespace.  The
 decode step is captured as one CUDA graph when every shard sits on the
-engine's device; a mesh over several devices runs it eagerly.  This
-covers the paged layout (the dense and VLM families); the contiguous
-layout and MoE under a mesh raise (ROADMAP A.11d).
+engine's device; a mesh over several devices runs it eagerly.  Every
+decoder-only family shards: MoE on the paged layout (the ``shard_map``
+dispatch), and the contiguous layout (hybrid, SSM, int8-KV and windowed
+models, and the dense opt-out), whose slot cache is one grouped cache
+per shard at the local shapes of the serving rules' ``cache_pspecs``.
+The encoder-decoder family runs under a mesh at the model level only
+(the engine refuses it, as above), and head-dim-sharded strategies
+raise.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import shard_key
+from repro_torch.models.lm import TensorParallel, init_cache_tp, shard_key
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.spans import DETACHED, current_tracer, maybe_span
 from repro_torch.sharding.placement import ShardedParams, local_zeros
@@ -263,9 +268,10 @@ class ServingEngine:
         self.mesh = mesh
         self._rules = None
         if mesh is not None:
-            self._rules = self._check_mesh(model, mesh, kv_layout)
+            self._rules = make_serving_rules(mesh, model.cfg)
             params = ShardedParams(params,
                                    params_pspecs(self._rules, model), mesh)
+            TensorParallel(model.cfg, params)   # raises for what won't shard
             device = params.devices[0]
         self.device = resolve_device(device)
         for leaf in tensors(params if mesh is None else params.shards):
@@ -366,34 +372,21 @@ class ServingEngine:
         self.page_size = None
         self.num_pages = 0
         self.allocator = None
-        self.cache = model.init_cache(max_slots, max_len, device=self.device)
+        self.cache = model.init_cache(max_slots, max_len, device=self.device) \
+            if mesh is None else init_cache_tp(self.cfg, self.params,
+                                               max_slots, max_len)
         self.prefix_cache = None
         if self._paged:
             # a dense or MoE model's grouped cache is one block kind stacked
             # over its layers: {"k", "v"} [L, max_slots, max_len, KVH, hd],
             # the prefill KV's layout with the batch axis as the slot axis
-            self._slot_kv = self.cache["layers"]["b0"]
-            assert set(self.cache) == {"layers"} \
-                and set(self.cache["layers"]) == {"b0"} \
-                and set(self._slot_kv) == set(self._seq_axes), \
-                "a prefix-aware model's cache is one stacked block"
+            # (one such tree per shard under a mesh)
+            self._slot_kv = _stacked_kv(self.cache) if mesh is None else {
+                key: _stacked_kv(shard) for key, shard in self.cache.items()}
             self._empty_prefix = _empty_prefix(self._slot_kv)
             if prefix_cache_budget:
                 self.prefix_cache = PrefixCache(self._seq_axes,
                                                 prefix_cache_budget)
-
-    @staticmethod
-    def _check_mesh(model, mesh, kv_layout):
-        """The serving rules of a mesh engine; raises for what this slice
-        does not shard."""
-        cfg = model.cfg
-        if cfg.family == "moe" or model.prefix_seq_axes() is None \
-                or kv_layout == "contiguous":
-            raise NotImplementedError(
-                f"{cfg.name}: mesh= covers the paged layout of the dense and "
-                f"VLM families; MoE and the contiguous layout under a mesh "
-                f"come with ROADMAP A.11d")
-        return make_serving_rules(mesh, cfg)
 
     def _init_paged(self, page_size, num_pages, prefix_cache_budget):
         """Block-paged KV state: the page pool shared by all slots, the
@@ -484,11 +477,10 @@ class ServingEngine:
         """Write a prefilled [L, 1, S, ...] KV segment into positions [0, S)
         of ``slot`` of the contiguous cache, in place (the reference's
         donated splice)."""
-        for name, cur in self._slot_kv.items():
-            ax = self._seq_axes[name]
-            s = seg[name]
+        def w(ax, cur, s):
             cur.select(ax - 1, slot).narrow(ax - 1, 0, s.shape[ax]).copy_(
                 s.select(ax - 1, 0))
+        _map(w, self._seq_axes, self._slot_kv, seg)
 
     def _tr(self, track: str) -> str:
         """Trace track name, prefixed when the engine is named (replicas
@@ -1201,6 +1193,15 @@ class ServingEngine:
                 if self.queue.empty() and not self._warm_waiting \
                         and not self._pending and not self._wait_pages:
                     return
+
+
+def _stacked_kv(cache):
+    """The one stacked block ``{"k", "v"}`` of a prefix-aware model's
+    grouped cache."""
+    assert set(cache) == {"layers"} and set(cache["layers"]) == {"b0"} \
+        and set(cache["layers"]["b0"]) == {"k", "v"}, \
+        "a prefix-aware model's cache is one stacked block"
+    return cache["layers"]["b0"]
 
 
 def _empty_prefix(kv):

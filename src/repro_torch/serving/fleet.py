@@ -17,7 +17,9 @@ replica ``i`` spans a ``make_serving_mesh(tp)`` over the ``tp`` devices
 starting at ``i * tp`` of ``devices`` (default: the host's CUDA
 devices), or the first ``tp`` when there are fewer than ``replicas *
 tp``; ``devices`` may repeat a device (``["cpu"] * 4``), and each replica
-then holds its own shards of the parameters.
+then holds its own shards of the parameters.  Every family the engine
+shards may run so: dense, VLM and MoE on the paged layout, hybrid, SSM
+and int8-KV models on the contiguous one.
 
 Routing: the default ``prefix_affinity`` policy probes each replica's
 radix prefix cache (``LocalEngineBackend.prefix_probe``) and sends a

@@ -212,3 +212,48 @@ def gather(parts, dim: int) -> torch.Tensor:
     the first shard's device."""
     dev0 = parts[0].device
     return torch.cat([p.to(dev0) for p in parts], dim=dim)
+
+
+def regroup(parts, bounds, want, devices) -> list:
+    """Move columns (the last dim) between shards into another layout.
+
+    ``parts[r]`` holds the global columns ``[bounds[r][0], bounds[r][1])``
+    of a tensor (its shard under the parameter layout, e.g. an even split
+    of a fused projection); ``want[t]`` lists the global column ranges
+    ``(lo, hi)`` shard t needs, in order.  → for each t, those columns
+    concatenated, on ``devices[t]``.  A range is cut at the source shards'
+    bounds and each piece read from shard t itself where it holds the
+    columns, else from the lowest rank that does.  Counts every piece in
+    ``regroup.pieces`` and those read from another shard in
+    ``regroup.copies``."""
+    out = []
+    for t, (ranges, dev) in enumerate(zip(want, devices)):
+        pieces = []
+        for lo, hi in ranges:
+            at = lo
+            while at < hi:
+                src = t if bounds[t][0] <= at < bounds[t][1] else next(
+                    (r for r, (a, b) in enumerate(bounds) if a <= at < b),
+                    None)
+                if src is None:
+                    raise ValueError(f"no shard holds column {at}")
+                a, b = bounds[src]
+                end = min(hi, b)
+                pieces.append(parts[src][..., at - a:end - a].to(dev))
+                regroup.pieces += 1
+                regroup.copies += src != t
+                at = end
+        out.append(torch.cat(pieces, -1) if len(pieces) > 1 else pieces[0])
+    return out
+
+
+regroup.pieces = 0
+regroup.copies = 0
+
+
+def even_bounds(n: int, tp: int) -> list:
+    """The column ranges of an even split of ``n`` columns ``tp`` ways."""
+    if n % tp:
+        raise ValueError(f"{n} columns do not split {tp} ways")
+    w = n // tp
+    return [(r * w, (r + 1) * w) for r in range(tp)]

@@ -456,22 +456,23 @@ def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
 
 
 def test_train_phases_parse():
-    """The five train phases, the fleet phase and the tensor-parallel and
-    all-reduce phases are phases of the script, the newest last and in
-    this order: ``--phases`` takes them (and without a card the script
-    stops before running any), and an unknown name is refused."""
+    """The five train phases, the fleet phase and the tensor-parallel,
+    all-reduce and tensor-parallel families phases are phases of the
+    script, the newest last and in this order: ``--phases`` takes them
+    (and without a card the script stops before running any), and an
+    unknown name is refused."""
     train = ("train", "train_ssm", "train_hybrid", "train_moe",
              "train_encdec")
-    assert chip_smoke.PHASES[-8:] == ("train", "train_ssm", "train_hybrid",
+    assert chip_smoke.PHASES[-9:] == ("train", "train_ssm", "train_hybrid",
                                       "serve_fleet", "train_moe",
                                       "train_encdec", "serve_tp",
-                                      "ef_allreduce")
+                                      "ef_allreduce", "serve_tp_families")
     assert tuple(chip_smoke.TRAIN_CASES) == train
     assert set(train) < set(chip_smoke.PHASES)
     if not torch.cuda.is_available():
         assert chip_smoke.main(["--phases", ",".join(train)
-                                + ",serve_fleet,serve_tp,ef_allreduce"]) \
-            == 2
+                                + ",serve_fleet,serve_tp,ef_allreduce,"
+                                "serve_tp_families"]) == 2
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phases", "train,train_vlm"])
 
@@ -931,3 +932,140 @@ def test_ef_allreduce_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
     assert line["fp32_bytes"] == 4 * line["values"]
     assert line["wire_bytes"] >= comp.wire_bytes(line["values"])
     assert all(r > 0 for r in line["residual_norm_per_shard"])
+
+
+def _count_decode_on_cpu(monkeypatch):
+    """Each CPU call of the contiguous decode wrappers' plain versions
+    (whole, partial and the combine) counted as its launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as da
+
+    def count(ref_name, wrapper, key):
+        ref = getattr(da, ref_name)
+
+        def counted(*a, **k):
+            _build.count_launch(wrapper, key(*a))
+            return ref(*a, **k)
+        monkeypatch.setattr(da, ref_name, counted)
+
+    count("decode_attention_ref", da.decode_attention,
+          lambda q, k, *_: da.launch_key(q, k))
+    count("decode_attention_int8_ref", da.decode_attention_int8,
+          lambda q, k, *_: da.launch_key(q, k))
+    count("decode_partial_ref", da.decode_attention_partial,
+          lambda q, k, *_: da.launch_key(q, k))
+    count("decode_partial_int8_ref", da.decode_attention_int8_partial,
+          lambda q, k, *_: da.launch_key(q, k))
+    count("decode_combine_ref", da.decode_combine,
+          lambda acc, ml, dtype: da.combine_key(acc, dtype))
+
+
+def test_serve_tp_families_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
+                                                capsys):
+    """The tensor-parallel families phase on reduced configs (the hybrid
+    at 5 layers with a 16-slot window, short prompts): tp = 1, 2, 4 of
+    olmoe-1b-7b (paged), recurrentgemma-9b (dense, then int8 at tp = 1
+    and 2) and mamba2-2.7b (contiguous), whisper-medium at tp = 1 and 2
+    (model level), exact launches per shard (the sequence split's
+    partials and combines included), each shard's cache at the estimate
+    / tp, float32 tokens equal across tp.  The CPU engine captures no
+    graph."""
+    import dataclasses
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+
+    def reduced(name):
+        cfg = real(name).reduced()
+        if name == "recurrentgemma-9b":
+            cfg = dataclasses.replace(cfg, num_layers=5, attn_window=16)
+        return cfg
+    monkeypatch.setattr(configs, "get_config", reduced)
+    _count_paged_on_cpu(monkeypatch)
+    _count_decode_on_cpu(monkeypatch)
+    mod = cpu_chip_smoke
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    mod.MAX_LEN = 64
+    mod.HYBRID_PROMPTS = (40, 33, 20, 12, 9, 5, 3, 2)
+    mod.HYBRID_INT8_PROMPTS = (40, 12, 3, 2)
+    mod.SSM_PROMPTS = (40, 33, 20, 12, 9, 5, 3, 2)
+    graphs = []
+
+    def no_graph(label, graph, steps, per_step):
+        assert graph is None and steps > 0
+        graphs.append((label, per_step))
+        return {"launches_per_replay": {n: k for n, k in per_step.items()
+                                        if k}}
+    mod.check_graph = no_graph
+    launches, shapes = mod.phase_serve_tp_families(0)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_tp_families"
+    models = {m["model"] + "/" + m.get("kv_cache_dtype", "activation"): m
+              for m in line["models"]}
+    assert len(line["models"]) == 5
+    for m in line["models"]:
+        tps = [r["tp"] for r in m["bfloat16"]]
+        assert tps in ([1, 2, 4], [1, 2])
+        assert m["bfloat16"][0]["tokens_equal_tp1_share"] == 1.0
+        assert all(r["tokens_equal_tp1"] for r in m["float32"]["by_tp"])
+        for r in m["bfloat16"]:
+            assert len(r["shard_cache_bytes"]) == r["tp"]
+    hyb = models["recurrentgemma-9b/activation"]["bfloat16"]
+    # 5 layers: (rglru, rglru, attn) + two rglru: 1 attention block
+    for r in hyb:
+        per = r["launches_per_step"]
+        if r["tp"] == 1:
+            assert per == {"decode_attention": 1}
+        else:
+            assert per == {"decode_attention_partial": r["tp"],
+                           "decode_combine": 1}
+        assert r["launches"]["rglru_scan"] == 4 * r["tp"] * r["admissions"]
+    int8 = models["recurrentgemma-9b/int8"]["bfloat16"]
+    assert int8[1]["launches_per_step"] == {
+        "decode_attention_int8_partial": 2, "decode_combine": 1}
+    ssm = models["mamba2-2.7b/activation"]
+    assert ssm["reshard"]["copies_from_other_shards"] > 0
+    for r in ssm["bfloat16"]:
+        assert r["launches"] == {"ssd_chunk_scan": 2 * r["tp"]
+                                 * r["admissions"]}
+    moe = models["olmoe-1b-7b/activation"]["bfloat16"]
+    for r in moe:
+        assert r["launches_per_step"] == {"paged_decode_attention":
+                                          2 * r["tp"]}
+    enc = models["whisper-medium/activation"]
+    assert enc["level"] == "model"
+    assert [r["tp"] for r in enc["bfloat16"]] == [1, 2]
+    assert launches["decode_combine"] > 0
+    assert launches["decode_attention_partial"] > 0
+    assert shapes["decode_combine"]
+
+
+def test_decode_split_rows_rehearsed_on_the_cpu(cpu_chip_smoke):
+    """The partial and combine rows at recurrentgemma-9b's shard shapes
+    (timers stubbed): each within tolerance of its plain version, the
+    merged output within tolerance of the unsplit decode, a bound, and
+    SDPA as the partial rows' library call."""
+    mod = cpu_chip_smoke
+    mod.time_ms = lambda fn, args, **k: (fn(*args), (0.0, True))[1]
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    for kname in ("decode_attention_partial",
+                  "decode_attention_int8_partial"):
+        rows += mod.decode_split_rows(gen, kname, 4, "float32",
+                                      torch.float32)
+    assert [r["kernel"] for r in rows] == [
+        "decode_attention_partial", "decode_combine",
+        "decode_attention_int8_partial"]
+    for r in rows:
+        assert r["max_abs_err"] <= r["tol"] and r["bound_ms"] > 0
+        assert r["shape"] == "recurrentgemma-9b/tp4"
+    assert rows[0]["C"] == 512 and rows[0]["library_ms"] == 0.0
+    assert rows[1]["n_split"] == 4 and rows[1]["library_ms"] is None
+    assert rows[1]["merged_vs_unsplit_decode_err"] <= 2e-5
+    assert set(mod.SUMMARY_CASE) >= {"decode_attention_partial",
+                                     "decode_attention_int8_partial",
+                                     "decode_combine"}
+    assert all(n in mod.SOURCES and n in mod.REPLACES
+               for n in mod.SUMMARY_CASE)

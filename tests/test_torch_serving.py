@@ -124,14 +124,15 @@ def test_cancellation_returns_pages(served):
 
 
 def test_unsupported_engine_options_raise(served):
-    """Only ``mesh=`` with the contiguous layout is still refused;
-    ``kv_layout="contiguous"`` and ``metrics=`` build engines, and
-    requests that could never be admitted are refused at submission."""
+    """``kv_layout="contiguous"`` (also under a mesh: one
+    slot cache a shard) and ``metrics=`` build engines, and requests that
+    could never be admitted are refused at submission."""
     from repro_torch.launch.mesh import make_serving_mesh
     _, (mt, pt) = served
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServingEngine(mt, pt, device="cpu", kv_layout="contiguous",
-                      mesh=make_serving_mesh(2, devices=["cpu"] * 2))
+    eng = ServingEngine(mt, pt, device="cpu", kv_layout="contiguous",
+                        mesh=make_serving_mesh(2, devices=["cpu"] * 2))
+    assert eng.kv_layout == "contiguous"
+    assert set(eng.cache) == {"shard0", "shard1"}
     registry = MetricsRegistry()
     eng = ServingEngine(mt, pt, device="cpu", kv_layout="contiguous",
                         metrics=registry)

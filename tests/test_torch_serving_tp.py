@@ -7,8 +7,8 @@ and the MLP's hidden dim that do not).  The reference's own tp cells
 fail on JAX 0.9 (ROADMAP §D), and its engine is token-identical across
 tp by design, so its single-device engine is the yardstick.  Also: each
 shard's pool holds ``paged_kv_pool_bytes / tp``, a fleet of two tp = 2
-replicas over four devices, and the layouts a mesh does not cover yet
-raise."""
+replicas over four devices, the layouts a mesh once refused served,
+and what a mesh still refuses raising."""
 
 import asyncio
 
@@ -30,6 +30,8 @@ from repro_torch.models.lm import TensorParallel
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.fleet import EngineFleet
 from repro_torch.serving.prefix_cache import tree_nbytes
+from repro_torch.sharding.placement import ShardedParams
+from repro_torch.sharding.rules import make_rules, params_pspecs
 
 torch.set_num_threads(1)
 
@@ -153,14 +155,39 @@ def test_fleet_of_tp_replicas(models):
         EngineFleet(mt, pt, tp=4, devices=["cpu"] * 2, device="cpu")
 
 
+@pytest.mark.parametrize("arch,rep,kw", [
+    ("stablelm-3b", {}, dict(kv_layout="contiguous")),
+    ("olmoe-1b-7b", {}, {}),
+    ("recurrentgemma-9b", dict(num_layers=5, attn_window=8), {})])
+def test_mesh_serves_what_it_refused(arch, rep, kw):
+    """The layouts the mesh once refused (the contiguous opt-out, MoE, the
+    hybrid's contiguous cache) now serve: tokens equal the one-device
+    port engine's (held against the JAX engine in
+    ``test_torch_serving_tp_families.py``)."""
+    m = build_model(get_config(arch).reduced().replace(**rep))
+    p = m.init(0, device="cpu")
+    prompts = [[5, 17, 31, 2], [9, 8, 7]]
+    want = _serve(ServingEngine(m, p, device="cpu", max_slots=2, max_len=32,
+                                **kw), prompts, 4, None)
+    eng = ServingEngine(m, p, device="cpu", max_slots=2, max_len=32,
+                        mesh=make_serving_mesh(2, devices=["cpu"] * 2), **kw)
+    assert _serve(eng, prompts, 4, None) == want
+
+
 def test_mesh_refuses_what_it_does_not_shard(models):
-    _, _, mt, pt = models["stablelm"]
+    """The encoder-decoder engine (a request carries no encoder frames, as
+    the reference's), head-dim-sharded strategies (serving runs the heads
+    strategy) and recurrent widths that do not split."""
     mesh = make_serving_mesh(2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="A.11d"):
-        ServingEngine(mt, pt, mesh=mesh, kv_layout="contiguous",
-                      device="cpu")
-    for arch in ("olmoe-1b-7b", "recurrentgemma-9b"):
-        m = build_model(get_config(arch).reduced())
-        with pytest.raises(NotImplementedError, match="A.11d"):
-            ServingEngine(m, m.init(0, device="cpu"), mesh=mesh,
-                          device="cpu")
+    w = build_model(get_config("whisper-medium").reduced())
+    with pytest.raises(NotImplementedError, match="encoder"):
+        ServingEngine(w, w.init(0, device="cpu"), mesh=mesh, device="cpu")
+    _, _, mt, pt = models["stablelm"]
+    ulysses = make_rules(mesh, mt.cfg.replace(tp_strategy="ulysses"))
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        TensorParallel(mt.cfg, ShardedParams(pt, params_pspecs(ulysses, mt),
+                                             mesh))
+    h = build_model(get_config("recurrentgemma-9b").reduced())
+    with pytest.raises(NotImplementedError, match="split 3 ways"):
+        ServingEngine(h, h.init(0, device="cpu"), device="cpu",
+                      mesh=make_serving_mesh(3, devices=["cpu"] * 3))
