@@ -203,6 +203,22 @@ Phases, each printing one JSON line:
              against the exact mean, the residual's norm, ``wire_bytes``
              against 4 B a value, and ms a call (the second, with the
              first call's errors fed back).
+18. train_tp — the sharded train step (``make_train_step(model,
+             optimizer, mesh)``: FSDP over ``data``, the rules' model
+             split, one controller) with every coordinate on this card,
+             bf16 activations, f32 parameters, ``remat="full"``, the
+             ``train`` phase's data and AdamW: stablelm-3b at full width
+             (the heads layout), its depth cut to 8 of 32 layers, at
+             meshes (1, 1), (2, 1), (1, 2) and (2, 2); qwen3-14b at full
+             width cut to 2 of 40 layers at (1, 16), where ``make_rules``
+             picks ``ulysses_sp`` (40 heads do not split 16 ways).  Per
+             mesh: step median and p90, loss and gradients (relative L2)
+             against the (1, 1) step's, flash launches a step held to dp
+             × tp × layers × 2 (forward and remat recompute), the
+             collectives by kind and the peak memory of the steps (and,
+             apart, of placing the state).  Then float32 at 2
+             layers: loss and gradients held to the (1, 1) step's within
+             ``TRAIN_TP_TOL_F32``.
 
 The kernels phase also holds each trained wrapper's
 ``torch.autograd.Function`` on the card at these phases' shapes: flash
@@ -262,7 +278,7 @@ OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
           "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
           "train_hybrid", "serve_fleet", "train_moe", "train_encdec",
-          "serve_tp", "ef_allreduce", "serve_tp_families")
+          "serve_tp", "ef_allreduce", "serve_tp_families", "train_tp")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -720,7 +736,6 @@ def phase_kernels():
     results = []
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
-        es = torch.finfo(dtype).bits // 8
         for sname, sh in shapes.items():
             H, KVH, d = sh["H"], sh["KVH"], sh["d"]
             # -- paged decode
@@ -746,10 +761,8 @@ def phase_kernels():
                 gen, sname, sh, dname, dtype, out, args)
             toks = sum(min(x, N * ps) for x in lengths)
             rows = int(paged_kv_keys(table, lengths, ps).size)
-            nbytes = 2 * q.numel() * es + 2 * rows * KVH * d * es \
-                + table.numel() * 4 + lens.numel() * 4
-            flops = 4 * toks * H * d
-            b_ms, b_by = bound(nbytes, flops, dname)
+            b_ms, b_by = bound(*pa_ops.paged_decode_attention_work(
+                q, kp, table, tokens=toks, kv_rows=rows), dname)
             results.append(dict(
                 kernel="paged_decode_attention", shape=sname, dtype=dname,
                 B=B, H=H, KVH=KVH, d=d, ps=ps, lengths=lengths,
@@ -786,12 +799,10 @@ def phase_kernels():
                     check_flash_padding_nan(label, q, k, v, kw, out)
                 keep = keep_mask(S, T, prefix_pad=pad, prefix_len=plen,
                                  device="cuda")
-                pairs = int(keep.sum().item())
                 # K/V rows some query keeps: prefix padding is never read
                 rows = int(keep.any(0).sum().item())
-                nbytes = (2 * q.numel() + 2 * rows * KVH * d) * es
-                flops = 4 * pairs * H * d
-                b_ms, b_by = bound(nbytes, flops, dname)
+                b_ms, b_by = bound(*fa_ops.flash_attention_work(q, k, **kw),
+                                   dname)
                 results.append(dict(
                     kernel="flash_attention", shape=sname, dtype=dname,
                     S=S, T=T, H=H, KVH=KVH, d=d, prefix_pad=pad,
@@ -802,7 +813,8 @@ def phase_kernels():
                 emit({"phase": "kernels", **results[-1]})
     for row in (hybrid_kernel_rows(gen) + ssd_kernel_rows(gen)
                 + encdec_kernel_rows(gen) + train_flash_rows(gen)
-                + backward_kernel_rows(gen) + tp_family_kernel_rows(gen)):
+                + backward_kernel_rows(gen) + tp_family_kernel_rows(gen)
+                + ulysses_flash_rows(gen)):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
@@ -888,7 +900,6 @@ def decode_kernel_row(gen, kname, sname, sh, dname, dtype, **label):
     from repro_torch.models.attention import dequantize_kv, quantize_kv
 
     dev = "cuda"
-    es = torch.finfo(dtype).bits // 8
     H, KVH, d, C = sh["H"], sh["KVH"], sh["d"], sh["C"]
     if sh["pos"] is None:
         B = sh["B"]
@@ -903,14 +914,12 @@ def decode_kernel_row(gen, kname, sname, sh, dname, dtype, **label):
     if kname == "decode_attention":
         args = (q, k, v, valid)
         fn, ref_fn = da_ops.decode_attention, decode_attention_ref
-        kv_es = es
     else:
         k8, ks = quantize_kv(k)
         v8, vs = quantize_kv(v)
         args = (q, k8, v8, ks, vs, valid)
         fn = da_ops.decode_attention_int8
         ref_fn = decode_attention_int8_ref
-        kv_es = 1 + 4 / d                     # int8 + one f32 scale
     name = " ".join([kname, sname, *map(str, label.values()), dname])
     out = fn(*args)
     err = check_close(name, out, ref_fn(*args), dname)
@@ -933,10 +942,8 @@ def decode_kernel_row(gen, kname, sname, sh, dname, dtype, **label):
         return sdpa(q.transpose(1, 2), k.transpose(1, 2),
                     v.transpose(1, 2), valid[:, None, None, :])
 
-    nbytes = 2 * q.numel() * es + 2 * n_valid * KVH * d * kv_es \
-        + valid.numel()
-    flops = 4 * n_valid * H * d
-    b_ms, b_by = bound(nbytes, flops, dname)
+    b_ms, b_by = bound(*da_ops.decode_attention_work(
+        q, k, n_valid, int8=kname != "decode_attention"), dname)
     return dict(
         kernel=kname, shape=sname, **label, dtype=dname, B=B, H=H, KVH=KVH,
         d=d, C=C, positions=sh["pos"], valid_rows=n_valid,
@@ -973,7 +980,6 @@ def hybrid_kernel_rows(gen):
              ("decode_attention_int8", "stablelm-3b")]
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
-        es = torch.finfo(dtype).bits // 8
         for kname, sname in cases:
             rows.append(decode_kernel_row(gen, kname, sname, shapes[sname],
                                           dname, dtype))
@@ -988,9 +994,8 @@ def hybrid_kernel_rows(gen):
                           flash_attention_ref(q, k, v, causal=True,
                                               window=W), dname)
         keep = keep_mask(S, S, window=W, device=dev)
-        pairs = int(keep.sum().item())
-        b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es,
-                           4 * pairs * H * d, dname)
+        b_ms, b_by = bound(*fa_ops.flash_attention_work(
+            q, k, causal=True, window=W), dname)
         rows.append(dict(
             kernel="flash_attention", shape="recurrentgemma-9b", dtype=dname,
             S=S, T=S, H=H, KVH=KVH, d=d, window=W, prefix_pad=0,
@@ -1024,8 +1029,7 @@ def rglru_rows(gen, Wd, shape, cases):
         err = check_close(f"rglru_scan B={B} S={S} h0={with_h0}", out,
                           rglru_scan_ref(a, b, h), "float32")
         # one entry per read of a and b and per write of h; 2 flops each
-        b_ms, b_by = bound(3 * a.numel() * 4 + (B * Wd * 4 if with_h0 else 0),
-                           2 * a.numel(), "float32")
+        b_ms, b_by = bound(*lru_ops.rglru_scan_work(a, h), "float32")
         rows.append(dict(
             kernel="rglru_scan", shape=shape, dtype="float32",
             B=B, S=S, W=Wd, h0=with_h0, max_abs_err=err, tol=TOL["float32"],
@@ -1083,9 +1087,8 @@ def ssd_kernel_rows(gen, *, H=80, shape="mamba2-2.7b", cases=SSD_CASES):
             fail(f"{label}: the in-chunk log decay only reaches {min_cum}")
         # bytes: each input read once, y and the state written once;
         # operations: only those this run's decays leave nonzero
-        nbytes = 4 * (2 * S * H * P + S * H + H + 2 * S * N
-                      + H * P * N * (2 if with_h0 else 1))
         flops = ssd_needed_flops((dt * -torch.exp(a_log))[0], with_h0, N, P)
+        nbytes, _ = ssd_ops.ssd_chunked_work(xh, Bm, h0, flops)
         b_ms, b_by = bound(nbytes, flops, "float32")
         rows.append(dict(
             kernel="ssd_chunk_scan", shape=shape, dtype="float32",
@@ -1265,7 +1268,6 @@ def flash_row(gen, shape, case, dname, *, B, S, T, H, KVH, d, causal,
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_ref, keep_mask)
     dtype = getattr(torch, dname)
-    es = torch.finfo(dtype).bits // 8
     q = torch.randn(B, S, H, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, T, KVH, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, T, KVH, d, generator=gen, device="cuda").to(dtype)
@@ -1275,9 +1277,7 @@ def flash_row(gen, shape, case, dname, *, B, S, T, H, KVH, d, causal,
     err = check_close(label, out, flash_attention_ref(q, k, v, **kw), dname)
     check_flash_tail_nan(label, q, k, v, kw, out)
     keep = keep_mask(S, T, device="cuda") if causal else None
-    pairs = int(keep.sum().item()) if causal else S * T
-    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * es,
-                       4 * B * H * pairs * d, dname)
+    b_ms, b_by = bound(*fa_ops.flash_attention_work(q, k, **kw), dname)
     return dict(kernel="flash_attention", shape=shape, case=case,
                 dtype=dname, B=B, S=S, T=T, H=H, KVH=KVH, d=d,
                 causal=causal, prefix_pad=0, prefix_len=0, max_abs_err=err,
@@ -3822,7 +3822,6 @@ def decode_split_rows(gen, kname, tp, dname, dtype):
 
     B, H, KVH, d, C = 8, 16, 1, 256, 2048
     Cl = C // tp
-    es = torch.finfo(dtype).bits // 8
     shape = f"recurrentgemma-9b/tp{tp}"
     valid = ring_valid(RG_TP_POS, C)
     q = torch.randn(B, 1, H, d, generator=gen, device="cuda").to(dtype)
@@ -3836,12 +3835,10 @@ def decode_split_rows(gen, kname, tp, dname, dtype):
         fn, ref_fn = da_ops.decode_attention_int8_partial, \
             da_ref.decode_partial_int8_ref
         full_ref = da_ref.decode_attention_int8_ref
-        kv_es = 1 + 4 / d
     else:
         cache = (k, v)
         fn, ref_fn = da_ops.decode_attention_partial, da_ref.decode_partial_ref
         full_ref = da_ref.decode_attention_ref
-        kv_es = es
 
     def shard(r):
         return tuple(t[:, r * Cl:(r + 1) * Cl].contiguous()
@@ -3868,9 +3865,8 @@ def decode_split_rows(gen, kname, tp, dname, dtype):
                     vv.transpose(1, 2), valid[:, None, None, :])
 
     n_valid = int(vr.sum().item())
-    part_bytes = B * H * n_split * (d + 2) * 4
-    b_ms, b_by = bound(q.numel() * es + 2 * n_valid * KVH * d * kv_es
-                       + vr.numel() + part_bytes, 4 * n_valid * H * d, dname)
+    b_ms, b_by = bound(*da_ops.decode_attention_work(
+        q, args[1], n_valid, int8=int8, n_split=n_split), dname)
     rows = [dict(
         kernel=kname, shape=shape, dtype=dname, B=B, H=H, KVH=KVH, d=d,
         C=Cl, of_slots=C, positions=RG_TP_POS, valid_rows=n_valid,
@@ -3890,8 +3886,7 @@ def decode_split_rows(gen, kname, tp, dname, dtype):
                        da_ref.decode_combine_ref(acc, ml, dtype), dname)
     unsplit = check_close(f"decode split {shape} {dname} vs unsplit", out,
                           full_ref(q, *cache, valid), dname)
-    b_ms, b_by = bound(acc.numel() * 4 + ml.numel() * 4 + out.numel() * es,
-                       3 * acc.numel(), "float32")
+    b_ms, b_by = bound(*da_ops.decode_combine_work(acc, dtype), "float32")
     rows.append(dict(
         kernel="decode_combine", shape=shape, dtype=dname, B=B, H=H, d=d,
         n_split=acc.shape[2], shards=tp,
@@ -4228,6 +4223,207 @@ ROW_KEYS = ("shape", "case", "dtype", "B", "S", "T", "C", "prefix_pad",
             "prefix_len", "window", "h0", "decay", "n_split")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the sharded train step, every coordinate on this card
+
+TRAIN_TP = dict(arch="stablelm-3b", batch=4, seq=1024, layers=8,
+                meshes=((1, 1), (2, 1), (1, 2), (2, 2)),
+                why="8 of 32 layers: at 32 the (2, 2) mesh's placed train "
+                    "state beside the single-device state it is placed "
+                    "from, the (1, 1) step's gradients kept for comparison "
+                    "and a layer's gathered weights would not fit one "
+                    "card; 8 rather than the 16 that fit keeps the whole "
+                    "script well inside its time limit")
+TRAIN_TP_ULYSSES = dict(arch="qwen3-14b", batch=1, seq=1024, layers=2,
+                        meshes=((1, 1), (1, 16)),
+                        why="2 of 40 layers: 16 coordinates each gather a "
+                            "layer's whole weights (ulysses_sp), and the "
+                            "vocab tables of 151,936 rows take 6.2 GB of "
+                            "f32 state a table")
+TRAIN_TP_STEPS = 4          # the first warms up and is not timed
+TRAIN_TP_CHECK_LAYERS = 2
+# float32 at TRAIN_TP_CHECK_LAYERS layers: loss and each gradient leaf's
+# relative L2 against the (1, 1) step's (the rows' and shards' partial
+# sums add in another order than one device's products)
+TRAIN_TP_TOL_F32 = 1e-5
+
+
+def ulysses_flash_rows(gen):
+    """Flash's prefix form at qwen3-14b's ulysses_sp shard on a (1, 16)
+    mesh: the last shard's 64 query rows of 40 heads of 128 over the
+    1024 all-gathered keys of 8 KV heads, ``prefix_pad = prefix_len =
+    960`` (the causal offset of its rows), against its plain version,
+    with its bound, the plain version's time and SDPA's with the same
+    mask."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, keep_mask)
+    rows = []
+    S, T, H, KVH, d, off = 64, 1024, 40, 8, 128, 960
+    kw = dict(causal=True, prefix_pad=off, prefix_len=off)
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        q = torch.randn(1, S, H, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(1, T, KVH, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(1, T, KVH, d, generator=gen, device="cuda").to(dtype)
+        label = f"flash qwen3-14b/ulysses16 {dname}"
+        out = fa_ops.flash_attention(q, k, v, **kw)
+        err = check_close(label, out, flash_attention_ref(q, k, v, **kw),
+                          dname)
+        keep = keep_mask(S, T, **kw, device="cuda")
+        b_ms, b_by = bound(*fa_ops.flash_attention_work(q, k, **kw), dname)
+        rows.append(dict(
+            kernel="flash_attention", shape="qwen3-14b/ulysses16",
+            case="train shard 15 of 16", dtype=dname, B=1, S=S, T=T, H=H,
+            KVH=KVH, d=d, prefix_pad=off, prefix_len=off, max_abs_err=err,
+            tol=TOL[dname], launch_key=dict(fa_ops.launch_key(q, k, **kw)),
+            **flash_times(kw, keep, (q, k, v)), bound_ms=b_ms,
+            bound_by=b_by))
+    return rows
+
+
+def gathered_grads(st_tree, grads):
+    """{key: the global gradient} assembled from each coordinate's
+    gradients of its slices (``mesh_loss_and_grads``), on the card."""
+    from repro_torch.sharding.placement import ShardedTensor
+    from repro_torch.training.tree import flatten
+    out = {}
+    for key, st in flatten(st_tree).items():
+        shards = np.empty(st.mesh.devices.shape, dtype=object)
+        for c in np.ndindex(shards.shape):
+            shards[c] = grads[c][key]
+        out[key] = ShardedTensor(st.sharding, st.shape, torch.float32,
+                                 shards).full("cuda")
+    return out
+
+
+def train_tp_mesh(cfg, model, optimizer, shape, host_batch, seed, counters,
+                  steps_n):
+    """One mesh: the state placed, the loss and gradients of the first
+    batch gathered to the host, then ``steps_n`` steps timed and counted.
+    → (report, loss, gradients, launches, shapes by key)."""
+    import gc
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import COLLECTIVES, data_rows
+
+    t_mesh = time.perf_counter()
+    n = int(np.prod(shape))
+    mesh = Mesh(np.array(["cuda"] * n, dtype=object).reshape(shape),
+                ("data", "model"))
+    rls = R.make_rules(mesh, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.init_train_state(model, optimizer, seed, device="cuda")
+    placed = steps.place_train_state(model, optimizer, state, mesh, rls)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    placement_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    batch = train_device_batch(cfg, host_batch)
+    loss, _, g = steps.mesh_loss_and_grads(
+        model, rls, placed["params"], steps.row_batches(rls, batch))
+    grads = gathered_grads(placed["params"], g)
+    del g
+    dp, tp = len(data_rows(mesh)), shape[1]
+    want = {"flash_attention": dp * tp * cfg.num_layers
+            * (1 if cfg.remat == "none" else 2)}
+    step_fn = steps.make_train_step(model, optimizer, mesh)
+    step_s, losses = [], []
+    zero_launches(counters)
+    COLLECTIVES.reset()
+    for i in range(steps_n):
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed, metrics = step_fn(placed, batch)
+        losses.append(metrics["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+        check_launches(f"train_tp {cfg.name} {shape} step {i}", {
+            k: c.launches - before[k] for k, c in counters.items()}, want)
+        if i == 0:
+            coll = COLLECTIVES.snapshot()
+    launches, shapes = read_launches(counters)
+    timed = sorted(step_s[1:]) or step_s
+    rep = {"mesh": list(shape), "tp_strategy": rls.tp_strategy,
+           "rows": dp, "shards": tp, "first_step_s": step_s[0],
+           "step_median_s": statistics.median(timed),
+           "step_p90_s": timed[int(0.9 * (len(timed) - 1))],
+           "losses": losses, "flash_launches_per_step": want[
+               "flash_attention"],
+           "collectives_per_step": coll,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "placement_peak_memory_gb": placement_gb,
+           "mesh_s": time.perf_counter() - t_mesh}
+    del placed, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep, loss.item(), grads, launches, shapes
+
+
+def phase_train_tp(seed):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.training.optimizer import AdamW
+
+    counters = launch_counters()
+    launches, shapes, out = {}, {}, []
+    for case in (TRAIN_TP, TRAIN_TP_ULYSSES):
+        full = get_config(case["arch"])
+        by_dtype = {}
+        for dname, layers, steps_n in (
+                ("bfloat16", case["layers"], TRAIN_TP_STEPS),
+                ("float32", TRAIN_TP_CHECK_LAYERS, 1)):
+            cfg = full.replace(remat="full", microbatches=1, dtype=dname,
+                               num_layers=layers)
+            model = build_model(cfg)
+            optimizer = AdamW(learning_rate=TRAIN_LR)
+            host_batch = train_batch(cfg, case["batch"], case["seq"], 0,
+                                     seed)
+            base, reps = None, []
+            for shape in case["meshes"]:
+                rep, loss, grads, got, got_shapes = train_tp_mesh(
+                    cfg, model, optimizer, shape, host_batch, seed,
+                    counters, steps_n)
+                if base is None:
+                    base = (loss, grads)
+                else:
+                    errs = {k: rel_l2(grads[k], base[1][k]) for k in grads}
+                    worst = max(errs, key=errs.get)
+                    rep["loss_rel_err_vs_1x1"] = abs(loss - base[0]) \
+                        / abs(base[0])
+                    rep["worst_grad_rel_l2_vs_1x1"] = errs[worst]
+                    rep["worst_leaf"] = worst
+                    if dname == "float32" and not (
+                            rep["loss_rel_err_vs_1x1"] <= TRAIN_TP_TOL_F32
+                            and errs[worst] <= TRAIN_TP_TOL_F32):
+                        fail(f"train_tp {cfg.name} f32 {shape}: loss "
+                             f"{rep['loss_rel_err_vs_1x1']}, gradient "
+                             f"{worst} {errs[worst]} against (1, 1) (tol "
+                             f"{TRAIN_TP_TOL_F32})")
+                del grads
+                reps.append(rep)
+                launches = {n: launches.get(n, 0) + got.get(n, 0)
+                            for n in set(launches) | set(got)}
+                shapes = add_shapes(shapes, got_shapes)
+            by_dtype[dname] = {"layers": layers, "meshes": reps}
+        if not all(math.isfinite(x) for r in by_dtype["bfloat16"]["meshes"]
+                   for x in r["losses"]):
+            fail(f"train_tp {full.name}: a loss is not finite")
+        out.append({"model": full.name, "batch": case["batch"],
+                    "seq": case["seq"],
+                    "reduced": [f"num_layers {full.num_layers} -> "
+                                f"{case['layers']} ({case['why']})"],
+                    **by_dtype})
+    emit({"phase": "train_tp", "card": card(), "coordinates_on_one_card":
+          True, "remat": "full", "param_dtype": "float32", "lr": TRAIN_LR,
+          "f32_tol": TRAIN_TP_TOL_F32, "cases": out})
+    return launches, shapes
+
+
 def summary_row(r, shapes):
     """One kernels-phase row in the summary line: what tells it apart, its
     times, bound, error and the launches the main paths made at its launch
@@ -4287,6 +4483,7 @@ def main(argv=None):
                "encdec": phase_encdec,
                "serve_vlm": phase_serve_vlm,
                "serve_fleet": phase_serve_fleet,
+               "train_tp": phase_train_tp,
                **{name: functools.partial(phase_train, name)
                   for name in TRAIN_CASES}}
     for name in PHASES:

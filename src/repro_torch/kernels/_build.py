@@ -149,6 +149,24 @@ def backward(wrapper):
         yield
 
 
+# the meter of the kernels' work on ``meta`` tensors: None, or a callable
+# ``(wrapper name, flops, bytes, tensor)`` that the dry-run
+# (:mod:`repro_torch.launch.dryrun`) installs; ``tensor`` is an input of
+# the call, which tells the meter whose work it is
+METER = None
+
+
+def meta_call(wrapper, work, like, outs):
+    """A wrapper's call on ``meta`` tensors: no kernel and no plain
+    version runs; ``work`` (the kernel's (bytes, flops), from the
+    wrapper's ``*_work`` function) goes to :data:`METER`, and ``outs``
+    (empty tensors of the kernel's output shapes) are returned."""
+    if METER is not None:
+        nbytes, flops = work
+        METER(wrapper.__name__, flops, nbytes, like)
+    return outs
+
+
 def dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 

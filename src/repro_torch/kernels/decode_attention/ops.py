@@ -12,6 +12,10 @@ natural-log units and the sum of exponentials); :func:`decode_combine`
 merges any stack of such partials along n, e.g. those of the shards of a
 cache split by sequence (:func:`repro_torch.models.attention.
 decode_attention_seq_split`).
+
+On ``meta`` tensors (the dry-run) a wrapper runs nothing: it returns
+empty outputs of the kernel's shapes and hands its ``*_work`` to the
+meter, counting every slot of the cache as attended.
 """
 
 from __future__ import annotations
@@ -104,13 +108,54 @@ def _uses_mma(q_dtype, kv_dtype):
                                                       torch.int8)
 
 
+def decode_attention_work(q, k, n_valid, *, int8=False,
+                          n_split=0) -> tuple:
+    """(bytes, flops) of one call over ``n_valid`` attended slots: q read
+    once (and the output written once, unless this is a partial entry,
+    which writes ``n_split`` partials of d + 2 floats a head instead),
+    each attended K and V row read once (int8: a byte an element plus its
+    f32 scale), the valid mask read once; 4·d multiply-adds a (head,
+    slot) pair."""
+    B, _, H, d = q.shape
+    C, KVH = k.shape[1], k.shape[2]
+    es = q.element_size()
+    kv_es = 1 + 4 / d if int8 else es
+    out = B * H * n_split * (d + 2) * 4 if n_split else q.numel() * es
+    return (q.numel() * es + out + 2 * n_valid * KVH * d * kv_es + B * C,
+            4 * n_valid * H * d)
+
+
+def decode_combine_work(acc, dtype) -> tuple:
+    """(bytes, flops) of one combine: the partials read once, the output
+    written once; three operations a partial element."""
+    B, H, n, d = acc.shape
+    es = torch.tensor([], dtype=dtype).element_size()
+    return acc.numel() * 4 + B * H * n * 2 * 4 + B * H * d * es, \
+        3 * acc.numel()
+
+
+def _meta(wrapper, q, k, *, int8=False, partial=False):
+    """A call on ``meta`` tensors: empty outputs, every slot attended."""
+    B, _, H, d = q.shape
+    n_valid = B * k.shape[1]
+    if partial:
+        outs = (torch.empty((B, H, 1, d), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((B, H, 1, 2), dtype=torch.float32,
+                            device="meta"))
+    else:
+        outs = torch.empty_like(q)
+    return _build.meta_call(wrapper, decode_attention_work(
+        q, k, n_valid, int8=int8, n_split=1 if partial else 0), q, outs)
+
+
 def launch_plan(q, k) -> tuple:
     """(chunk, n_split) of a launch over cache ``k`` on q's device: the
     plan the kernel runs on a card (and the plain partial's at its
-    check); on the CPU the plain version's one chunk."""
+    check); on the CPU (and on ``meta``) the plain version's one chunk."""
     B, _, H, d = q.shape
     C, KVH = k.shape[1], k.shape[2]
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return C, 1
     plan = {} if _uses_mma(q.dtype, k.dtype) else dict(tile=TILE,
                                                       blocks_per_sm=2)
@@ -152,6 +197,8 @@ def decode_attention(q, k, v, valid):
     [B,1,H,d].  Position j of row b attends iff ``valid[b, j]``."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid)
+    if q.device.type == "meta":
+        return _meta(decode_attention, q, k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, valid, q.dtype)
@@ -169,6 +216,8 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, valid):
     if q.device.type == "cpu":
         return decode_attention_int8_ref(q, k_q, v_q, k_scale, v_scale,
                                          valid)
+    if q.device.type == "meta":
+        return _meta(decode_attention_int8, q, k_q, int8=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
@@ -186,6 +235,8 @@ def decode_attention_partial(q, k, v, valid):
     alone or stacked along n with other caches' partials."""
     if q.device.type == "cpu":
         return decode_partial_ref(q, k, v, valid)
+    if q.device.type == "meta":
+        return _meta(decode_attention_partial, q, k, partial=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, valid, q.dtype)
@@ -201,6 +252,9 @@ def decode_attention_int8_partial(q, k_q, v_q, k_scale, v_scale, valid):
     :func:`decode_attention_partial`."""
     if q.device.type == "cpu":
         return decode_partial_int8_ref(q, k_q, v_q, k_scale, v_scale, valid)
+    if q.device.type == "meta":
+        return _meta(decode_attention_int8_partial, q, k_q, int8=True,
+                     partial=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
@@ -222,6 +276,11 @@ def decode_combine(acc, ml, dtype):
     over n → out [B,1,H,d] in ``dtype`` (float32 or bfloat16)."""
     if acc.device.type == "cpu":
         return decode_combine_ref(acc, ml, dtype)
+    if acc.device.type == "meta":
+        B, H, _, d = acc.shape
+        return _build.meta_call(
+            decode_combine, decode_combine_work(acc, dtype), acc,
+            torch.empty((B, 1, H, d), dtype=dtype, device="meta"))
     if acc.device.type != "cuda":
         raise ValueError(f"unsupported device {acc.device}")
     B, H, n, d = acc.shape

@@ -12,15 +12,21 @@ Gradients follow the reference's custom VJP
 and the backward (:func:`flash_attention_vjp`) recomputes attention from
 the saved ``q, k, v`` through the plain version and differentiates that,
 on either device (the reference computes its backward in XLA, outside any
-kernel).  Only the reference's masks take a gradient (``prefix_pad ==
-0``); the engine's prefix mode is inference only and raises if one is
-asked of it.
+kernel), under the same mask: the reference's causal and window masks
+and the prefix mode alike.  The engine's prefix-aware prefill runs under
+no gradient; a ``ulysses_sp`` shard's queries, which start ``r·S/tp``
+rows into the sequence, train through the prefix mode
+(``prefix_pad = prefix_len = r·S/tp``).
+
+On ``meta`` tensors (the dry-run) the wrapper runs nothing: it returns
+an empty output and hands :func:`flash_attention_work` to the meter.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -87,6 +93,37 @@ def launch_key(q, k, *, causal=True, window=0, prefix_pad=0,
             ("prefix_pad", int(prefix_pad)), ("prefix_len", int(prefix_len)))
 
 
+def kept_pairs(S, T, *, causal=True, window=0, prefix_pad=0,
+               prefix_len=0) -> tuple:
+    """(query-key pairs kept, K/V rows some query keeps) of
+    :func:`~.ref.keep_mask` at these arguments, counted without forming
+    the mask: query i keeps the ``prefix_len`` valid prefix rows and its
+    own rows ``rel = j - prefix_pad`` in ``[lo_i, hi_i]``; the padding
+    rows past ``prefix_len`` are never read."""
+    own = T - prefix_pad
+    i = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(own - 1, i) if causal else np.full_like(i, own - 1)
+    n = np.maximum(0, hi - lo + 1)
+    some = n > 0
+    rows = int(hi[some].max() - lo[some].min() + 1) if some.any() else 0
+    return int(n.sum()) + S * prefix_len, rows + prefix_len
+
+
+def flash_attention_work(q, k, *, causal=True, window=0, prefix_pad=0,
+                         prefix_len=0) -> tuple:
+    """(bytes, flops) of one call: q read and the output written once,
+    each K and V row some query keeps read once; 4·d multiply-adds a kept
+    (query head, key) pair (q·k and p·v)."""
+    B, S, H, d = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    es = q.element_size()
+    pairs, rows = kept_pairs(S, T, causal=causal, window=window,
+                             prefix_pad=prefix_pad, prefix_len=prefix_len)
+    return ((2 * q.numel() + 2 * B * rows * KVH * d) * es,
+            4 * B * H * d * pairs)
+
+
 @_build.counted
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,
                     prefix_len=0):
@@ -97,26 +134,29 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,
     j >= prefix_pad and j - prefix_pad <= i (when causal) and
     j - prefix_pad > i - window (when window > 0).  ``prefix_pad`` and
     ``prefix_len`` are host ints (the engine knows them); with both 0
-    this is the reference kernel's causal/window attention, and the only
-    form that takes a gradient."""
+    this is the reference kernel's causal/window attention.  Every form
+    takes a gradient."""
     prefix_pad, prefix_len = int(prefix_pad), int(prefix_len)
     if not 0 <= prefix_len <= prefix_pad <= k.shape[1]:
         raise ValueError(f"need 0 <= prefix_len ({prefix_len}) <= prefix_pad "
                          f"({prefix_pad}) <= T ({k.shape[1]})")
+    mask = (bool(causal), int(window), prefix_pad, prefix_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if prefix_pad:
-            raise ValueError("flash_attention's prefix mode takes no "
-                             "gradient (prefix_pad must be 0 to train)")
-        return _FlashAttention.apply(q, k, v, bool(causal), int(window))
-    return _forward(q, k, v, causal, window, prefix_pad, prefix_len)
+        return _FlashAttention.apply(q, k, v, mask)
+    return _forward(q, k, v, *mask)
 
 
 def _forward(q, k, v, causal, window, prefix_pad=0, prefix_len=0):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU tensors, the
+    meter on ``meta`` tensors."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    prefix_pad=prefix_pad,
                                    prefix_len=prefix_len)
+    if q.device.type == "meta":
+        return _build.meta_call(flash_attention, flash_attention_work(
+            q, k, causal=causal, window=window, prefix_pad=prefix_pad,
+            prefix_len=prefix_len), q, torch.empty_like(q))
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v)
@@ -135,30 +175,35 @@ def _forward(q, k, v, causal, window, prefix_pad=0, prefix_len=0):
     return out
 
 
-def flash_attention_vjp(q, k, v, g, *, causal=True, window=0):
+def flash_attention_vjp(q, k, v, g, *, causal=True, window=0, prefix_pad=0,
+                        prefix_len=0):
     """(dq, dk, dv) of attention at ``q, k, v`` against the output
-    cotangent ``g``: attention recomputed through the plain version and
-    differentiated, as the reference's ``_bwd`` does with
-    ``attention_ref`` under ``jax.vjp``."""
+    cotangent ``g``: attention recomputed through the plain version under
+    the same mask and differentiated, as the reference's ``_bwd`` does
+    with ``attention_ref`` under ``jax.vjp``."""
     with torch.enable_grad():
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = flash_attention_ref(*qkv, causal=causal, window=window)
+        out = flash_attention_ref(*qkv, causal=causal, window=window,
+                                  prefix_pad=prefix_pad,
+                                  prefix_len=prefix_len)
         return torch.autograd.grad(out, qkv, g)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel's forward with the reference's recompute backward."""
+    """The kernel's forward with the reference's recompute backward;
+    ``mask`` is (causal, window, prefix_pad, prefix_len)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, mask):
         ctx.save_for_backward(q, k, v)
-        ctx.mask = (causal, window)
-        return _forward(q, k, v, causal, window)
+        ctx.mask = mask
+        return _forward(q, k, v, *mask)
 
     @staticmethod
     def backward(ctx, g):
-        causal, window = ctx.mask
+        causal, window, prefix_pad, prefix_len = ctx.mask
         with _build.backward(flash_attention):
-            dq, dk, dv = flash_attention_vjp(*ctx.saved_tensors, g,
-                                             causal=causal, window=window)
-        return dq, dk, dv, None, None
+            dq, dk, dv = flash_attention_vjp(
+                *ctx.saved_tensors, g, causal=causal, window=window,
+                prefix_pad=prefix_pad, prefix_len=prefix_len)
+        return dq, dk, dv, None

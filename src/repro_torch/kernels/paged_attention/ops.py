@@ -5,6 +5,9 @@ Replaces ``repro/kernels/paged_attention/kernel.py::paged_decode_attention_fwd``
 (:mod:`.ref`); CUDA tensors launch ``csrc/paged_attention.cu`` or raise:
 bf16 the tensor-core kernel, split over fixed chunks of the page table's
 reach, then the combine; f32 (the check path) the CUDA-core kernel.
+``meta`` tensors (the dry-run) return an empty output and meter
+:func:`paged_decode_attention_work`, every table entry's positions
+attended.
 """
 
 from __future__ import annotations
@@ -86,6 +89,19 @@ def launch_key(q, k_pages, page_table, *, window=0) -> tuple:
             ("N", page_table.shape[1]), ("window", int(window)))
 
 
+def paged_decode_attention_work(q, k_pages, page_table, *, tokens,
+                                kv_rows) -> tuple:
+    """(bytes, flops) of one call: q read and the output written once,
+    the ``kv_rows`` pool rows the tables reach read once for K and for V,
+    the table and the lengths read once; 4·d multiply-adds a (head,
+    attended position) pair over ``tokens`` attended positions."""
+    B, _, H, d = q.shape
+    KVH = k_pages.shape[2]
+    es = q.element_size()
+    return (2 * q.numel() * es + 2 * kv_rows * KVH * d * es
+            + page_table.numel() * 4 + B * 4, 4 * tokens * H * d)
+
+
 @_build.counted
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            window=0):
@@ -96,6 +112,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           lengths, window=window)
+    if q.device.type == "meta":    # every table entry's positions attended
+        n = page_table.numel() * k_pages.shape[1]
+        return _build.meta_call(paged_decode_attention,
+                                paged_decode_attention_work(
+                                    q, k_pages, page_table, tokens=n,
+                                    kv_rows=n), q, torch.empty_like(q))
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_pages, v_pages, page_table, lengths)

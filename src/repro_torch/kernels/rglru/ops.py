@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/rglru/kernel.py::rglru_scan_fwd`` (Pallas
 ``_rglru_kernel``).  CPU tensors take the plain version (:mod:`.ref`);
-CUDA tensors launch ``csrc/rglru.cu`` or raise.  The kernel gives each
+CUDA tensors launch ``csrc/rglru.cu`` or raise; ``meta`` tensors (the
+dry-run) return an empty output and meter :func:`rglru_scan_work`.  The kernel gives each
 block ``CHANNELS`` channels of one batch row and walks the sequence in
 tiles of ``TILE`` steps, one segment of ``SEGMENT`` steps a warp; every
 length and width runs it.
@@ -56,6 +57,14 @@ def launch_key(a, h0=None) -> tuple:
     return (("B", B), ("S", S), ("W", W), ("h0", h0 is not None))
 
 
+def rglru_scan_work(a, h0=None) -> tuple:
+    """(bytes, flops) of one scan: a and b read and h written once (and
+    h0 read once); a multiply and an add a step and channel."""
+    B, S, W = a.shape
+    return 3 * a.numel() * 4 + (B * W * 4 if h0 is not None else 0), \
+        2 * a.numel()
+
+
 @_build.counted
 def rglru_scan(a, b, h0=None):
     """a, b: [B, S, W] f32 → h: [B, S, W] f32 with h_t = a_t·h_{t-1} + b_t
@@ -73,6 +82,9 @@ def _forward(a, b, h0=None):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    if a.device.type == "meta":
+        return _build.meta_call(rglru_scan, rglru_scan_work(a, h0), a,
+                                torch.empty_like(a))
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     _check(a, b, h0)

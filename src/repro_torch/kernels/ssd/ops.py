@@ -22,6 +22,9 @@ Gradients (for ``initial_state is None``, as the reference's
 chunked form at the model's ``chunk`` and differentiates it, as the
 reference's ``_bwd`` does under ``jax.vjp``.  The stateful path (serving)
 takes no gradient and raises if one is asked of it.
+
+On ``meta`` tensors (the dry-run) the wrapper runs nothing: it returns
+empty outputs and hands :func:`ssd_chunked_work` to the meter.
 """
 
 from __future__ import annotations
@@ -78,6 +81,36 @@ def launch_key(xh, B, initial_state=None) -> tuple:
             ("h0", initial_state is not None))
 
 
+def chunked_flops(S, H, P, N, with_h0, chunk) -> int:
+    """The multiply-adds of the chunked scan over S steps in chunks of
+    ``chunk``, every product formed: a chunk of n steps takes the causal
+    half of C·Bᵀ once for all heads, n(n+1)N; per head the masked
+    intra-chunk product, n(n+1)P, and its state contribution, 2nNP; and
+    where a state comes in (every chunk but the first, unless an initial
+    state is given) C·h_in, 2nNP, and the state's decay and sum, 2NP."""
+    def f(n):
+        return n * (n + 1) * N + H * (n * (n + 1) * P + 2 * n * N * P)
+    full, rest = divmod(S, chunk)
+    flops = full * f(chunk) + (f(rest) if rest else 0)
+    first = 0 if with_h0 else min(chunk, S)
+    incoming = full + bool(rest) - (0 if with_h0 else 1)
+    return flops + H * 2 * N * P * ((S - first) + max(incoming, 0))
+
+
+def ssd_chunked_work(xh, B, initial_state=None, flops=None) -> tuple:
+    """(bytes, flops) of one scan: x, dt, a_log, B and C read once, y and
+    the final state written once (and the initial state read once);
+    ``flops`` where a caller counted the products its data needs, else
+    every product of the kernel's chunks (:func:`chunked_flops`)."""
+    b, S, H, P = xh.shape
+    N = B.shape[-1]
+    h0 = initial_state is not None
+    if flops is None:
+        flops = b * chunked_flops(S, H, P, N, h0, KERNEL_CHUNK)
+    return 4 * (b * (2 * S * H * P + S * H + 2 * S * N
+                     + H * P * N * (2 if h0 else 1)) + H), flops
+
+
 @_build.counted
 def ssd_chunked(xh, dt, a_log, B, C, *, chunk, initial_state=None):
     """xh [b,S,H,P]; dt [b,S,H] (post-softplus, float32); a_log [H]
@@ -101,6 +134,13 @@ def _forward(xh, dt, a_log, B, C, chunk, initial_state=None):
     if xh.device.type == "cpu":
         return ssd_chunked_ref(xh, dt, a_log, B, C, chunk=chunk,
                                initial_state=initial_state)
+    if xh.device.type == "meta":
+        b, S, H, P = xh.shape
+        return _build.meta_call(
+            ssd_chunked, ssd_chunked_work(xh, B, initial_state), xh,
+            (torch.empty(xh.shape, dtype=torch.float32, device="meta"),
+             torch.empty((b, H, P, B.shape[-1]), dtype=torch.float32,
+                         device="meta")))
     if xh.device.type != "cuda":
         raise ValueError(f"unsupported device {xh.device}")
     b, S, H, P = xh.shape

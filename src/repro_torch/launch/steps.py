@@ -1,8 +1,10 @@
 """The train step, the train state and its layout on a mesh (counterpart
 of ``repro/launch/steps.py``): ``pick_microbatches``,
-``abstract_train_state`` (meta tensors) and ``train_state_pspecs``.
-``lower_cell`` (the reference's XLA lowering for the dry-run) waits for
-ROADMAP A.12b.
+``abstract_train_state`` (meta tensors), ``train_state_pspecs``, the
+sharded train step (:func:`make_mesh_train_step`), the prefill and
+decode steps of a mesh, and :func:`lower_cell`, which builds one
+dry-run cell's step and its abstract inputs, as the reference's builds
+its XLA lowering.
 
 The step runs eagerly: autograd through the model, whose flash, RG-LRU
 and SSD calls are ``torch.autograd.Function`` s around the hand-written
@@ -21,7 +23,20 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import MeshParams
 from repro_torch.sharding import rules as R
+from repro_torch.sharding.placement import (
+    NamedSharding,
+    ShardedParams,
+    ShardedTensor,
+    data_rows,
+    local_tree,
+    on_row,
+    place,
+    place_tree,
+    reduce_sum,
+    shard_slices,
+)
 from repro_torch.training.tree import flatten, tree_map, unflatten
 
 
@@ -57,12 +72,16 @@ def loss_and_grads(model, params, batch):
         dict(zip(leaves, grads))
 
 
-def make_train_step(model, optimizer):
+def make_train_step(model, optimizer, mesh=None):
     """→ train_step(state, batch) → (state, metrics): the loss and the
     float32 gradients of ``model.loss_fn`` at the cast parameters, summed
     over ``cfg.microbatches`` equal slices of the batch and divided by
     their count, then one ``optimizer.update`` (in place).  ``batch``
-    holds tensors on the state's device."""
+    holds tensors on the state's device.  With a ``mesh`` the sharded
+    step (:func:`make_mesh_train_step`) over a state laid out by
+    :func:`place_train_state`."""
+    if mesh is not None:
+        return make_mesh_train_step(model, optimizer, mesh)
     M = max(model.cfg.microbatches, 1)
 
     def train_step(state, batch):
@@ -170,3 +189,329 @@ def train_state_pspecs(rls, model, optimizer=None) -> dict:
     if optimizer is not None and optimizer.master_weights:
         opt["master"] = mspec
     return {"params": pspec, "opt": opt, "step": ()}
+
+
+# ---------------------------------------------------------------------------
+# the train step under a mesh
+
+
+def place_train_state(model, optimizer, state, mesh, rls=None) -> dict:
+    """A train state laid out on ``mesh`` by :func:`train_state_pspecs`
+    under ``rls`` (default ``make_rules(mesh, cfg)``): a
+    :class:`~repro_torch.sharding.placement.ShardedTensor` a leaf, every
+    coordinate holding its own copy of its slice (replicas take their
+    own updates)."""
+    rls = rls or R.make_rules(mesh, model.cfg)
+    specs = train_state_pspecs(rls, model, optimizer)
+    return place_tree(state, _named_tree(mesh, specs), share=False)
+
+
+def _named_tree(mesh, specs):
+    if isinstance(specs, dict):
+        return {k: _named_tree(mesh, v) for k, v in specs.items()}
+    return NamedSharding(mesh, tuple(specs))
+
+
+def _canonical(st) -> set:
+    """The coordinates whose local slice of ``st`` no earlier coordinate
+    (in rank order) holds: each slice counted once in a global sum."""
+    seen, out = set(), set()
+    for c in np.ndindex(st.mesh.devices.shape):
+        k = tuple((s.start, s.stop) for s in shard_slices(
+            st.shape, st.spec, st.mesh, c))
+        if k not in seen:
+            seen.add(k)
+            out.add(c)
+    return out
+
+
+def place_batch(rls, batch, *, share=True) -> dict:
+    """A global batch laid out by ``batch_pspecs``: the batch dim over
+    the data axes (where it splits), replicated over ``model``."""
+    bspecs = R.batch_pspecs(rls, {k: v for k, v in batch.items()})
+    return {k: place(v, NamedSharding(rls.mesh, tuple(bspecs[k])),
+                     share=share) for k, v in batch.items()}
+
+
+def row_batches(rls, batch) -> list:
+    """Each data coordinate's slice of a batch (global tensors, or
+    :func:`place_batch`'s), as its row's first coordinate holds it."""
+    placed = {k: v if isinstance(v, ShardedTensor) else place_batch(
+        rls, {k: v})[k] for k, v in batch.items()}
+    return [{k: t.local(row[0]) for k, t in placed.items()}
+            for row in data_rows(rls.mesh)]
+
+
+def mesh_loss_and_grads(model, rls, ptree, batches):
+    """(loss, metrics, {coordinate: {key: float32 gradient}}) of the mean
+    of the rows' losses (:meth:`Model.loss_tp`; ``batches[i]`` row i's
+    batch) at the parameters ``ptree`` (ShardedTensor leaves) cast by
+    :func:`cast_params`; each coordinate's gradients are those of its
+    local slices, keyed by tree path."""
+    mesh = rls.mesh
+    coords = list(np.ndindex(mesh.devices.shape))
+    rows = data_rows(mesh)
+    adt = torch_dtype(model.cfg.dtype)
+    leaves = {c: {k: t.detach().requires_grad_() for k, t in
+                  flatten(local_tree(ptree, c)).items()} for c in coords}
+    locs = {c: cast_params(unflatten(local_tree(ptree, c), lv), adt)
+            for c, lv in leaves.items()}
+    mp = MeshParams(ptree, locs, rls.tp_strategy)
+    with record_function("train:forward"), R.use_rules(rls):
+        outs = model.loss_tp(mp, batches)
+    loss = reduce_sum([lo / len(rows) for lo, _ in outs])[0]
+    flat = [(c, k, t) for c in coords for k, t in leaves[c].items()]
+    grads = torch.autograd.grad(loss, [t for _, _, t in flat],
+                                allow_unused=True)
+    got = {}
+    for (c, k, t), g in zip(flat, grads):
+        got.setdefault(c, {})[k] = (torch.zeros_like(t) if g is None
+                                    else g).float()
+    metrics = {n: torch.stack([m[n].detach().to(loss.device)
+                               for _, m in outs]).mean() for n in outs[0][1]}
+    return loss.detach(), metrics, got
+
+
+def make_mesh_train_step(model, optimizer, mesh):
+    """→ train_step(state, batch) → (state, metrics) on ``mesh``, one
+    controller driving every coordinate.  ``state`` is
+    :func:`place_train_state`'s; ``batch`` holds the global batch, split
+    over the data axes by ``batch_pspecs``.
+
+    Each data coordinate's row computes its slice's loss
+    (:meth:`Model.loss_tp`); the step's loss is their mean (one
+    ``reduce_sum``) and one backward gives every coordinate the float32
+    gradient of its local slices: a leaf's gather
+    (:func:`~repro_torch.sharding.placement.mesh_gather`) has the
+    reduce-scatter for backward, and a replicated leaf's sums every use
+    in rank order.  ``cfg.microbatches`` equal slices of each row's batch
+    run one after another, their gradients summed and divided by their
+    count.  Then :func:`mesh_update`."""
+    _check_mesh_train(model, optimizer)
+    rls = R.make_rules(mesh, model.cfg)
+    M = max(model.cfg.microbatches, 1)
+
+    def train_step(state, batch):
+        mbs = microbatch_rows(rls, batch, M)
+        gsum, lsum, metrics = None, None, {}
+        for i in range(M):
+            loss, m, got = mesh_loss_and_grads(
+                model, rls, state["params"],
+                [{k: v[i] for k, v in b.items()} for b in mbs])
+            if gsum is None:
+                gsum, lsum = got, loss
+                metrics = m if M == 1 else {}
+            else:   # out of place: replicas' gradients share storage
+                for c, gs in got.items():
+                    for k, g in gs.items():
+                        gsum[c][k] = gsum[c][k] + g
+                lsum = lsum + loss
+        grads = {c: {k: g / M for k, g in gs.items()} for c, gs in
+                 gsum.items()} if M > 1 else gsum
+        om = mesh_update(optimizer, state, grads, mesh)
+        return state, {"loss": lsum / M, **metrics, **om}
+
+    return train_step
+
+
+def _check_mesh_train(model, optimizer):
+    if optimizer.master_weights or model.cfg.param_strategy != "fsdp":
+        raise NotImplementedError(
+            "the sharded step keeps params and moments in one layout: "
+            "param_strategy 'fsdp' without master weights")
+
+
+def microbatch_rows(rls, batch, M) -> list:
+    """Each data row's batch slice as ``M`` microbatches: per row
+    {key: [M, b / M, ...]}."""
+    return [{k: v.reshape((M, v.shape[0] // M) + v.shape[1:])
+             for k, v in b.items()} for b in row_batches(rls, batch)]
+
+
+def mesh_update(optimizer, state, grads, mesh) -> dict:
+    """AdamW over every coordinate of ``mesh``: each coordinate's local
+    moments and parameters updated in place with the reference's
+    arithmetic from ``grads`` ({coordinate: {key: float32 gradient}}),
+    the global norm a ``reduce_sum`` of the coordinates' sums of squares
+    over the slices each holds first; ``state``'s step counted → the
+    optimizer's metrics (those of the first coordinate)."""
+    coords = list(np.ndindex(mesh.devices.shape))
+    ptree, opt = state["params"], state["opt"]
+    with record_function("train:optimizer"):
+        canon = {k: _canonical(st) for k, st in flatten(ptree).items()}
+        sq = reduce_sum([optimizer.sum_squares(
+            {k: g for k, g in grads[c].items() if c in canon[k]})
+            * torch.ones((), device=mesh.devices[c]) for c in coords])
+        out = []
+        for c, s2 in zip(coords, sq):
+            params_c = local_tree(ptree, c)
+            opt_c = local_tree(opt, c)
+            _, _, om = optimizer.update(
+                unflatten(params_c, grads[c]), opt_c, params_c,
+                gnorm=torch.sqrt(s2))
+            opt["count"].shards[c].copy_(opt_c["count"] + 1)
+            out.append(om)
+    for c in coords:
+        state["step"].shards[c].add_(1)
+    return out[0]
+
+
+# ---------------------------------------------------------------------------
+# the serving steps of a mesh and the dry-run's cells
+
+
+def place_params(model, rls, params) -> ShardedParams:
+    """Serving parameters on the rules' mesh, every coordinate its own
+    copy of its slice (:class:`ShardedParams`, gathered a row at a time
+    over the axes :func:`~repro_torch.sharding.placement.gather_axes`
+    names)."""
+    return ShardedParams(params, R.params_pspecs(rls, model), rls.mesh,
+                         share=False, strategy=rls.tp_strategy)
+
+
+def place_cache(rls, cache) -> dict:
+    """A contiguous cache laid out by ``cache_pspecs``."""
+    specs = R.cache_pspecs(rls, cache)
+    return place_tree(cache, _named_tree(rls.mesh, specs), share=False)
+
+
+def _row_cache(cache, row):
+    from repro_torch.models.lm import shard_key
+    return {shard_key(r): local_tree(cache, c) for r, c in enumerate(row)}
+
+
+def make_prefill_step(model, rls, capacity):
+    """→ prefill_step(params, batch) over a mesh: each data coordinate's
+    row prefills its batch slice with its gathered parameters (the
+    contiguous cache in the rules' layout) → per row (last logits,
+    {shard_key(r): rank r's cache})."""
+    from repro_torch.models import encdec, lm
+
+    def prefill_step(params, batch):
+        out = []
+        for i, b in enumerate(row_batches(rls, batch)):
+            rp = params.row(i)
+            with on_row(rp.coords):
+                if model.is_encdec:
+                    out.append(encdec.prefill_tp(model.cfg, rp, b,
+                                                 capacity))
+                else:
+                    out.append(lm.prefill_tp(model.cfg, rp, b, capacity,
+                                             contiguous=True))
+        return out
+    return prefill_step
+
+
+def make_decode_step(model, rls):
+    """→ decode_step(params, cache, tokens, positions) over a mesh: each
+    data coordinate's row runs one contiguous decode step on its slice
+    of the batch and its coordinates' caches, in place → per row
+    logits."""
+    def decode_step(params, cache, tokens, positions):
+        out = []
+        rows = row_batches(rls, {"tokens": tokens, "positions": positions})
+        for i, b in enumerate(rows):
+            rp = params.row(i)
+            with on_row(rp.coords):
+                out.append(model.decode_step(
+                    rp, _row_cache(cache, rp.coords), b["tokens"],
+                    b["positions"])[0])
+        return out
+    return decode_step
+
+
+class Lowered:
+    """One dry-run cell built for its mesh (:func:`lower_cell`): ``kind``,
+    ``step`` (the step to run), ``inputs`` (its abstract inputs, ``meta``
+    tensors at global shapes), ``place()`` (the inputs laid out on the
+    mesh, each coordinate its own local tensors), ``model`` and
+    ``rules``."""
+
+    def __init__(self, kind, step, inputs, place, model, rules):
+        self.kind, self.step, self.inputs = kind, step, inputs
+        self.place, self.model, self.rules = place, model, rules
+
+    def run(self, placed):
+        return self.step(*placed)
+
+
+def make_microbatch_step(model, optimizer, mesh):
+    """→ step(state, batch): the dry-run's train step, the sharded step
+    (:func:`make_mesh_train_step`) cut to its first microbatch.  Every
+    later microbatch repeats it (XLA's cost analysis, which the
+    reference's record reads, counts a loop's body once too); with more
+    than one, the float32 accumulator that keeps their sum is allocated
+    first and held through the microbatch, as it is alive through every
+    microbatch after the first, so the peak is theirs.  The optimizer
+    then takes the one microbatch's gradients as they are."""
+    _check_mesh_train(model, optimizer)
+    rls = R.make_rules(mesh, model.cfg)
+    M = max(model.cfg.microbatches, 1)
+
+    def step(state, batch):
+        ptree = state["params"]
+        acc = None
+        if M > 1:
+            acc = {c: {k: torch.zeros_like(t, dtype=torch.float32)
+                       for k, t in flatten(local_tree(ptree, c)).items()}
+                   for c in np.ndindex(mesh.devices.shape)}
+        loss, _, grads = mesh_loss_and_grads(
+            model, rls, ptree,
+            [{k: v[0] for k, v in b.items()}
+             for b in microbatch_rows(rls, batch, M)])
+        if acc is not None:
+            for c, gs in grads.items():
+                for k, g in gs.items():
+                    acc[c][k] += g
+            grads = acc
+        return state, {"loss": loss, **mesh_update(optimizer, state, grads,
+                                                    mesh)}
+    return step
+
+
+def lower_cell(cfg, shape, mesh, *, optimizer=None) -> Lowered:
+    """Build one (arch × shape) cell on ``mesh`` as the reference's
+    ``lower_cell`` does, under ``make_rules(mesh, cfg)``: a train step
+    (microbatches by :func:`pick_microbatches`, AdamW; the first
+    microbatch, :func:`make_microbatch_step`) over
+    :func:`abstract_train_state`; a prefill of ``shape.seq_len`` over
+    ``abstract_params(serve_param_dtype)``; or one contiguous decode step
+    against an ``init_cache(global_batch, seq_len)`` cache."""
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamW
+    model = build_model(cfg)
+    rls = R.make_rules(mesh, cfg)
+    specs = input_specs(cfg, shape)
+    if shape.kind == "train":
+        if cfg.microbatches == 1:
+            m = pick_microbatches(cfg, shape, mesh)
+            if m > 1:
+                cfg = cfg.replace(microbatches=m)
+                model = build_model(cfg)
+        optimizer = optimizer or AdamW(
+            master_weights=(cfg.param_strategy == "zero2_master"))
+        state = abstract_train_state(model, optimizer)
+        step = make_microbatch_step(model, optimizer, mesh)
+        return Lowered("train", step, (state, specs), lambda: (
+            place_train_state(model, optimizer, state, mesh, rls),
+            place_batch(rls, specs, share=False)), model, rls)
+    params = model.abstract_params(dtype=cfg.serve_param_dtype or None)
+    if shape.kind == "prefill":
+        return Lowered("prefill", make_prefill_step(model, rls,
+                                                    shape.seq_len),
+                       (params, specs), lambda: (
+                           place_params(model, rls, params),
+                           place_batch(rls, specs, share=False)),
+                       model, rls)
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             device="meta")
+    def place_decode():
+        tok = place_batch(rls, {"tokens": specs["tokens"],
+                                "positions": specs["positions"]},
+                          share=False)
+        return (place_params(model, rls, params), place_cache(rls, cache),
+                tok["tokens"], tok["positions"])
+    return Lowered("decode", make_decode_step(model, rls),
+                   (params, cache, specs["tokens"], specs["positions"]),
+                   place_decode, model, rls)

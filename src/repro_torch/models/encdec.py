@@ -30,15 +30,24 @@ from . import attention as att
 from . import mlp as mlpmod
 from .common import (PSpec, apply_norm, norm_schema, remat,
                      sinusoidal_positions, stack_schema)
-from repro_torch.sharding.placement import ShardedParams, broadcast, reduce_sum
+from repro_torch.sharding.placement import (
+    ShardedParams,
+    broadcast,
+    on_row,
+    reduce_sum,
+)
 
 from .lm import (
     _on_model,
     _seq_to_cache,
     _tp_attention,
     _tp_feed_forward,
+    flat_leaves,
+    logit_parts,
     mask_vocab_padding,
+    mesh_layer,
     shard_key,
+    top_tree,
     tp_decode_attention,
     tp_embed,
     tp_logits,
@@ -234,7 +243,10 @@ class EncDecTP:
 
 
 def _tp_stack(params, name, n):
-    """Per layer: [shard r's layer parameters for r in ranks]."""
+    """Per layer: [shard r's layer parameters for r in ranks]; a data
+    coordinate's row gathers each layer as the loop reaches it."""
+    if hasattr(params, "layer_tree"):
+        return (params.layer_tree(name, i) for i in range(n))
     return list(zip(*[unstack(s[name], n) for s in params.shards]))
 
 
@@ -328,3 +340,98 @@ def decode_step_tp(cfg, params, cache, tokens, positions):
     logits = tp_logits(cfg, [p["embed"] for p in params.shards], tp, h,
                        transpose=True)
     return logits[:, 0], cache
+
+
+def forward_tp(cfg, mp, batch_rows):
+    """:func:`forward` of every data coordinate's row under a mesh
+    (:class:`lm.MeshParams`) → per row (each shard's vocab slice of the
+    logits, aux 0): the encoder's and decoder's layers one at a time
+    across rows, each under remat with its leaves gathered inside
+    (:func:`lm.mesh_layer`)."""
+    if mp.ulysses:
+        raise NotImplementedError(f"{cfg.name}: ulysses_sp runs the "
+                                  f"decoder-only dense family only")
+    top = {p: mp.gathered(p) for p in flat_leaves(mp.tree)
+           if p.split("/")[0] not in ("enc_layers", "dec_layers")}
+    rows, hs, enc_pos, dec_pos = [], [], [], []
+    for i, batch in enumerate(batch_rows):
+        row, view = mp.row_view(i)
+        tp = EncDecTP(cfg, view)
+        rows.append((row, tp))
+        frames = batch["encoder_frames"]
+        B, T, D = frames.shape
+        S = batch["tokens"].shape[1]
+        with on_row(row):
+            pos = torch.arange(T, dtype=torch.int32, device=frames.device)
+            hs.append(frames + sinusoidal_positions(pos, D,
+                                                    frames.dtype)[None])
+            enc_pos.append(broadcast(pos[None, :].repeat(B, 1), tp.devices))
+            dpos = torch.arange(S, dtype=torch.int32, device=frames.device)
+            dec_pos.append(broadcast(dpos[None, :].repeat(B, 1),
+                                     tp.devices))
+
+    def enc_block(per, hs):
+        out = []
+        for (row, tp), h, ep in zip(rows, hs, enc_pos):
+            ps = [per[c] for c in row]
+            with on_row(row):
+                h = _tp_attention(cfg, tp, ps, h, lambda r, p, x:
+                                  att.full_attention(
+                                      cfg, p["attn"], x, positions=ep[r],
+                                      causal=False))
+                out.append(_tp_feed_forward(cfg, tp, "mlp", ps, h,
+                                            gated=False))
+        return out
+
+    unst = {c: unstack(mp.loc_trees[c]["enc_layers"], cfg.enc_layers)
+            for c in mp.coords}
+    for i in range(cfg.enc_layers):
+        hs = mesh_layer(cfg, mp, "enc_layers",
+                        {c: unst[c][i] for c in mp.coords}, enc_block, hs)
+    encs, enc_hs, hs = [], hs, []
+    for (row, tp), h, batch, dp in zip(rows, enc_hs, batch_rows, dec_pos):
+        with on_row(row):
+            enc = apply_norm(cfg, top_tree(top, "enc_final_norm", row[0]),
+                             h)
+            encs.append(broadcast(enc, tp.devices))
+            tokens = batch["tokens"]
+            h = tp_embed(cfg, [top["embed"][c] for c in row], tp, tokens)
+            hs.append(h + sinusoidal_positions(dp[0], cfg.d_model, h.dtype))
+
+    def dec_block(per, hs):
+        out = []
+        for (row, tp), h, dp, enc in zip(rows, hs, dec_pos, encs):
+            ps = [per[c] for c in row]
+
+            def cross(r, p, x):
+                ck = att.cross_attention_cache(cfg, p["cross_attn"], enc[r])
+                return att.full_attention(cfg, p["cross_attn"], x,
+                                          positions=dp[r],
+                                          kv=(ck["k"], ck["v"]),
+                                          causal=False)
+            with on_row(row):
+                h = _tp_attention(cfg, tp, ps, h, lambda r, p, x:
+                                  att.full_attention(
+                                      cfg, p["self_attn"], x,
+                                      positions=dp[r], causal=True),
+                                  key="self_attn")
+                h = _tp_attention(cfg, tp, ps, h, cross, norm="ln2",
+                                  key="cross_attn")
+                out.append(_tp_feed_forward(cfg, tp, "mlp", ps, h,
+                                            norm="ln3", gated=False))
+        return out
+
+    unst = {c: unstack(mp.loc_trees[c]["dec_layers"], cfg.num_layers)
+            for c in mp.coords}
+    for i in range(cfg.num_layers):
+        hs = mesh_layer(cfg, mp, "dec_layers",
+                        {c: unst[c][i] for c in mp.coords}, dec_block, hs)
+    out = []
+    for (row, tp), h in zip(rows, hs):
+        with on_row(row):
+            h = apply_norm(cfg, top_tree(top, "dec_final_norm", row[0]), h)
+            parts = logit_parts(cfg, [top["embed"][c] for c in row], tp, h,
+                                transpose=True)
+        out.append((parts, torch.zeros((), dtype=torch.float32,
+                                       device=h.device), tp.vocab))
+    return out

@@ -23,7 +23,16 @@ projections) are partial sums that one
 embedding is a masked lookup of each shard's vocab rows plus a
 reduce_sum, and the logits are the shards' vocab slices concatenated.
 Where a dim falls back to replication, every shard holds the whole
-product and nothing is summed.  The residual stream, the norms and the
+product and nothing is summed.  A mesh whose data axes exceed 1 runs
+this program once a data coordinate, on its slice of the batch, each
+leaf gathered over the data axes for use (FSDP; :class:`~repro_torch.
+sharding.placement.RowParams` for inference, :func:`forward_tp` and
+:func:`mesh_layer` for training, where one backward reduce-scatters
+every row's gradients).  Under ``ulysses_sp`` (heads that do not split
+the model axis) a row's shards split its sequence instead and run whole
+gathered layers (:func:`ulysses_attention`, :func:`_prefill_ulysses`;
+a decode step of one token replicates, as the reference's fallback
+does).  The residual stream, the norms and the
 sampling stay replicated: computed once, on shard 0's device.  The
 cache is one tree per shard under :func:`shard_key`, each laid out as
 the serving rules' ``cache_pspecs`` say: a contiguous K/V cache whose KV
@@ -44,15 +53,31 @@ Two cache layouts:
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.sharding.placement import (
+    NamedSharding,
     ShardedParams,
+    ShardedTensor,
+    all_gather,
     broadcast,
+    data_rows,
+    drop_axes,
     gather,
+    gather_axes,
+    get_path,
+    leaf_paths,
     local_zeros,
+    mesh_gather,
+    on_row,
+    reduce_max,
     reduce_sum,
+    set_path,
     shard_slices,
 )
 from repro_torch.sharding.rules import (
@@ -66,7 +91,15 @@ from . import mlp as mlpmod
 from . import moe as moemod
 from . import rglru as rgmod
 from . import ssd as ssdmod
-from .common import PSpec, apply_norm, norm_schema, remat, stack_schema
+from .common import (
+    PSpec,
+    apply_norm,
+    apply_rope,
+    norm_schema,
+    remat,
+    rope_cos_sin,
+    stack_schema,
+)
 
 # families whose every block is global attention plus a feed-forward
 ATTENTION_ONLY = ("dense", "moe", "vlm")
@@ -551,10 +584,24 @@ def _block_specs(cfg, specs):
 
 
 def _tp_layers(cfg, params):
-    """Per layer: (kind, [shard r's block parameters for r in ranks])."""
-    per_rank = [blocks(cfg, s) for s in params.shards]
-    return [(layer[0][0], [p for _, p in layer])
-            for layer in zip(*per_rank)]
+    """Per layer: (kind, [shard r's block parameters for r in ranks]).  A
+    data coordinate's row (:class:`~repro_torch.sharding.placement.
+    RowParams`) gathers each group of layers as the loop reaches it."""
+    if not hasattr(params, "layer_tree"):
+        per_rank = [blocks(cfg, s) for s in params.shards]
+        return [(layer[0][0], [p for _, p in layer])
+                for layer in zip(*per_rank)]
+    return _row_layers(cfg, params)
+
+
+def _row_layers(cfg, params):
+    group_kinds, n_groups, tail_kinds = _layer_groups(cfg)
+    for g in range(n_groups):
+        trees = params.layer_tree("layers", g)
+        for i, kind in enumerate(group_kinds):
+            yield kind, [t[f"b{i}"] for t in trees]
+    for i, kind in enumerate(tail_kinds):
+        yield kind, [s[f"tail{i}"] for s in params.shards]
 
 
 def _tp_embed_inputs(cfg, params, tp, batch):
@@ -597,15 +644,7 @@ def _tp_logits(cfg, params, tp, h):
 
 
 def tp_logits(cfg, tables, tp, h, *, transpose):
-    parts = []
-    for w, hr in zip(tables, broadcast(h, tp.devices)):
-        w = w.to(hr.dtype)
-        parts.append(hr @ (w.T if transpose else w))
-        if not tp.vocab:
-            break
-    constrain_activation(
-        "act_logits", h.shape[:-1] + (cfg.vocab_padded,),
-        [t.shape for t in parts])
+    parts = logit_parts(cfg, tables, tp, h, transpose=transpose)
     return mask_vocab_padding(cfg, gather(parts, -1) if tp.vocab
                               else parts[0])
 
@@ -624,37 +663,45 @@ def _tp_attention(cfg, tp, ps, h, attend, *, norm="ln1", key="attn"):
     return h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
 
 
-def _tp_feed_forward(cfg, tp, kind, ps, h, *, norm="ln2", gated=True):
+def _tp_feed_forward(cfg, tp, kind, ps, h, *, norm="ln2", gated=True,
+                     with_aux=False):
     """h + the block's feed-forward over the shards: the MoE layer by the
     ``shard_map`` dispatch (the global one where the experts do not
-    split), else the MLP, column- then row-parallel."""
+    split), else the MLP, column- then row-parallel.  ``with_aux``: →
+    (h, the MoE layer's aux loss or None)."""
     x = apply_norm(cfg, ps[0][norm], h)
+    aux = None
     if kind == "attn_moe":
         if tp.experts:
-            y, _ = moemod.apply_moe_tp(cfg, [p["moe"] for p in ps], x,
-                                       tp.devices)
+            y, aux = moemod.apply_moe_tp(cfg, [p["moe"] for p in ps], x,
+                                         tp.devices)
         else:
-            y, _ = moemod.apply_moe_global(cfg, ps[0]["moe"], x)
-        return h + y
-    constrain_activation("act_ffn", x.shape[:-1] + (cfg.d_ff,),
-                         [x.shape[:-1] + p["mlp"]["w_up"].shape[1:]
-                          for p in ps])
-    return h + mlpmod.apply_mlp_tp(cfg, [p["mlp"] for p in ps], x,
-                                   tp.devices, row_parallel=tp.ffn_sum,
-                                   gated=gated)
+            y, aux = moemod.apply_moe_global(cfg, ps[0]["moe"], x)
+    else:
+        constrain_activation("act_ffn", x.shape[:-1] + (cfg.d_ff,),
+                             [x.shape[:-1] + p["mlp"]["w_up"].shape[1:]
+                              for p in ps])
+        y = mlpmod.apply_mlp_tp(cfg, [p["mlp"] for p in ps], x, tp.devices,
+                                row_parallel=tp.ffn_sum, gated=gated)
+    return (h + y, aux) if with_aux else h + y
 
 
 def prefill_tp(cfg, params, batch, capacity, *, prefix=None,
-               prefix_len=None, last_index=None):
+               prefix_len=None, last_index=None, contiguous=False):
     """:func:`prefill` over sharded parameters → (last_logits [B,V] on
     shard 0's device, cache).  Attention-only families: the cache is
     ``{shard_key(r): {"k", "v"}}``, each shard's K/V ``[L, B, capacity,
     KVH_r, hd]`` on its device; ``prefix`` (prefix-aware mode) is such a
-    tree too.  Contiguous models: ``{shard_key(r): grouped cache}``, each
-    shard's leaves at the serving rules' local shapes
-    (:func:`init_cache_tp`)."""
+    tree too.  Contiguous models (or ``contiguous``, the dry-run's
+    prefill, which fills the grouped cache as the reference's does):
+    ``{shard_key(r): grouped cache}``, each shard's leaves at the serving
+    rules' local shapes (:func:`init_cache_tp`).  Parameters gathered
+    over ``model`` (a ``ulysses_sp`` row) prefill sequence-parallel
+    (:func:`_prefill_ulysses`)."""
+    if getattr(params, "strategy", "heads") == "ulysses_sp":
+        return _prefill_ulysses(cfg, params, batch, capacity)
     tp = TensorParallel(cfg, params)
-    if is_contiguous(cfg):
+    if is_contiguous(cfg) or contiguous:
         if prefix is not None:
             raise ValueError(f"{cfg.name}: prefix-aware prefill needs a "
                              f"positionally sliceable cache")
@@ -807,6 +854,38 @@ def _tp_mixer_prefill(cfg, tp, kind, ps, h, pos, capacity):
     return _tp_attention(cfg, tp, ps, h, attend), caches
 
 
+def _prefill_ulysses(cfg, params, batch, capacity):
+    """A ``ulysses_sp`` row's prefill: each shard runs its sequence rows
+    through whole layers (:func:`ulysses_attention`), its cache the
+    all-gathered K/V cut to its slice of the serving rules' layout; the
+    last position's logits from the last shard's rows."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if capacity < S:
+        raise ValueError(f"capacity {capacity} < prompt length {S}")
+    tp = _VocabTP(params)
+    hs, pos = mesh_embed(cfg, [p["embed"] for p in params.shards], tp,
+                         batch, params.devices, ulysses=True)
+    meta, specs = cache_layout_tp(cfg, params, B, capacity)
+    per_shard = [[] for _ in params.devices]
+    for kind, ps in _tp_layers(cfg, params):
+        if kind != "attn_mlp":
+            _ulysses_block(cfg, kind, ps, hs, pos)      # raises
+        hs, (K, V) = ulysses_attention(cfg, ps, hs, pos)
+        hs = ulysses_mlp(cfg, ps, hs)
+        for r, (k, v) in enumerate(zip(K, V)):
+            per_shard[r].append({n: _seq_to_cache(leaf, capacity) for n, leaf
+                                 in att.pack_kv(cfg, k, v).items()})
+    cache = {shard_key(r): _localize(_group_caches(cfg, cs), meta, specs,
+                                     params.mesh, coord)
+             for r, (cs, coord) in enumerate(zip(per_shard, params.ranks))}
+    h = apply_norm(cfg, params.shards[-1]["final_norm"], hs[-1][:, -1:])
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    logits = tp_logits(cfg, [p[name] for p in params.shards], tp, h,
+                       transpose=cfg.tie_embeddings)
+    return logits[:, 0], cache
+
+
 def _prefill_contiguous_tp(cfg, params, tp, batch, capacity):
     S = batch["tokens"].shape[1]
     if capacity < S and any(k in ("attn_mlp", "attn_moe")
@@ -850,6 +929,11 @@ def tp_decode_attention(cfg, tp, ps, x, caches, positions, *, window=0,
         outs = [att.decode_attention(cfg, p[key], xr, c, pr, window=window)
                 for p, xr, c, pr in zip(ps, xs, caches, pos)]
         return reduce_sum(outs)[0] if tp.attn_sum else outs[0]
+    if caches[0]["k"].shape[2] != cfg.num_kv_heads:
+        raise NotImplementedError(
+            f"{cfg.name}: a cache split by KV heads under replicated "
+            f"attention weights (ulysses_sp decoding a cache whose KV "
+            f"heads divide the model axis)")
     Cl = caches[0]["k"].shape[1]
     C = Cl * tp.tp
     qs = []
@@ -896,3 +980,346 @@ def decode_step_tp(cfg, params, cache, tokens, positions):
         h = _tp_feed_forward(cfg, tp, kind, ps, h)
     h = apply_norm(cfg, params.shards[0]["final_norm"], h)
     return _tp_logits(cfg, params, tp, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# training under a mesh: the data axes (FSDP) and ulysses_sp
+
+
+class MeshParams:
+    """A train step's parameters on a mesh: ``tree`` (a
+    :class:`~repro_torch.sharding.placement.ShardedTensor` a leaf, in the
+    rules' layout), ``loc_trees[c]`` (coordinate c's differentiable local
+    tree: the step's cast copies of the state's leaves) and ``strategy``
+    (the rules' ``tp_strategy``).  A leaf is gathered for use over
+    :func:`~repro_torch.sharding.placement.gather_axes` by one
+    :func:`~repro_torch.sharding.placement.mesh_gather` over every
+    coordinate (its backward the reduce-scatter); ``rows`` are the data
+    coordinates' rows of ``model`` ranks."""
+
+    def __init__(self, tree, loc_trees, strategy):
+        self.tree = tree
+        first = next(iter(flat_leaves(tree).values()))
+        self.mesh = first.mesh
+        self.coords = list(np.ndindex(self.mesh.devices.shape))
+        self.rows = data_rows(self.mesh)
+        self.loc_trees = loc_trees
+        self.strategy = strategy
+        self.ulysses = strategy == "ulysses_sp"
+        self._layer_st = {}
+        self.specs = {}
+        for path, st in leaf_paths(tree):
+            set_path(self.specs, path, drop_axes(st.spec, self.axes(path)))
+
+    def axes(self, path: str) -> tuple:
+        return gather_axes(self.mesh, path, self.strategy)
+
+    def gathered(self, path: str) -> dict:
+        """{coordinate: the top-level leaf ``path`` gathered for use}."""
+        st = get_path(self.tree, path)
+        return dict(zip(self.coords, mesh_gather(
+            st, self.axes(path), self.coords,
+            [get_path(self.loc_trees[c], path) for c in self.coords])))
+
+    def layer_st(self, path: str, stacked: bool):
+        """The layout of one layer of leaf ``path`` (a stacked leaf's
+        layer dim dropped)."""
+        st = get_path(self.tree, path)
+        if not stacked:
+            return st
+        if path not in self._layer_st:
+            self._layer_st[path] = ShardedTensor(
+                NamedSharding(self.mesh, tuple(st.spec)[1:]),
+                tuple(st.shape)[1:], st.dtype, None)
+        return self._layer_st[path]
+
+    def row_view(self, i: int):
+        """(the row's coordinates, an object with the ``specs``,
+        ``devices`` and ``tp`` the tensor-parallel classes read)."""
+        row = self.rows[i]
+        return row, SimpleNamespace(
+            specs=self.specs, tp=len(row),
+            devices=[self.mesh.devices[c] for c in row])
+
+
+def flat_leaves(tree) -> dict:
+    """{path: leaf} of a tree of dicts."""
+    return dict(leaf_paths(tree))
+
+
+def mesh_layer(cfg, mp, prefix, layer_locs, fn, carry, *, stacked=True):
+    """One layer of every coordinate under ``cfg.remat``: its leaves
+    (``layer_locs[c]``, coordinate c's local slices of the subtree
+    ``prefix``) gathered for use inside the rematerialised region (so a
+    recompute gathers again, as FSDP does), then ``fn(per, carry)`` with
+    ``per[c]`` coordinate c's gathered tree → the new carry."""
+    paths = list(flat_leaves(layer_locs[mp.coords[0]]))
+    n = len(mp.coords)
+
+    def run(carry, *flat):
+        per = {c: {} for c in mp.coords}
+        for j, path in enumerate(paths):
+            full = f"{prefix}/{path}"
+            got = mesh_gather(mp.layer_st(full, stacked), mp.axes(full),
+                              mp.coords, flat[j * n:(j + 1) * n])
+            for c, t in zip(mp.coords, got):
+                set_path(per[c], path, t)
+        return fn(per, carry)
+
+    flat = [get_path(layer_locs[c], path) for path in paths
+            for c in mp.coords]
+    return remat(cfg, run)(carry, *flat)
+
+
+def seq_slices(h, devices):
+    """A replicated [B, S, ...] tensor's sequence split ``len(devices)``
+    ways: shard r's rows ``[r·S/tp, (r+1)·S/tp)`` on its device."""
+    tp = len(devices)
+    S = h.shape[1]
+    if S % tp:
+        raise ValueError(f"sequence {S} does not split {tp} ways")
+    Sl = S // tp
+    return [hr[:, r * Sl:(r + 1) * Sl].contiguous()
+            for r, hr in enumerate(broadcast(h, devices))]
+
+
+def ulysses_attention(cfg, ps, hs, pos, *, key="attn", norm="ln1"):
+    """``ulysses_sp`` attention of one row: shard r holds query rows
+    ``[r·S/tp, (r+1)·S/tp)`` (``hs[r]``, positions ``pos[r]``) and the
+    layer's whole weights; K/V are all-gathered over the sequence, and
+    each shard's queries attend keys ``[0, (r+1)·S/tp)`` causally, the
+    flash kernel's prefix form with ``prefix_pad = prefix_len = r·S/tp``.
+    → (each shard's h + attention output, each shard's all-gathered
+    (K, V))."""
+    B, Sl, _ = hs[0].shape
+    tp = len(hs)
+    xs = [apply_norm(cfg, p[norm], h) for p, h in zip(ps, hs)]
+    qs, ks, vs = [], [], []
+    for p, x, pr in zip(ps, xs, pos):
+        q = att._project_q(cfg, p[key], x)
+        k, v = att._project_kv(cfg, p[key], x)
+        if cfg.use_rope:
+            cos, sin = rope_cos_sin(pr, cfg.head_dim, cfg.rope_theta, x.dtype)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    S = Sl * tp
+    constrain_activation("act_qkv", (B, S, cfg.num_heads, cfg.head_dim),
+                         [q.shape for q in qs])
+    K, V = gather_seq(ks), gather_seq(vs)
+    constrain_activation("act_kv", (B, S, cfg.num_kv_heads, cfg.head_dim),
+                         [k.shape for k in K])
+    outs = []
+    for r, (p, q, k, v, h) in enumerate(zip(ps, qs, K, V, hs)):
+        o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True,
+                                   prefix_pad=r * Sl, prefix_len=r * Sl)
+        outs.append(h + att._out_proj(o, p[key]["wo"]))
+    return outs, (K, V)
+
+
+def gather_seq(parts):
+    """Each shard's copy of the sequence-split ``parts`` concatenated
+    (dim 1): K and V all-gathered over the sequence."""
+    return all_gather(parts, 1)
+
+
+def ulysses_mlp(cfg, ps, hs, *, norm="ln2", gated=True):
+    """Each shard's h + the MLP of its rows, with the layer's whole
+    weights."""
+    B, Sl, _ = hs[0].shape
+    xs = [apply_norm(cfg, p[norm], h) for p, h in zip(ps, hs)]
+    constrain_activation("act_ffn", (B, Sl * len(hs), cfg.d_ff),
+                         [x.shape[:-1] + (cfg.d_ff,) for x in xs])
+    return [h + mlpmod.apply_mlp(cfg, p["mlp"], x, gated=gated)
+            for p, h, x in zip(ps, hs, xs)]
+
+
+def ulysses_positions(B, S, devices):
+    """Each shard's positions ``[B, S/tp]`` on its device."""
+    tp = len(devices)
+    Sl = S // tp
+    return [torch.arange(r * Sl, (r + 1) * Sl, dtype=torch.int32,
+                         device=d)[None].repeat(B, 1)
+            for r, d in enumerate(devices)]
+
+
+def _tp_block(cfg, kind, tp, ps, h, pos):
+    """One block of one row under the heads layout → (h, MoE aux or
+    None)."""
+    if kind in _RECURRENT:
+        name = _RECURRENT[kind][0]
+        fn = rgmod.apply_rglru_tp if kind == "rglru_mlp" \
+            else ssdmod.apply_ssd_tp
+        x = apply_norm(cfg, ps[0]["ln1"], h)
+        h = h + fn(cfg, [p[name] for p in ps], x, tp.devices)
+    else:
+        window = _window(cfg, kind)
+        h = _tp_attention(cfg, tp, ps, h, lambda r, p, x: att.full_attention(
+            cfg, p["attn"], x, positions=pos[r], window=window,
+            kv_heads=tp.kv_heads[r]))
+    if kind == "ssd":
+        return h, None
+    return _tp_feed_forward(cfg, tp, kind, ps, h, with_aux=True)
+
+
+def _ulysses_block(cfg, kind, ps, hs, pos):
+    if kind != "attn_mlp":
+        raise NotImplementedError(
+            f"{cfg.name}: ulysses_sp runs dense attention blocks only "
+            f"({kind!r}); make_rules picks heads for every other family")
+    B, Sl, D = hs[0].shape
+    constrain_activation("act_hidden", (B, Sl * len(hs), D),
+                         [h.shape for h in hs])
+    hs, _ = ulysses_attention(cfg, ps, hs, pos)
+    return ulysses_mlp(cfg, ps, hs), None
+
+
+def mesh_embed(cfg, tables, tp, batch, devices, *, ulysses):
+    """A row's embedded inputs: the replicated h on shard 0 (heads), or
+    each shard's sequence rows (ulysses_sp); and the positions."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = tp_embed(cfg, tables, tp, tokens)
+    if cfg.frontend == "patch_stub" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(h.dtype)
+        h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+    if ulysses:
+        return seq_slices(h, devices), ulysses_positions(B, S, devices)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None, :].repeat(B, 1)
+    return h, broadcast(positions, devices)
+
+
+def logit_parts(cfg, tables, tp, h, *, transpose):
+    """Each shard's vocab slice of the logits of a replicated h (shard
+    0's whole table where vocab is not split), padding not yet masked."""
+    hs = broadcast(h, tp.devices) if tp.vocab else [h]
+    parts = [hr @ (w.to(hr.dtype).T if transpose else w.to(hr.dtype))
+             for w, hr in zip(tables, hs)]
+    constrain_activation("act_logits", h.shape[:-1] + (cfg.vocab_padded,),
+                         [p.shape for p in parts])
+    return parts
+
+
+def forward_tp(cfg, mp, batch_rows):
+    """The teacher-forcing forward of every data coordinate's row →
+    per row (each shard's vocab slice of the logits, the row's MoE aux
+    loss).  Layers run in order, every row's block of a layer under one
+    :func:`mesh_layer` (its leaves gathered inside remat); the heads
+    layout keeps a row's residual stream on its shard 0, ``ulysses_sp``
+    splits it by sequence."""
+    top = {p: mp.gathered(p) for p in flat_leaves(mp.tree)
+           if p.split("/")[0] not in ("layers",)
+           and not p.startswith("tail")}
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    rows, hs, pos, aux = [], [], [], []
+    for i, batch in enumerate(batch_rows):
+        row, view = mp.row_view(i)
+        tp = TensorParallel(cfg, view) if not mp.ulysses \
+            else _VocabTP(view)
+        rows.append((row, tp))
+        with on_row(row):
+            h, p = mesh_embed(cfg, [top["embed"][c] for c in row], tp,
+                              batch, view.devices, ulysses=mp.ulysses)
+        hs.append(h)
+        pos.append(p)
+        aux.append(torch.zeros((), dtype=torch.float32,
+                               device=view.devices[0]))
+
+    def block(kind):
+        def fn(per, carry):
+            hs, aux = carry
+            out_h, out_a = [], []
+            for (row, tp), h, p, a in zip(rows, hs, pos, aux):
+                ps = [per[c] for c in row]
+                with on_row(row):
+                    if mp.ulysses:
+                        h, b = _ulysses_block(cfg, kind, ps, h, p)
+                    else:
+                        h, b = _tp_block(cfg, kind, tp, ps, h, p)
+                out_h.append(h)
+                out_a.append(a + b if b is not None else a)
+            return out_h, out_a
+        return fn
+
+    group_kinds, n_groups, tail_kinds = _layer_groups(cfg)
+    unst = {c: unstack(mp.loc_trees[c]["layers"], n_groups)
+            for c in mp.coords}
+    carry = (hs, aux)
+    for g in range(n_groups):
+        for i, kind in enumerate(group_kinds):
+            carry = mesh_layer(cfg, mp, f"layers/b{i}",
+                               {c: unst[c][g][f"b{i}"] for c in mp.coords},
+                               block(kind), carry)
+    for i, kind in enumerate(tail_kinds):
+        carry = mesh_layer(cfg, mp, f"tail{i}",
+                           {c: mp.loc_trees[c][f"tail{i}"]
+                            for c in mp.coords}, block(kind), carry,
+                           stacked=False)
+    out = []
+    for (row, tp), h, a in zip(rows, *carry):
+        with on_row(row):
+            norms = [top_tree(top, "final_norm", c) for c in row]
+            if mp.ulysses:
+                h = gather_seq([apply_norm(cfg, n, hr)
+                                for n, hr in zip(norms, h)])[0]
+            else:
+                h = apply_norm(cfg, norms[0], h)
+            parts = logit_parts(cfg, [top[name][c] for c in row], tp, h,
+                                transpose=cfg.tie_embeddings)
+        out.append((parts, a, tp.vocab))
+    return out
+
+
+class _VocabTP:
+    """What the ulysses_sp row's embedding and logits read: the row's
+    devices and whether the vocab tables are split."""
+
+    def __init__(self, view):
+        self.devices = view.devices
+        self.tp = view.tp
+        self.vocab = _on_model(view.specs["embed"][0])
+
+
+def top_tree(top, prefix, c) -> dict:
+    """Coordinate c's gathered subtree ``prefix`` of the top leaves."""
+    out = {}
+    for path, by_coord in top.items():
+        if path.split("/")[0] == prefix:
+            set_path(out, path.split("/", 1)[1], by_coord[c])
+    return out
+
+
+def vocab_loss(cfg, parts, targets, vocab_split):
+    """The reference's next-token loss over vocab-sharded logits ``parts``
+    (float32 after the padding is masked): logsumexp is a
+    :func:`reduce_max` (a constant shift) and a :func:`reduce_sum` of the
+    shards' exponential sums, the target's logit comes from its owning
+    shard (one :func:`reduce_sum`; the others add 0) → (nll, zloss)."""
+    Vl = parts[0].shape[-1]
+    devices = [p.device for p in parts]
+    ts = broadcast(targets.long(), devices) if vocab_split else [targets]
+    fl = []
+    for r, p in enumerate(parts):
+        col = torch.arange(r * Vl, (r + 1) * Vl, device=p.device)
+        fl.append(torch.where(col < cfg.vocab_size, p, torch.full(
+            (), -1e30, dtype=p.dtype, device=p.device)).float())
+    if not vocab_split:
+        logz = torch.logsumexp(fl[0], dim=-1)
+        gold = fl[0].gather(-1, ts[0].long()[..., None])[..., 0]
+    else:
+        m = reduce_max([p.amax(-1) for p in fl])
+        s = reduce_sum([torch.exp(p - mr[..., None]).sum(-1)
+                        for p, mr in zip(fl, m)])
+        logz = m[0] + torch.log(s[0])
+        golds = []
+        for r, (p, t) in enumerate(zip(fl, ts)):
+            idx = t - r * Vl
+            own = (idx >= 0) & (idx < Vl)
+            g = p.gather(-1, idx.clamp(0, Vl - 1)[..., None])[..., 0]
+            golds.append(torch.where(own, g, torch.zeros((), device=p.device)))
+        gold = reduce_sum(golds)[0]
+    nll = (logz - gold).mean()
+    return nll, 1e-4 * logz.square().mean()

@@ -83,6 +83,22 @@ class Model:
         loss = nll + zloss + 1e-2 * aux
         return loss, {"nll": nll, "aux": aux, "zloss": zloss}
 
+    def loss_tp(self, mp, batch_rows):
+        """:meth:`loss_fn` of every data coordinate's row under a mesh
+        (:class:`lm.MeshParams`; ``batch_rows[i]`` row i's batch slice)
+        over vocab-sharded logits → per row (loss, {"nll", "aux",
+        "zloss"}) on the row's first shard's device."""
+        fwd = encdec.forward_tp if self.is_encdec else lm.forward_tp
+        out = []
+        for (parts, aux, split), batch in zip(
+                fwd(self.cfg, mp, batch_rows), batch_rows):
+            nll, zloss = lm.vocab_loss(self.cfg, parts, batch["targets"],
+                                       split)
+            aux = aux.to(nll.device)
+            out.append((nll + zloss + 1e-2 * aux,
+                        {"nll": nll, "aux": aux, "zloss": zloss}))
+        return out
+
     def prefill(self, params, batch, capacity, *, prefix=None,
                 prefix_len=None, last_index=None):
         """→ (last_logits [B,V], cache); see :func:`lm.prefill` and

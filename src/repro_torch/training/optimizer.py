@@ -67,15 +67,24 @@ class AdamW:
         return torch.tensor(self.learning_rate, dtype=torch.float32,
                             device=step.device)
 
+    @staticmethod
+    def sum_squares(grads):
+        """The float32 sum of squares of a tree of gradients, leaf by leaf
+        in order."""
+        return sum(torch.sum(torch.square(g.float()))
+                   for g in flatten(grads).values())
+
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, *, gnorm=None):
         """One step → (params, state, {"grad_norm", "lr"}).  ``state``'s
         moments and master and ``params`` are updated in place (and
-        returned); ``grads`` are read only."""
+        returned); ``grads`` are read only.  ``gnorm``: the global norm,
+        where the tree is one coordinate's shards of a larger one (a
+        sharded step sums :meth:`sum_squares` over the mesh)."""
         count = state["count"] + 1
         g_flat = flatten(grads)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in g_flat.values()))
+        if gnorm is None:
+            gnorm = torch.sqrt(self.sum_squares(grads))
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         c1 = 1 - b1 ** count.float()

@@ -463,16 +463,17 @@ def test_train_phases_parse():
     unknown name is refused."""
     train = ("train", "train_ssm", "train_hybrid", "train_moe",
              "train_encdec")
-    assert chip_smoke.PHASES[-9:] == ("train", "train_ssm", "train_hybrid",
-                                      "serve_fleet", "train_moe",
-                                      "train_encdec", "serve_tp",
-                                      "ef_allreduce", "serve_tp_families")
+    assert chip_smoke.PHASES[-10:] == ("train", "train_ssm",
+                                       "train_hybrid", "serve_fleet",
+                                       "train_moe", "train_encdec",
+                                       "serve_tp", "ef_allreduce",
+                                       "serve_tp_families", "train_tp")
     assert tuple(chip_smoke.TRAIN_CASES) == train
     assert set(train) < set(chip_smoke.PHASES)
     if not torch.cuda.is_available():
         assert chip_smoke.main(["--phases", ",".join(train)
                                 + ",serve_fleet,serve_tp,ef_allreduce,"
-                                "serve_tp_families"]) == 2
+                                "serve_tp_families,train_tp"]) == 2
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phases", "train,train_vlm"])
 
@@ -765,6 +766,52 @@ def test_serve_fleet_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
     assert line["generate_batch_wave"]["elements"] == 4
     for f in fleets.values():
         assert sum(f["routed"].values()) == 4 + 16
+
+
+def test_train_tp_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
+                                      capsys):
+    """train_tp at reduced width: stablelm at (1, 1), (2, 1), (1, 2) and
+    (2, 2) and qwen3 under ulysses_sp at (1, 1) and (1, 4), every
+    coordinate on the CPU; flash launches a step held to dp × tp ×
+    layers × 2, the float32 check against (1, 1) held, the collectives
+    printed by kind."""
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+
+    def reduced(name):
+        cfg = real(name).reduced()
+        return cfg.replace(tp_strategy="ulysses_sp") \
+            if name == "qwen3-14b" else cfg
+    monkeypatch.setattr(configs, "get_config", reduced)
+    mod = cpu_chip_smoke
+    mod.TRAIN_TP = dict(chip_smoke.TRAIN_TP, batch=2, seq=16, layers=2)
+    mod.TRAIN_TP_ULYSSES = dict(chip_smoke.TRAIN_TP_ULYSSES, seq=16,
+                                meshes=((1, 1), (1, 4)))
+    mod.TRAIN_TP_STEPS = 2
+    launches, _ = mod.phase_train_tp(0)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "train_tp" and line["card"] == "CPU rehearsal"
+    dense, uly = line["cases"]
+    got = [(r["mesh"], r["tp_strategy"], r["flash_launches_per_step"])
+           for r in dense["bfloat16"]["meshes"]]
+    assert got == [([1, 1], "heads", 4), ([2, 1], "heads", 8),
+                   ([1, 2], "heads", 8), ([2, 2], "heads", 16)]
+    # the rehearsal's reduced qwen3 has 4 heads, so its config sets the
+    # strategy (the full one's 40 heads make make_rules pick it at 16)
+    assert [r["tp_strategy"] for r in uly["bfloat16"]["meshes"]] == [
+        "ulysses_sp", "ulysses_sp"]
+    for case in (dense, uly):
+        for r in case["float32"]["meshes"][1:]:
+            assert r["worst_grad_rel_l2_vs_1x1"] <= line["f32_tol"]
+            assert r["loss_rel_err_vs_1x1"] <= line["f32_tol"]
+        for r in case["bfloat16"]["meshes"]:
+            assert len(r["losses"]) == 2
+            if r["mesh"] != [1, 1]:
+                assert r["collectives_per_step"]["all-gather"]["count"] > 0
+    assert launches["flash_attention"] == 2 * (4 + 8 + 8 + 16) \
+        + (4 + 8 + 8 + 16) + 2 * (4 + 16) + (4 + 16)
 
 
 def test_backward_rows_rehearsed_on_the_cpu(cpu_chip_smoke):

@@ -24,6 +24,7 @@ from repro.kernels.flash_attention import ops as fa_jax  # noqa: E402
 from repro.kernels.rglru import ops as lru_jax  # noqa: E402
 from repro.kernels.ssd import ops as ssd_jax  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_pt  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as lru_pt  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_pt  # noqa: E402
 
@@ -96,14 +97,24 @@ def test_flash_gradcheck_float64(causal, window):
 
 
 def test_flash_prefix_mode_takes_no_gradient():
-    """The engine's prefix mode is inference only: asking it for a
-    gradient raises; without one it runs."""
-    q = torch.randn(1, 4, 2, 8, requires_grad=True)
-    kv = torch.randn(1, 12, 2, 8)
-    with pytest.raises(ValueError, match="prefix mode takes no gradient"):
-        fa_pt.flash_attention(q, kv, kv, prefix_pad=8, prefix_len=5)
+    """The prefix mode, once inference only, now takes a gradient (a
+    ``ulysses_sp`` shard trains through it): asked for one, it gives
+    autograd's through the plain version under the same mask; without
+    one it runs as before."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(1, 4, 2, 8, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    kv = torch.randn(1, 12, 2, 8, generator=gen, dtype=torch.float64,
+                     requires_grad=True)
+    kw = dict(prefix_pad=8, prefix_len=5)
+    got = torch.autograd.grad(fa_pt.flash_attention(q, kv, kv, **kw).sum(),
+                              (q, kv))
+    want = torch.autograd.grad(
+        fa_ref.flash_attention_ref(q, kv, kv, **kw).sum(), (q, kv))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
     with torch.no_grad():
-        fa_pt.flash_attention(q, kv, kv, prefix_pad=8, prefix_len=5)
+        fa_pt.flash_attention(q, kv, kv, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -142,8 +142,10 @@ def test_ssd_plain_version_holds_float64_recurrence():
 
 
 def test_ssd_wrapper_validates_and_counts_no_cpu_launch():
-    """Bad dtypes, shapes and devices raise; the plain CPU path leaves the
-    launch counter alone."""
+    """Bad dtypes, shapes and mixed devices raise; the plain CPU path
+    leaves the launch counter alone, and so do ``meta`` inputs (the
+    dry-run's), which give empty outputs of the kernel's shapes where
+    this once raised."""
     xh, dt, a_log, Bm, Cm, _ = (t(v) if v is not None else None
                                 for v in _inputs(7, 1, 16, 2, 16, 8))
     before = ssd_pt.ssd_chunked.launches
@@ -160,9 +162,11 @@ def test_ssd_wrapper_validates_and_counts_no_cpu_launch():
                            initial_state=torch.zeros(1, 2, 8, 16))
     with pytest.raises(ValueError, match="meta"):
         ssd_pt.ssd_chunked(xh, dt, a_log, Bm.to("meta"), Cm, chunk=8)
-    with pytest.raises(ValueError, match="unsupported device"):
-        ssd_pt.ssd_chunked(*(v.to("meta") for v in (xh, dt, a_log, Bm, Cm)),
-                           chunk=8)
+    y, h = ssd_pt.ssd_chunked(*(v.to("meta") for v in (xh, dt, a_log, Bm,
+                                                        Cm)), chunk=8)
+    assert (y.device.type, tuple(y.shape), tuple(h.shape)) == (
+        "meta", tuple(xh.shape),
+        (xh.shape[0], xh.shape[2], xh.shape[3], Bm.shape[-1]))
     assert ssd_pt.ssd_chunked.launches == before
 
 
