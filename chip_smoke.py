@@ -219,6 +219,30 @@ Phases, each printing one JSON line:
              apart, of placing the state).  Then float32 at 2
              layers: loss and gradients held to the (1, 1) step's within
              ``TRAIN_TP_TOL_F32``.
+19. poppy_apps — compound-AI programs written against the port's own
+             ``@poppy`` (``repro_torch.core``), through a port
+             ``Dispatcher`` (admission at 8) and ``LocalEngineBackend``
+             into the paged engine at full-width stablelm-3b in bf16
+             (``serve``'s engine, prefix cache off), a fresh engine a
+             run, each warmed by one untimed request: A, 8 independent
+             summaries reported in order and a combine
+             (``examples/serve_llm.py``); B, the 5-agent, 3-round debate
+             with a memory domain an agent
+             (``examples/multi_agent_debate.py``); C, A on the blocking
+             client offloaded to threads, the engine on the bridge loop,
+             plus one pure-Python external in a worker process.  A and B
+             under standard Python and under PopPy must give equal
+             results, report lines, memories and greedy tokens call for
+             call, ≡_A traces and decode occupancy 1 against 8 and 5; C
+             must equal A's PopPy run and its process external the plain
+             call; A under ``batching()`` with the prefix cache on must
+             run the backend's shared-prefix warm.  Every run holds
+             exact launches (paged decode a layer a step, flash a layer
+             a chunk) and the decode graph.  Prints each run's wall
+             seconds, decode steps and their median, occupancy and the
+             time outside external calls, a traced PopPy run of A (one
+             tracer holding the runtime's and the engine's spans, with
+             the critical path) and its busy share under the profiler.
 
 The kernels phase also holds each trained wrapper's
 ``torch.autograd.Function`` on the card at these phases' shapes: flash
@@ -268,6 +292,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -278,7 +303,8 @@ OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
           "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
           "train_hybrid", "serve_fleet", "train_moe", "train_encdec",
-          "serve_tp", "ef_allreduce", "serve_tp_families", "train_tp")
+          "serve_tp", "ef_allreduce", "serve_tp_families", "train_tp",
+          "poppy_apps")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -4424,6 +4450,378 @@ def phase_train_tp(seed):
     return launches, shapes
 
 
+# phase 19: compound-AI programs on the port's own PopPy core, driving the
+# paged engine through the port's dispatcher and backend
+POPPY_DOCS = 8                 # program A's fan-out
+POPPY_AGENTS = 5               # program B's debaters
+POPPY_ROUNDS = 2               # B's rounds after the opening one
+POPPY_QUESTION = "what is the boiling point of water at sea level?"
+POPPY_PERSONAS = ("scientist", "historian", "engineer", "economist", "critic")
+# the held comparison runs each mode on a fresh engine with the prefix
+# cache off: a prefill over a reused prefix rounds bf16 otherwise than a
+# whole one, and the decode step runs all slots at fixed shapes, so a
+# request's tokens do not depend on what else is in the batch
+POPPY_ENGINE = {**SERVE_ENGINE, "prefix_cache_budget": 0}
+# the combine prompt's length bound: the engine's 1024 positions hold it
+# and its 12 new tokens whatever the summaries decode to
+POPPY_COMBINE_CHARS = 480
+# each engine's untimed first request (2 new tokens: one decode step)
+POPPY_WARM_UP = [256, 1, 2, 3]
+
+
+def text_checksum(text):
+    """A pure-Python, CPU-bound function for program C's
+    ``offload="process"`` external (module level: the worker imports it
+    by name)."""
+    h = 0
+    for ch in text:
+        h = (h * 131 + ord(ch)) % 1_000_000_007
+    return h
+
+
+def poppy_programs():
+    """Programs A, B and C, written against the port's own ``@poppy`` as
+    ``examples/serve_llm.py`` and ``examples/multi_agent_debate.py`` write
+    them.  → a namespace with the programs, the ``report`` lines (in
+    program order) and the debate's ``MemoryStore``."""
+    from repro_torch.core import poppy, sequential, unordered
+    from repro_torch.core.ai import MemoryStore, llm, llm_sync
+
+    lines = []
+    memory = MemoryStore("debate")
+    checksum = unordered(offload="process",
+                         returns_immutable=True)(text_checksum)
+
+    @sequential
+    def report(line):
+        lines.append(line)
+        return None
+
+    # A: independent summaries, each reported in order, then one combine
+    @poppy
+    def summarize_documents(n_docs):
+        summaries = tuple()
+        for i in range(n_docs):
+            s = llm(f"summarize document {i}", max_tokens=32)
+            report(f"doc {i}: {s}")
+            summaries += (s,)
+        overall = llm(f"combine: {summaries}"[:POPPY_COMBINE_CHARS],
+                      max_tokens=12)
+        report(f"combined: {overall}")
+        return overall
+
+    # B: the debate, each agent's positions in its own memory domain
+    @poppy
+    def agent_turn(agent, persona, question, others):
+        position = llm(f"as a {persona}, answer briefly: {question} | "
+                       f"others said: {others}", max_tokens=12)
+        memory.append(agent, position)
+        words = position.split()
+        return words[0] if words else "unknown"
+
+    @poppy
+    def debate(question):
+        answers = ()
+        for i in range(POPPY_AGENTS):
+            a = agent_turn(f"agent{i}", POPPY_PERSONAS[i], question, "")
+            answers += (a,)
+        for rnd in range(POPPY_ROUNDS):
+            revised = ()
+            for i in range(POPPY_AGENTS):
+                others = answers[:i] + answers[i + 1:]
+                a = agent_turn(f"agent{i}", POPPY_PERSONAS[i], question,
+                               f"{others}")
+                revised += (a,)
+            answers = revised
+        counts = {}
+        for a in answers:
+            counts[a] = counts.get(a, 0) + 1
+        best = None
+        best_n = 0
+        for a, n in sorted(counts.items()):
+            if n > best_n:
+                best, best_n = a, n
+        return (best, best_n, len(counts))
+
+    # C: A with the blocking client (offloaded to the runtime's threads)
+    # and one pure-Python external in a worker process
+    @poppy
+    def summarize_documents_sync(n_docs):
+        summaries = tuple()
+        for i in range(n_docs):
+            s = llm_sync(f"summarize document {i}", max_tokens=32)
+            report(f"doc {i}: {s}")
+            summaries += (s,)
+        prompt = f"combine: {summaries}"[:POPPY_COMBINE_CHARS]
+        overall = llm_sync(prompt, max_tokens=12)
+        report(f"combined: {overall}")
+        return (overall, prompt, checksum(prompt))
+
+    return types.SimpleNamespace(
+        A=summarize_documents, B=debate, C=summarize_documents_sync,
+        lines=lines, memory=memory)
+
+
+def record_calls(engine):
+    """Wrap ``engine.generate`` to record each request's (prompt tokens,
+    greedy tokens); → the list it appends to."""
+    calls = []
+    real = engine.generate
+
+    async def generate(prompt_tokens, **kw):
+        out = await real(prompt_tokens, **kw)
+        calls.append((tuple(prompt_tokens), tuple(out)))
+        return out
+    engine.generate = generate
+    return calls
+
+
+def externals_idle_s(trace, wall_s):
+    """Seconds of a run's wall time in which no external call of its trace
+    was in flight: the runtime's own time outside external calls (and
+    the host's between them)."""
+    spans = sorted((e.t_dispatch, e.t_resolve) for e in trace.events
+                   if e.seq_no >= 0 and e.t_resolve >= e.t_dispatch)
+    covered, end = 0.0, -math.inf
+    for a, b in spans:
+        if b <= end:
+            continue
+        covered += b - max(a, end)
+        end = b
+    return max(wall_s - covered, 0.0)
+
+
+def poppy_run(label, model, params, programs, name, arg, counters, *,
+              sequential=False, sync=False, batch=False, engine_kw=None):
+    """Program ``name`` of ``programs`` once, on a fresh engine behind a
+    port ``Dispatcher`` (admission at the engine's slots) and a port
+    ``LocalEngineBackend``: under standard Python (``sequential``) or
+    PopPy, with the blocking clients (``sync``: thread offload, one
+    worker process) or with queue-time batching (``batch``).  An untimed
+    request first runs the engine's eager first decode step and its
+    graph capture, on the loop the program's requests will use.  Holds
+    paged decode launched once a layer a decode step and flash once a
+    layer a prefill chunk over the run, every launch count set to 0 just
+    before it, and the decode graph.  → the run's record."""
+    import contextlib
+
+    from repro_torch.core import (batching, offload_policy, recording,
+                                  sequential_mode)
+    from repro_torch.core.ai import (run_blocking, use_dispatcher,
+                                     use_sync_clients)
+    from repro_torch.dispatch import AdmissionPolicy, Dispatcher
+    from repro_torch.serving.backend import LocalEngineBackend
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, params, **(engine_kw or POPPY_ENGINE))
+
+    async def warm_up():
+        await engine.generate(POPPY_WARM_UP, max_new_tokens=2)
+    if sync:
+        run_blocking(warm_up)
+    else:
+        asyncio.run(warm_up())
+    steps0, chunks0 = engine.steps, engine.prefill_chunks
+    occ0 = len(engine.batch_occupancy)
+    calls = record_calls(engine)
+    dispatcher = Dispatcher([LocalEngineBackend(engine)],
+                            admission=AdmissionPolicy(
+                                max_concurrency=engine.max_slots))
+    programs.lines.clear()
+    programs.memory.clear()
+    with contextlib.ExitStack() as ctx:
+        ctx.enter_context(use_dispatcher(dispatcher))
+        trace = ctx.enter_context(recording())
+        if sequential:
+            ctx.enter_context(sequential_mode())
+        if sync:
+            ctx.enter_context(use_sync_clients())
+            ctx.enter_context(offload_policy(mode="thread",
+                                             process_workers=1))
+        if batch:
+            ctx.enter_context(batching())
+        zero_launches(counters)
+        t0 = time.perf_counter()
+        result = getattr(programs, name)(arg)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, shapes = read_launches(counters)
+    if sync:
+        # the blocking clients ran the engine on the bridge loop's thread
+        run_blocking(engine.stop)
+    st = engine.stats()
+    steps, chunks = st["steps"] - steps0, st["prefill_chunks"] - chunks0
+    L = model.cfg.num_layers
+    check_launches(label, {n: launches[n] for n in ("paged_decode_attention",
+                                                     "flash_attention")},
+                   {"paged_decode_attention": L * steps,
+                    "flash_attention": L * chunks})
+    graph = check_graph(label, st["decode_graph"], st["steps"],
+                        {"paged_decode_attention": L})
+    occ = engine.batch_occupancy[occ0:]
+    dec = sorted(engine.decode_step_s[occ0:])
+    return {"label": label, "engine": engine, "result": result,
+            "lines": list(programs.lines),
+            "memory": programs.memory.snapshot(), "trace": trace,
+            "calls": sorted(calls), "wall_s": wall_s,
+            # standard Python records each call at its start, with no
+            # duration: the measure reads PopPy runs only
+            "outside_externals_s": None if sequential
+            else externals_idle_s(trace, wall_s),
+            "decode_steps": steps, "prefill_chunks": chunks,
+            "max_occupancy": max(occ, default=0),
+            "mean_occupancy": sum(occ) / max(len(occ), 1),
+            "decode_s": sum(dec),
+            "decode_step_median_ms": statistics.median(dec) * 1e3,
+            "launches": {n: k for n, k in launches.items() if k},
+            "shapes": shapes, "graph": graph,
+            "prefix": dispatcher.stats.snapshot()["prefix"]}
+
+
+def hold_modes(label, seq, pop, fan_out):
+    """Standard Python against PopPy on one program: equal results,
+    ``report`` lines, memories and greedy tokens call for call, ≡_A
+    traces, and the decode batches' maximum occupancy 1 against the
+    program's fan-out."""
+    from repro_torch.core import equivalent
+
+    for key in ("result", "lines", "memory", "calls"):
+        if seq[key] != pop[key]:
+            fail(f"poppy_apps {label}: {key} differ between standard "
+                 f"Python and PopPy: {seq[key]!r} vs {pop[key]!r}")
+    ok, why = equivalent(seq["trace"], pop["trace"])
+    if not ok:
+        fail(f"poppy_apps {label}: traces not equivalent: {why}")
+    if seq["max_occupancy"] != 1 or pop["max_occupancy"] != fan_out:
+        fail(f"poppy_apps {label}: maximum decode occupancy "
+             f"{seq['max_occupancy']} (standard Python) and "
+             f"{pop['max_occupancy']} (PopPy); want 1 and {fan_out}")
+
+
+def run_record(r):
+    """What a run prints."""
+    return {k: r[k] for k in ("wall_s", "outside_externals_s",
+                              "decode_steps", "prefill_chunks",
+                              "max_occupancy", "mean_occupancy",
+                              "decode_s", "decode_step_median_ms",
+                              "launches", "graph")}
+
+
+def poppy_observed(model, params, programs, counters):
+    """Program A under PopPy twice more, on a fresh engine after an
+    unprofiled run has built its decode graph: once under
+    ``repro_torch.obs.tracing()``, whose one tracer records the runtime's
+    spans and the engine's (held: an ``llm`` and a ``request`` span a
+    call, a ``decode.step`` span a decode step), with the critical-path
+    report (:func:`trace_report`); once under ``torch.profiler``, for the
+    device's busy share (:func:`profile_report`).  → (trace, profile)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.core.ai import use_dispatcher
+    from repro_torch.dispatch import Dispatcher
+    from repro_torch.serving.backend import LocalEngineBackend
+
+    engine = poppy_run("poppy_apps A observed", model, params, programs,
+                       "A", POPPY_DOCS, counters)["engine"]
+    dispatcher = Dispatcher([LocalEngineBackend(engine)])
+    steps0 = engine.steps
+    with use_dispatcher(dispatcher), obs.tracing() as trz:
+        t0 = time.perf_counter()
+        programs.A(POPPY_DOCS)
+        seconds = time.perf_counter() - t0
+    counts = Counter(sp.name for sp in trz.spans + trz.instants)
+    steps = engine.steps - steps0
+    # one tracer holds the runtime's spans and the engine's
+    want = {"llm": POPPY_DOCS + 1, "request": POPPY_DOCS + 1,
+            "decode.step": steps}
+    if {n: counts[n] for n in want} != want:
+        fail(f"poppy_apps traced A: spans {dict(counts)}, want {want}")
+    traced = {"seconds": seconds, "decode_steps": steps,
+              "spans": dict(sorted(counts.items())),
+              "report": trace_report(trz, "poppy_apps_trace_report.txt")}
+    with use_dispatcher(dispatcher):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            programs.A(POPPY_DOCS)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    return traced, profile_report(prof, wall_us, "poppy_apps_profile.txt")
+
+
+def phase_poppy_apps(seed):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+
+    cfg = get_config("stablelm-3b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed, device="cuda", dtype=torch.bfloat16)
+    counters = launch_counters()
+    programs = poppy_programs()
+    launches, shapes = collections.Counter(), {}
+
+    def run(label, name, arg, **kw):
+        nonlocal shapes
+        r = poppy_run(f"poppy_apps {label}", model, params, programs, name,
+                      arg, counters, **kw)
+        del r["engine"]
+        launches.update(r["launches"])
+        shapes = add_shapes(shapes, r.pop("shapes"))
+        return r
+
+    a_seq = run("A standard", "A", POPPY_DOCS, sequential=True)
+    a_pop = run("A poppy", "A", POPPY_DOCS)
+    hold_modes("A", a_seq, a_pop, POPPY_DOCS)
+    b_seq = run("B standard", "B", POPPY_QUESTION, sequential=True)
+    b_pop = run("B poppy", "B", POPPY_QUESTION)
+    hold_modes("B", b_seq, b_pop, POPPY_AGENTS)
+
+    c_pop = run("C poppy", "C", POPPY_DOCS, sync=True)
+    overall, prompt, digest = c_pop["result"]
+    if overall != a_pop["result"] or c_pop["calls"] != a_pop["calls"] \
+            or c_pop["lines"] != a_pop["lines"]:
+        fail(f"poppy_apps C: result, tokens or report lines differ from "
+             f"A's PopPy run: {c_pop['result']!r} vs {a_pop['result']!r}")
+    if digest != text_checksum(prompt):
+        fail(f"poppy_apps C: the process-offloaded external gave {digest}, "
+             f"the plain call {text_checksum(prompt)}")
+
+    cached = run("A batched", "A", POPPY_DOCS, batch=True,
+                 engine_kw=SERVE_ENGINE)
+    prefix = cached["prefix"] or {}
+    if not prefix.get("batches", 0) > 0 \
+            or not prefix.get("shared_tokens", 0) > 0:
+        fail(f"poppy_apps A batched: the backend's shared-prefix counts "
+             f"{prefix} did not grow: the warm path did not run")
+
+    traced, profiled = poppy_observed(model, params, programs, counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "poppy_apps", "card": card(), "model": cfg.name,
+          "layers": cfg.num_layers, "dtype": "bfloat16",
+          "engine": {k: v for k, v in POPPY_ENGINE.items() if k != "device"},
+          "A": {"calls": POPPY_DOCS + 1,
+                "standard": run_record(a_seq), "poppy": run_record(a_pop),
+                "speedup": a_seq["wall_s"] / a_pop["wall_s"]},
+          "B": {"calls": POPPY_AGENTS * (1 + POPPY_ROUNDS),
+                "standard": run_record(b_seq), "poppy": run_record(b_pop),
+                "speedup": b_seq["wall_s"] / b_pop["wall_s"]},
+          "C": {"poppy": run_record(c_pop),
+                "vs_A_poppy": c_pop["wall_s"] / a_pop["wall_s"],
+                "process_checksum": digest},
+          "A_batched_prefix_cache": {
+              **run_record(cached), "prefix_batches": prefix,
+              "result_equal": cached["result"] == a_pop["result"],
+              "tokens_equal": cached["calls"] == a_pop["calls"]},
+          "traced_A_poppy": traced, "profiled_A_poppy": profiled,
+          "peak_memory_gb": peak_gb})
+    return dict(launches), shapes
+
+
 def summary_row(r, shapes):
     """One kernels-phase row in the summary line: what tells it apart, its
     times, bound, error and the launches the main paths made at its launch
@@ -4484,6 +4882,7 @@ def main(argv=None):
                "serve_vlm": phase_serve_vlm,
                "serve_fleet": phase_serve_fleet,
                "train_tp": phase_train_tp,
+               "poppy_apps": phase_poppy_apps,
                **{name: functools.partial(phase_train, name)
                   for name in TRAIN_CASES}}
     for name in PHASES:

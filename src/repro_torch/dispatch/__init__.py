@@ -12,8 +12,8 @@ straggler mitigation, and a stats surface.
 Quickstart::
 
     from repro_torch.core.ai import SimulatedBackend, llm, use_dispatcher
-    from repro.dispatch import (AdmissionPolicy, BatchPolicy, Dispatcher,
-                                HedgePolicy)
+    from repro_torch.dispatch import (AdmissionPolicy, BatchPolicy,
+                                      Dispatcher, HedgePolicy)
 
     d = Dispatcher(
         [SimulatedBackend(), SimulatedBackend()],   # two replicas

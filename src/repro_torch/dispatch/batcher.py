@@ -3,9 +3,9 @@
 Coalesces individual backend requests into batched backend calls.  Two
 producers feed it:
 
-* the engine's queue-time batch windows (``repro.core.batching``), whose
-  flushes arrive here as ``Dispatcher.generate_batch`` / ``embed_batch``
-  bursts, and
+* the runtime's queue-time batch windows
+  (``repro_torch.core.batching``), whose flushes arrive here as
+  ``Dispatcher.generate_batch`` / ``embed_batch`` bursts, and
 * plain concurrent traffic through a dispatcher configured with
   ``batch=BatchPolicy(...)`` — single ``generate``/``embed`` calls from
   any number of runtimes window here even without engine batching.

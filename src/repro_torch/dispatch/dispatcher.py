@@ -1,9 +1,10 @@
 """The Dispatcher: production external-call dispatch (DESIGN.md §5); the
 port's copy of ``repro/dispatch/dispatcher.py``.
 
-Sits between the PopPy concurrency controllers (``repro.core.controllers``
-→ ``repro.core.ai``, which a program binds a port dispatcher into with
-the reference's ``use_dispatcher``) and the backends.  Layering, outermost first::
+Sits between the PopPy concurrency controllers
+(``repro_torch.core.controllers`` → ``repro_torch.core.ai``; a program of
+the reference's core may bind a port dispatcher with the reference's
+``use_dispatcher`` too) and the backends.  Layering, outermost first::
 
     cache / coalesce → batch → hedge → route → admit → retry → backend
 

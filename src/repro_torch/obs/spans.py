@@ -1,10 +1,12 @@
-"""Span tracing for the port's serving engine.
+"""Span tracing for the port's PopPy runtime and serving engine.
 
 The port's own copy of ``repro/obs/spans.py``, with its own context
-variables: the port imports nothing of ``repro``.  The engine uses a
-tracer only through ``begin``, ``end``, ``span`` and ``event``, so either
-package's :class:`Tracer` can record it; a program that wants one trace
-of the PopPy runtime and of this engine enters both packages'
+variables: the port imports nothing of ``repro``.  The port's runtime
+(``repro_torch.core``) and engine both read :func:`current_tracer`, so one
+``tracing()`` records a program's externals, its dispatch and the engine's
+prefill chunks and decode steps on one timeline.  The engine uses a tracer
+only through ``begin``, ``end``, ``span`` and ``event``, so a program of
+the reference's core can still trace it: enter both packages'
 ``tracing(trz)`` with the same tracer.
 
 A *span* is a named time interval on a *track* (a display lane: an effect

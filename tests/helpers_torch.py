@@ -1,6 +1,13 @@
 """Shared set-up of the port's parity tests: the same model and the same
 parameters in the JAX package and in the port."""
 
+import importlib
+import importlib.util
+import itertools
+import pathlib
+import re
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -91,3 +98,52 @@ SCENARIOS = {
     "backpressure": (dict(max_slots=4, max_len=64, page_size=16,
                           num_pages=8), _rand_prompts(3, 4, 40), 8, None),
 }
+
+
+# the PopPy corpus, loaded under either package
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PACKAGES = ("repro", "repro_torch")
+CORPUS = {name: ROOT / "benchmarks" / "apps" / f"{name}.py"
+          for name in ("tot", "sot", "dae", "bird", "traq", "camel")}
+CORPUS["quickstart"] = ROOT / "examples" / "quickstart.py"
+CORPUS["multi_agent_debate"] = ROOT / "examples" / "multi_agent_debate.py"
+CORPUS["core_programs"] = ROOT / "tests" / "torch_core_programs.py"
+_loaded = itertools.count()
+
+
+def load_under(package, path, tmp_path):
+    """The module at ``path`` with its ``repro.core`` and
+    ``repro.durability`` imports pointed at ``package`` (``"repro"`` or
+    ``"repro_torch"``), imported fresh under a unique name from a copy
+    under ``tmp_path``: ``@poppy`` reads its programs' source from their
+    file, and a process-offloaded external is imported by module name in
+    the worker, so the copy is a file and sits in ``sys.modules``."""
+    src = pathlib.Path(path).read_text()
+    if package == "repro_torch":
+        src = re.sub(r"\brepro\.(core|durability)\b", r"repro_torch.\1", src)
+    elif package != "repro":
+        raise ValueError(f"unknown package {package!r}")
+    name = f"_corpus_{package}_{pathlib.Path(path).stem}_{next(_loaded)}"
+    file = tmp_path / f"{name}.py"
+    file.write_text(src)
+    spec = importlib.util.spec_from_file_location(name, file)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def core_of(package):
+    """``(core, ai, durability)`` of ``package``."""
+    return tuple(importlib.import_module(f"{package}.{m}")
+                 for m in ("core", "core.ai", "durability"))
+
+
+def poppy_functions(mod):
+    """Every ``@poppy`` function a corpus module defines, by name (camel's
+    programs by their key)."""
+    fns = {name: v for name, v in vars(mod).items()
+           if type(v).__name__ == "PoppyFn"}
+    fns.update(getattr(mod, "PROGRAMS", {}))
+    return fns

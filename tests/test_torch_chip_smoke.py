@@ -7,6 +7,7 @@ summary line's rows, flash's NaN-tail check, and the trace and profile
 reports."""
 
 import collections
+import sys
 import types
 
 import pytest
@@ -456,24 +457,26 @@ def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
 
 
 def test_train_phases_parse():
-    """The five train phases, the fleet phase and the tensor-parallel,
-    all-reduce and tensor-parallel families phases are phases of the
-    script, the newest last and in this order: ``--phases`` takes them
-    (and without a card the script stops before running any), and an
-    unknown name is refused."""
+    """The five train phases, the fleet phase, the tensor-parallel,
+    all-reduce and tensor-parallel families phases and the PopPy programs'
+    phase are phases of the script, the newest last and in this order:
+    ``--phases`` takes them (and without a card the script stops before
+    running any), and an unknown name is refused."""
     train = ("train", "train_ssm", "train_hybrid", "train_moe",
              "train_encdec")
-    assert chip_smoke.PHASES[-10:] == ("train", "train_ssm",
+    assert chip_smoke.PHASES[-11:] == ("train", "train_ssm",
                                        "train_hybrid", "serve_fleet",
                                        "train_moe", "train_encdec",
                                        "serve_tp", "ef_allreduce",
-                                       "serve_tp_families", "train_tp")
+                                       "serve_tp_families", "train_tp",
+                                       "poppy_apps")
     assert tuple(chip_smoke.TRAIN_CASES) == train
     assert set(train) < set(chip_smoke.PHASES)
     if not torch.cuda.is_available():
         assert chip_smoke.main(["--phases", ",".join(train)
                                 + ",serve_fleet,serve_tp,ef_allreduce,"
-                                "serve_tp_families,train_tp"]) == 2
+                                "serve_tp_families,train_tp,"
+                                "poppy_apps"]) == 2
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phases", "train,train_vlm"])
 
@@ -549,9 +552,15 @@ def cpu_chip_smoke(monkeypatch, tmp_path):
     from repro_torch.kernels.ssd import ops as ssd
 
     src = Path(chip_smoke.__file__).read_text().replace('"cuda"', '"cpu"')
+    # the copy lives in a file and in sys.modules: ``@poppy`` reads its
+    # programs' source, and a process-offloaded external is imported by
+    # module name in the worker
+    path = tmp_path / "chip_smoke_cpu.py"
+    path.write_text(src)
     mod = types.ModuleType("chip_smoke_cpu")
-    mod.__file__ = chip_smoke.__file__
-    exec(compile(src, "chip_smoke_cpu", "exec"), mod.__dict__)
+    mod.__file__ = str(path)
+    monkeypatch.setitem(sys.modules, "chip_smoke_cpu", mod)
+    exec(compile(src, str(path), "exec"), mod.__dict__)
     for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated",
@@ -1116,3 +1125,50 @@ def test_decode_split_rows_rehearsed_on_the_cpu(cpu_chip_smoke):
                                      "decode_combine"}
     assert all(n in mod.SOURCES and n in mod.REPLACES
                for n in mod.SUMMARY_CASE)
+
+
+def test_poppy_apps_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
+                                         capsys):
+    """The compound-AI programs on a tiny stablelm through the port's own
+    PopPy core, dispatcher and paged engine: standard Python against
+    PopPy for programs A and B (results, report lines, memories, tokens
+    and ≡_A traces held inside the phase), occupancy 1 against the
+    fan-out, program C (blocking clients on threads, one external in a
+    worker process) equal to A, the batched run's shared-prefix counts,
+    and exact launches (each CPU call of paged decode's plain version
+    counted as its launch).  The CPU engine captures no decode graph, so
+    the graph check is recorded."""
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda name: real(name).reduced())
+    _count_paged_on_cpu(monkeypatch)
+    mod = cpu_chip_smoke
+    graphs = []
+
+    def no_graph(label, graph, steps, per_step):
+        assert graph is None and steps > 0
+        graphs.append(label)
+        return {"steps": steps}
+    mod.check_graph = no_graph
+    launches, shapes = mod.phase_poppy_apps(0)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "poppy_apps" and line["layers"] == 2
+    for prog, fan_out in (("A", 8), ("B", 5)):
+        assert line[prog]["standard"]["max_occupancy"] == 1
+        assert line[prog]["poppy"]["max_occupancy"] == fan_out
+        assert line[prog]["poppy"]["decode_steps"] \
+            < line[prog]["standard"]["decode_steps"]
+    assert line["C"]["process_checksum"] >= 0
+    assert line["A_batched_prefix_cache"]["prefix_batches"]["batches"] >= 1
+    runs = [line["A"]["standard"], line["A"]["poppy"], line["B"]["standard"],
+            line["B"]["poppy"], line["C"]["poppy"],
+            line["A_batched_prefix_cache"]]
+    assert launches == {
+        "paged_decode_attention": sum(2 * r["decode_steps"] for r in runs),
+        "flash_attention": sum(2 * r["prefill_chunks"] for r in runs)}
+    assert sum(shapes["paged_decode_attention"].values()) == \
+        launches["paged_decode_attention"]
+    assert len(graphs) == len(runs) + 1
