@@ -119,8 +119,10 @@ Phases, each printing one JSON line:
              width and 8 layers (the whole model is 51 GB in float32)
              against the plain path within 1e-4: prefill, prefix, decode
              and the patch-embedding prefill.
-9. train   — full-width stablelm-3b (32 layers, f32 parameters, bf16
-             activations, ``remat="full"``) trained by the port's train
+9. train   — full-width stablelm-3b (16 of its 32 layers: the whole
+             script's time limit; the line's ``reduced`` says so; f32
+             parameters, bf16 activations, ``remat="full"``) trained by
+             the port's train
              step (``repro_torch.launch.steps``) with AdamW at a constant
              lr of 1e-4 for 6 steps on one repeated 4 × 1024
              ``LMDataset(seed=0)`` batch, then a profiled seventh.
@@ -135,8 +137,8 @@ Phases, each printing one JSON line:
              tokens/s, ``mfu`` (6·N·tokens / step / 989e12), peak memory,
              the profiled step's busy share and the device ms of its
              forward, each Function's backward and the optimizer.
-10. train_ssm — the same for full-width mamba2-2.7b (64 SSD blocks,
-             4 × 1024; SSD twice a block).
+10. train_ssm — the same for full-width mamba2-2.7b (32 of its 64 SSD
+             blocks, as train's cut; 4 × 1024; SSD twice a block).
 11. train_hybrid — the same for recurrentgemma-9b at full width, its
              depth cut to one (rglru, rglru, attn) group (the train state
              of 38 blocks would not fit one card; the line's ``reduced``
@@ -303,8 +305,8 @@ OUT_DIR = ROOT / "chiprun_out"
 PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
           "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
           "train_hybrid", "serve_fleet", "train_moe", "train_encdec",
-          "serve_tp", "ef_allreduce", "serve_tp_families", "train_tp",
-          "poppy_apps")
+          "serve_tp", "ef_allreduce", "serve_tp_families",
+          "serve_tp_fallbacks", "train_tp", "poppy_apps")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -745,9 +747,6 @@ def phase_kernels():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_ref, keep_mask)
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention.ref import (
-        paged_decode_attention_ref)
 
     check_flash_tile_plan()
     gen = torch.Generator(device="cuda")
@@ -757,48 +756,15 @@ def phase_kernels():
               "olmoe-1b-7b": dict(H=16, KVH=16, d=128),
               "pixtral-12b": dict(H=32, KVH=8, d=160),
               **SHARD_SHAPES}
-    B, ps, N = 8, 16, 64
-    lengths = [1024, 777, 512, 300, 129, 64, 1, 600]   # last: retired slot
     results = []
     for dname, dtype in (("bfloat16", torch.bfloat16),
                          ("float32", torch.float32)):
         for sname, sh in shapes.items():
             H, KVH, d = sh["H"], sh["KVH"], sh["d"]
-            # -- paged decode
-            q, kp, vp, table, lens = paged_case(
-                gen, B=B, ps=ps, N=N, dtype=dtype, lengths=lengths,
-                **sh)
-            args = (q, kp, vp, table, lens)
-            out = pa_ops.paged_decode_attention(*args)
-            ref = paged_decode_attention_ref(*args)
-            err = check_close(f"paged {sname} {dname}", out, ref, dname)
-
-            def sdpa_paged(q, kp, vp, table, lens, KVH=KVH, d=d):
-                idx = table.long()
-                k = kp[idx].reshape(B, N * ps, KVH, d).transpose(1, 2)
-                v = vp[idx].reshape(B, N * ps, KVH, d).transpose(1, 2)
-                valid = torch.arange(N * ps, device="cuda")[None] \
-                    < lens[:, None]
-                return sdpa(q.transpose(1, 2), k, v, valid[:, None, None])
-
             # the shards' shapes: the timed row and the prefix chunk only
             shard = sname in SHARD_SHAPES
-            cases = [] if shard else check_paged_cases(
-                gen, sname, sh, dname, dtype, out, args)
-            toks = sum(min(x, N * ps) for x in lengths)
-            rows = int(paged_kv_keys(table, lengths, ps).size)
-            b_ms, b_by = bound(*pa_ops.paged_decode_attention_work(
-                q, kp, table, tokens=toks, kv_rows=rows), dname)
-            results.append(dict(
-                kernel="paged_decode_attention", shape=sname, dtype=dname,
-                B=B, H=H, KVH=KVH, d=d, ps=ps, lengths=lengths,
-                launch_key=dict(pa_ops.launch_key(q, kp, table)),
-                kv_rows=rows, max_abs_err=err, tol=TOL[dname],
-                **kernel_times(pa_ops.paged_decode_attention,
-                               paged_decode_attention_ref, sdpa_paged, args),
-                bound_ms=b_ms, bound_by=b_by, chunk=pa_ops.CHUNK,
-                nan_unread_bit_equal=True,
-                more_cases=cases))
+            results.append(paged_row(gen, sname, sh, dname, dtype,
+                                     cases=not shard))
             emit({"phase": "kernels", **results[-1]})
 
             # -- flash, exact causal and with a padded prefix: ragged, and
@@ -840,10 +806,63 @@ def phase_kernels():
     for row in (hybrid_kernel_rows(gen) + ssd_kernel_rows(gen)
                 + encdec_kernel_rows(gen) + train_flash_rows(gen)
                 + backward_kernel_rows(gen) + tp_family_kernel_rows(gen)
-                + ulysses_flash_rows(gen)):
+                + fallback_kernel_rows(gen) + ulysses_flash_rows(gen)):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
+
+
+def paged_row(gen, sname, sh, dname, dtype, *, cases=True):
+    """The paged decode kernel against its plain version at shape ``sh``
+    (H, KVH, d; with ``pool_kvh`` and ``kv_lo`` a view of KV heads
+    ``[kv_lo, kv_lo + KVH)`` of a pool of ``pool_kvh``) over the kernels
+    phase's pool (B = 8, 16-row pages, 64 table entries, ragged lengths
+    and a retired slot), with its times,
+    bound and library call (a gather of the pages and SDPA); with
+    ``cases`` the checks beyond the timed row
+    (:func:`check_paged_cases`)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+
+    H, KVH, d = sh["H"], sh["KVH"], sh["d"]
+    lo = sh.get("kv_lo", 0)
+    B, ps, N = 8, 16, 64
+    lengths = [1024, 777, 512, 300, 129, 64, 1, 600]   # last: retired slot
+    q, kp, vp, table, lens = paged_case(
+        gen, B=B, ps=ps, N=N, dtype=dtype, lengths=lengths, H=H,
+        KVH=sh.get("pool_kvh", KVH), d=d)
+    # a run of the pool's heads: a view the kernel reads in place
+    kp, vp = kp[:, :, lo:lo + KVH], vp[:, :, lo:lo + KVH]
+    args = (q, kp, vp, table, lens)
+    out = pa_ops.paged_decode_attention(*args)
+    ref = paged_decode_attention_ref(*args)
+    err = check_close(f"paged {sname} {dname}", out, ref, dname)
+
+    def sdpa_paged(q, kp, vp, table, lens, KVH=KVH, d=d):
+        idx = table.long()
+        k = kp[idx].reshape(B, N * ps, KVH, d).transpose(1, 2)
+        v = vp[idx].reshape(B, N * ps, KVH, d).transpose(1, 2)
+        valid = torch.arange(N * ps, device="cuda")[None] \
+            < lens[:, None]
+        return sdpa(q.transpose(1, 2), k, v, valid[:, None, None])
+
+    more = check_paged_cases(gen, sname, sh, dname, dtype, out, args) \
+        if cases else []
+    toks = sum(min(x, N * ps) for x in lengths)
+    rows = int(paged_kv_keys(table, lengths, ps).size)
+    b_ms, b_by = bound(*pa_ops.paged_decode_attention_work(
+        q, kp, table, tokens=toks, kv_rows=rows), dname)
+    return dict(
+        kernel="paged_decode_attention", shape=sname, dtype=dname,
+        B=B, H=H, KVH=KVH, d=d, ps=ps, lengths=lengths,
+        launch_key=dict(pa_ops.launch_key(q, kp, table)),
+        kv_rows=rows, max_abs_err=err, tol=TOL[dname],
+        **kernel_times(pa_ops.paged_decode_attention,
+                       paged_decode_attention_ref, sdpa_paged, args),
+        bound_ms=b_ms, bound_by=b_by, chunk=pa_ops.CHUNK,
+        nan_unread_bit_equal=True,
+        more_cases=more)
 
 
 def check_flash_tile_plan():
@@ -1265,7 +1284,7 @@ def encdec_kernel_rows(gen):
 # (case, B, S, T, H, KVH, d, causal, launches a train step at the phase's
 # depth: twice a layer under remat)
 TRAIN_FLASH = {
-    "stablelm-3b": [("train", 4, 1024, 1024, 32, 32, 80, True, 64)],
+    "stablelm-3b": [("train", 4, 1024, 1024, 32, 32, 80, True, 32)],
     "olmoe-1b-7b": [("train", 4, 1024, 1024, 16, 16, 128, True, 4)],
     "whisper-medium": [
         ("train encoder", 4, 1500, 1500, 16, 16, 64, False, 48),
@@ -1627,7 +1646,8 @@ def graph_vs_eager(label, engine, seed):
         if engine.paged_kv:
             eager, _ = engine.model.decode_step_paged(engine.params, *clone)
         else:
-            eager, _ = engine.model.decode_step(engine.params, *clone)
+            eager, _ = engine.model.decode_step(engine.params, *clone,
+                                                capacity=engine.max_len)
     replay = engine._graph.replay()
     torch.cuda.synchronize()
     return hold_bit_equal(label, [("logits", replay, eager)] + [
@@ -2399,7 +2419,7 @@ def encdec_greedy(model, params, batch, steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = model.decode_step(params, cache, toks[-1][:, None],
-                                              pos)
+                                              pos, capacity=ENCDEC_CAPACITY)
             toks.append(logits[:, :V].argmax(-1).to(torch.int32))
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
@@ -2915,10 +2935,20 @@ MOE_CHECK_BATCHES = 4
 # the main path's steps (the first warms up and is not timed) on one
 # batch, repeated
 TRAIN_STEPS = 6
+# stablelm-3b and mamba2-2.7b at half depth: at full depth each train
+# state's checkpoint round trip (33.5 GB) took 50-56 s of host disk time,
+# and the whole script came within 30 s of its 1200 s limit
 TRAIN_CASES = {
-    "train": dict(arch="stablelm-3b", batch=4, seq=1024, check_layers=2),
-    "train_ssm": dict(arch="mamba2-2.7b", batch=4, seq=1024,
-                      check_layers=2),
+    "train": dict(arch="stablelm-3b", batch=4, seq=1024, layers=16,
+                  check_layers=2,
+                  why="half depth at full width: the whole script's time "
+                      "limit (the checkpoint round trip of the full train "
+                      "state)"),
+    "train_ssm": dict(arch="mamba2-2.7b", batch=4, seq=1024, layers=32,
+                      check_layers=2,
+                      why="half depth at full width: the whole script's "
+                          "time limit (the checkpoint round trip of the "
+                          "full train state)"),
     # one (rglru, rglru, attn) group at full width: 38 blocks need ~167 GB
     # of train state; S = 2304 runs past the 2048 window
     "train_hybrid": dict(arch="recurrentgemma-9b", batch=1, seq=2304,
@@ -3785,7 +3815,8 @@ TP_FAMILY_NEW = 16
 TP_F32_DEPTH = {"olmoe-1b-7b": dict(num_layers=4),
                 "recurrentgemma-9b": dict(num_layers=3),
                 "mamba2-2.7b": dict(num_layers=4),
-                "whisper-medium": dict(num_layers=2, enc_layers=2)}
+                "whisper-medium": dict(num_layers=2, enc_layers=2),
+                "qwen3-14b": dict(num_layers=2)}
 # recurrentgemma-9b's decode batch positions (serve_hybrid's, 16 tokens in)
 # over its 2048-slot ring, the first two past the wrap
 RG_TP_POS = [2114, 2044, 1514, 714, 314, 134, 54, 16]
@@ -3823,6 +3854,77 @@ def tp_family_kernel_rows(gen):
     return rows
 
 
+# the shapes of serve_tp_fallbacks: qwen3-14b's runs of q heads over its
+# replicated KV heads at tp = 5 (G 5, 3, 2 and 1 over one KV head of 128,
+# G 4 over two), each read in place from the pool of all 8 KV heads at
+# the first run of its shape (``kv_lo``), and whisper-medium's cross
+# memory split three ways
+QWEN3_TP5_RUNS = {f"qwen3-14b/tp5 run {h}:{kvh}": dict(H=h, KVH=kvh, d=128,
+                                                      pool_kvh=8, kv_lo=lo)
+                  for h, kvh, lo in ((5, 1, 0), (3, 1, 1), (2, 1, 1),
+                                     (1, 1, 4), (8, 2, 3))}
+WHISPER_CROSS = dict(B=8, H=16, KVH=16, d=64, C=1500, pos=None)
+
+
+def fallback_kernel_rows(gen):
+    """The kernels at the shapes of serve_tp_fallbacks beyond the earlier
+    phases': the paged decode kernel at each run of qwen3-14b's q heads
+    at tp = 5 (one launch a run, the run's KV heads read in place from
+    the whole pool), and the decode kernel's partial entry over one
+    shard's 500 of whisper-medium's 1500 cross-memory frames with the
+    combine of the three shards' partials.  (The whole rings and the
+    replicated scans run at the one-device shapes of the kernels phase.)
+    The decode wrappers on a cache narrowed to a run of heads are held
+    against their plain versions too (:func:`check_decode_head_views`)."""
+    rows = []
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        check_decode_head_views(gen, dname, dtype)
+        for sname, sh in QWEN3_TP5_RUNS.items():
+            rows.append(paged_row(gen, sname, sh, dname, dtype,
+                                  cases=False))
+        rows += decode_split_rows(gen, "decode_attention_partial", 3, dname,
+                                  dtype, sh=WHISPER_CROSS,
+                                  model="whisper-medium cross")
+    return rows
+
+
+def check_decode_head_views(gen, dname, dtype):
+    """The decode wrappers (dense, int8 and the dense partial entry) over
+    a cache of 8 KV heads of 128 narrowed to heads [3, 5), read in place,
+    against their plain versions on the same view (qwen3-14b's run of 8
+    q heads over two KV heads at tp = 5, on a 512-slot cache)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.models.attention import quantize_kv
+
+    B, C, S, lo, hi, H, d = 8, 512, 8, 3, 5, 8, 128
+    q = torch.randn(B, 1, H, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, C, S, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, C, S, d, generator=gen, device="cuda").to(dtype)
+    valid = torch.rand(B, C, generator=gen, device="cuda") < 0.8
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    dense = (q, k[:, :, lo:hi], v[:, :, lo:hi], valid)
+    int8 = (q, k8[:, :, lo:hi], v8[:, :, lo:hi], ks[:, :, lo:hi],
+            vs[:, :, lo:hi], valid)
+    errs = {}
+    for name, fn, ref, args in (
+            ("decode_attention", da_ops.decode_attention,
+             da_ref.decode_attention_ref, dense),
+            ("decode_attention_int8", da_ops.decode_attention_int8,
+             da_ref.decode_attention_int8_ref, int8)):
+        errs[name] = check_close(f"{name} on a head view {dname}",
+                                 fn(*args), ref(*args), dname)
+    chunk, _ = da_ops.launch_plan(q, dense[1])
+    errs["decode_attention_partial"] = check_close(
+        f"decode_attention_partial on a head view {dname}",
+        partial_view(*da_ops.decode_attention_partial(*dense)),
+        partial_view(*da_ref.decode_partial_ref(*dense, chunk=chunk)), dname)
+    emit({"phase": "kernels", "decode_head_views": dname,
+          "shape": dict(B=B, C=C, pool_kvh=S, kv_heads=[lo, hi], H=H, d=d),
+          "max_abs_err": errs, "tol": TOL[dname]})
+
+
 def partial_view(acc, ml):
     """Partials as what does not depend on their scale: each split's
     normalised output and its log-sum-exp (-1e30 for an empty split)."""
@@ -3833,23 +3935,30 @@ def partial_view(acc, ml):
                       lse.flatten().clamp_min(-1e4)])
 
 
-def decode_split_rows(gen, kname, tp, dname, dtype):
-    """recurrentgemma-9b's decode over its ring split ``tp`` ways: the
-    partial entry ``kname`` over shard 0's slots against its plain version
-    at the kernel's chunk plan (each split's normalised output and
-    log-sum-exp), NaN in the invalid slots changing nothing; then the
-    combine (``decode_combine``) of all tp shards' partials against the
-    plain combine, and the merged output against the unsplit plain
-    decode.  Library call of the partial row: SDPA over the shard's
+# recurrentgemma-9b's ring, at serve_hybrid's decode positions
+RG_RING = dict(B=8, H=16, KVH=1, d=256, C=2048, pos=RG_TP_POS)
+
+
+def decode_split_rows(gen, kname, tp, dname, dtype, *, sh=RG_RING,
+                      model="recurrentgemma-9b"):
+    """A cache of ``sh`` (B, H, KVH, d, C slots, the batch rows' positions
+    ``pos`` of a ring, or None: every slot valid) split by sequence
+    ``tp`` ways: the partial entry ``kname`` over shard 0's slots against
+    its plain version at the kernel's chunk plan (each split's normalised
+    output and log-sum-exp), NaN in the invalid slots changing nothing;
+    then the combine (``decode_combine``) of all tp shards' partials
+    against the plain combine, and the merged output against the unsplit
+    plain decode.  Library call of the partial row: SDPA over the shard's
     slots (it normalises, so it computes the partial's output alone)."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.models.attention import dequantize_kv, quantize_kv
 
-    B, H, KVH, d, C = 8, 16, 1, 256, 2048
+    B, H, KVH, d, C = (sh[k] for k in ("B", "H", "KVH", "d", "C"))
     Cl = C // tp
-    shape = f"recurrentgemma-9b/tp{tp}"
-    valid = ring_valid(RG_TP_POS, C)
+    shape = f"{model}/tp{tp}"
+    valid = torch.ones(B, C, dtype=torch.bool, device="cuda") \
+        if sh["pos"] is None else ring_valid(sh["pos"], C)
     q = torch.randn(B, 1, H, d, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, C, KVH, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, C, KVH, d, generator=gen, device="cuda").to(dtype)
@@ -3895,7 +4004,7 @@ def decode_split_rows(gen, kname, tp, dname, dtype):
         q, args[1], n_valid, int8=int8, n_split=n_split), dname)
     rows = [dict(
         kernel=kname, shape=shape, dtype=dname, B=B, H=H, KVH=KVH, d=d,
-        C=Cl, of_slots=C, positions=RG_TP_POS, valid_rows=n_valid,
+        C=Cl, of_slots=C, positions=sh["pos"], valid_rows=n_valid,
         chunk=chunk, n_split=n_split, launch_key=dict(da_ops.launch_key(
             q, args[1])), max_abs_err=err, tol=TOL[dname],
         compared="each split's normalised output and log-sum-exp",
@@ -3945,13 +4054,71 @@ def shard_cache_bytes(engine):
     return [tree_nbytes(t) for t in tree.values()]
 
 
+def engine_cache_layout(engine):
+    """(each shard's cache tree, the whole cache as ``meta`` tensors, its
+    specs under the serving rules) of a sharded engine: the page pool or
+    the slot cache."""
+    from repro_torch.models import lm
+    from repro_torch.sharding.rules import cache_pspecs
+    if engine.paged_kv:
+        meta = engine.model.init_paged_cache(
+            engine.num_pages + 1, engine.page_size, device="meta")
+        return (list(engine.kv_pages.values()), meta,
+                cache_pspecs(engine._rules, meta, layout="paged"))
+    meta, specs = lm.cache_layout_tp(engine.cfg, engine.params,
+                                     engine.max_slots, engine.max_len)
+    return list(engine.cache.values()), meta, specs
+
+
+def tree_items(tree, prefix=()):
+    """(path, leaf) of a tree of dicts."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def check_local_shapes(label, shards, meta, specs):
+    """Every shard's cache leaf (``shards[r]``, a tree) at the local shape
+    the serving rules' ``specs`` give the whole cache ``meta``."""
+    from repro_torch.sharding.rules import local_shape
+    whole, sp = dict(tree_items(meta)), dict(tree_items(specs))
+    sizes = {"data": 1, "model": len(shards)}
+    for r, tree in enumerate(shards):
+        got = {p: tuple(t.shape) for p, t in tree_items(tree)}
+        want = {p: tuple(local_shape(t.shape, sp[p], sizes))
+                for p, t in whole.items()}
+        if got != want:
+            fail(f"{label}: shard {r}'s cache leaves {got}, the rules' "
+                 f"local shapes {want}")
+
+
+def replicated_equal(label, shards, meta, specs):
+    """Every leaf that ``specs`` replicates (no ``model`` entry) must be
+    bit-equal across the shards' trees; → how many such leaves."""
+    leaves = [dict(tree_items(t)) for t in shards]
+    n = 0
+    for path, spec in tree_items(specs):
+        if "model" in tuple(spec):
+            continue
+        n += 1
+        if not all(torch.equal(lv[path], leaves[0][path])
+                   for lv in leaves[1:]):
+            fail(f"{label}: replicated cache leaf {'/'.join(path)} differs "
+                 f"across the shards")
+    return n
+
+
 def tp_family_wave(label, spec, model, params, tp, counters):
     """One engine of a family at ``tp``: ``spec`` gives its engine
     arguments, prompts, warm prefix, the cache estimate and the exact
     launches a decode step and an admission make (``per_step(tp)``,
-    ``per_admission(tp)``).  Holds the launches, the decode graph and
-    each shard's cache bytes against the estimate / tp; → (outputs,
-    report, launches, launches by key, the prefill's last logits)."""
+    ``per_admission(tp)``).  Holds the launches, the decode graph, each
+    shard's cache bytes against the local shapes of the serving rules'
+    ``cache_pspecs`` (the estimate at tp = 1) and every cache leaf the
+    rules replicate bit-equal across the shards; → (outputs, report,
+    launches, launches by key, the prefill's last logits)."""
     import gc
     engine = tp_family_engine(model, params, tp, spec["engine"])
     outs, launches, shapes, serve_s = serve_counted(
@@ -3970,7 +4137,13 @@ def tp_family_wave(label, spec, model, params, tp, counters):
             fail(f"{label} tp={tp} request {i}: {len(o)} tokens, or one "
                  f"outside the vocab")
     caches = shard_cache_bytes(engine)
-    if caches != [spec["estimate"] // tp] * tp:
+    replicated = 0
+    if tp > 1:
+        layout = engine_cache_layout(engine)
+        check_local_shapes(f"{label} tp={tp}", *layout)
+        replicated = replicated_equal(f"{label} tp={tp}", *layout)
+    # every leaf split: each shard holds 1/tp of the estimate
+    if not replicated and caches != [spec["estimate"] // tp] * tp:
         fail(f"{label} tp={tp}: shard caches of {caches} bytes, the "
              f"estimate {spec['estimate']} / {tp}")
     toks = torch.tensor([spec["prefill"]], dtype=torch.int32, device="cuda")
@@ -3987,7 +4160,8 @@ def tp_family_wave(label, spec, model, params, tp, counters):
               "launches": {n: k for n, k in launches.items() if k},
               "launches_per_step": graph["launches_per_replay"],
               "shard_cache_bytes": caches,
-              "estimate_cache_bytes": spec["estimate"], "graph": graph}
+              "estimate_cache_bytes": spec["estimate"],
+              "replicated_leaves_bit_equal": replicated, "graph": graph}
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4002,7 +4176,7 @@ def tp_family_specs(cfg, seed):
     from repro_torch.serving.prefix_cache import tree_nbytes
     rng = np.random.RandomState(seed)
     V = cfg.vocab_size
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "dense"):
         prefix = [int(t) for t in rng.randint(0, V, size=SERVE_PREFIX)]
         prompts = [prefix + [int(t) for t in rng.randint(0, V, size=n)]
                    for n in SERVE_SUFFIXES]
@@ -4013,8 +4187,11 @@ def tp_family_specs(cfg, seed):
         return dict(engine=SERVE_ENGINE, prompts=prompts, warm=prefix,
                     estimate=est["paged_bytes"], prefill=prompts[-1][:256],
                     prefill_capacity=256,
-                    per_step=lambda tp: {"paged_decode_attention": L * tp},
-                    per_admission=lambda tp: {"flash_attention": L * tp})
+                    per_step=lambda tp: {
+                        "paged_decode_attention": L * attention_runs(cfg,
+                                                                     tp)},
+                    per_admission=lambda tp: {
+                        "flash_attention": L * attention_runs(cfg, tp)})
     lens = HYBRID_PROMPTS if cfg.family == "hybrid" else SSM_PROMPTS
     prompts = [[int(t) for t in rng.randint(0, V, size=n)] for n in lens]
     kinds = lm.block_kinds(cfg)
@@ -4025,9 +4202,11 @@ def tp_family_specs(cfg, seed):
     def per_step(tp):
         if not n_attn:
             return {}
-        if tp == 1:
+        ring = min(MAX_LEN, cfg.attn_window or MAX_LEN)
+        if tp == 1 or cfg.num_kv_heads % tp == 0 or ring % tp:
+            # one launch a shard: its KV heads, or the whole ring
             return {"decode_attention_int8" if int8 else "decode_attention":
-                    n_attn}
+                    n_attn * tp}
         return {"decode_attention_int8_partial" if int8
                 else "decode_attention_partial": n_attn * tp,
                 "decode_combine": n_attn}
@@ -4041,6 +4220,26 @@ def tp_family_specs(cfg, seed):
                     cfg, 8, MAX_LEN, "meta")),
                 prefill=prompts[0], prefill_capacity=MAX_LEN,
                 per_step=per_step, per_admission=per_admission)
+
+
+def attention_runs(cfg, tp):
+    """Attention launches a layer over ``tp`` shards, counted here from
+    the GQA mapping alone (q head h reads KV head h // G, G = H / KVH):
+    one a shard where the heads are whole or the KV heads split; where
+    the q heads split over replicated KV heads, one a run of equal group
+    sizes among the shard's KV heads (qwen3-14b at tp = 5: 2, 3, 1, 3
+    and 2, 11 in all)."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    if tp == 1 or H % tp or KVH % tp == 0:
+        return tp
+    G, Hl = H // KVH, H // tp
+    n = 0
+    for r in range(tp):
+        sizes = collections.Counter(h // G for h in range(r * Hl,
+                                                          (r + 1) * Hl))
+        seq = [sizes[kv] for kv in sorted(sizes)]
+        n += 1 + sum(a != b for a, b in zip(seq, seq[1:]))
+    return n
 
 
 def tp_family_model(label, cfg, seed, counters, *, tps=TP_FAMILY_TPS,
@@ -4115,22 +4314,40 @@ def tp_encdec(cfg, seed, counters, *, tps=(1, 2)):
     """whisper-medium at the model level over sharded parameters: the
     encdec phase's batch, prefill and TP_FAMILY_NEW greedy decode steps at
     each tp, exact launches (per shard: flash for each encoder layer and
-    each decoder layer's self- and cross-attention, decode attention for
-    each decoder layer's two attentions a step); then float32 at 2 + 2
-    layers, tokens equal to tp = 1's."""
+    each decoder layer's self- and cross-attention; a step, for each
+    decoder layer's two attentions, decode attention a shard where the
+    cache splits by KV heads or is whole on every shard, else the partial
+    a shard and one combine), each shard's cache at the serving rules'
+    local shapes and the leaves they replicate bit-equal across shards;
+    then float32 at 2 + 2 layers, tokens equal to tp = 1's."""
     import gc
 
     from repro_torch.launch.mesh import make_serving_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, encdec
     from repro_torch.sharding.placement import ShardedParams
-    from repro_torch.sharding.rules import make_serving_rules, params_pspecs
+    from repro_torch.sharding.rules import (cache_pspecs, make_serving_rules,
+                                            params_pspecs)
+
+    def decode_launches(cfg, tp):
+        L, steps = cfg.num_layers, TP_FAMILY_NEW
+        out = collections.Counter()
+        for slots in (ENCDEC_CAPACITY, cfg.enc_seq):   # self, cross
+            if tp == 1 or cfg.num_kv_heads % tp == 0 or slots % tp:
+                out["decode_attention"] += L * tp * steps
+            else:
+                out["decode_attention_partial"] += L * tp * steps
+                out["decode_combine"] += L * steps
+        return dict(out)
 
     def run(model, params, dtype, tp, label):
         cfg = model.cfg
         if tp > 1:
             mesh = make_serving_mesh(tp, devices=["cuda"] * tp)
-            params = ShardedParams(params, params_pspecs(
-                make_serving_rules(mesh, cfg), model), mesh)
+            rules = make_serving_rules(mesh, cfg)
+            params = ShardedParams(params, params_pspecs(rules, model), mesh)
+            meta = encdec.init_cache(cfg, ENCDEC_BATCH, ENCDEC_CAPACITY,
+                                     "meta")
+            specs = cache_pspecs(rules, meta)
         batch = encdec_inputs(cfg, seed, dtype)
         zero_launches(counters)
         t0 = time.perf_counter()
@@ -4141,8 +4358,7 @@ def tp_encdec(cfg, seed, counters, *, tps=(1, 2)):
         launches, shapes = read_launches(counters)
         L, E = cfg.num_layers, cfg.enc_layers
         check_launches(label, launches, {
-            "flash_attention": (E + 2 * L) * tp,
-            "decode_attention": 2 * L * tp * TP_FAMILY_NEW})
+            "flash_attention": (E + 2 * L) * tp, **decode_launches(cfg, tp)})
         with torch.no_grad():
             logits = model.prefill(params, batch, ENCDEC_CAPACITY)[0]
             logits = logits[..., :cfg.vocab_size].float()
@@ -4150,12 +4366,18 @@ def tp_encdec(cfg, seed, counters, *, tps=(1, 2)):
                 params, batch, ENCDEC_CAPACITY), warmup=1, reps=3)
         caches = [sum(t.numel() * t.element_size() for t in c["dec"].values())
                   for c in (cache.values() if tp > 1 else [cache])]
+        replicated = 0
+        if tp > 1:
+            check_local_shapes(label, list(cache.values()), meta, specs)
+            replicated = replicated_equal(label, list(cache.values()), meta,
+                                          specs)
         dec = sorted(step_s)
         rep = {"tp": tp, "seconds": seconds, "prefill_ms": prefill_ms,
                "decode_step_median_ms": statistics.median(dec) * 1e3,
                "decode_step_p90_ms": dec[int(0.9 * (len(dec) - 1))] * 1e3,
                "launches": {n: k for n, k in launches.items() if k},
-               "shard_cache_bytes": caches}
+               "shard_cache_bytes": caches,
+               "replicated_leaves_bit_equal": replicated}
         del cache, params
         return toks, logits, rep, launches, shapes
 
@@ -4174,7 +4396,8 @@ def tp_encdec(cfg, seed, counters, *, tps=(1, 2)):
         rep["prefill_logits_rel_l2_vs_tp1"] = rel_l2(logits, base_logits)
         whole = bf16[0]["shard_cache_bytes"][0] if bf16 \
             else rep["shard_cache_bytes"][0]
-        if rep["shard_cache_bytes"] != [whole // tp] * tp:
+        if not rep["replicated_leaves_bit_equal"] \
+                and rep["shard_cache_bytes"] != [whole // tp] * tp:
             fail(f"tp_encdec tp={tp}: shard caches of "
                  f"{rep['shard_cache_bytes']} bytes, tp = 1's {whole} / {tp}")
         bf16.append(rep)
@@ -4239,6 +4462,66 @@ def phase_serve_tp_families(seed):
                              regroup.copies - copies[1]}
     add(*tp_encdec(get_config("whisper-medium"), seed, counters))
     emit({"phase": "serve_tp_families", "card": card(),
+          "shards_on_one_card": True, "new_tokens": TP_FAMILY_NEW,
+          "models": models})
+    return launches, shapes
+
+
+# serve_tp_fallbacks: full-width models over a shard count that some of
+# their widths do not divide, every shard on this card; qwen3-14b cut to
+# QWEN3_TP5_LAYERS of its 40 layers to keep the phase short (the phase
+# prints its peak memory), its float32 check at the same depth
+FALLBACK_TP = 3
+QWEN3_TP = 5
+QWEN3_TP5_LAYERS = 2
+
+
+def phase_serve_tp_fallbacks(seed):
+    """The layouts the serving rules give where a width does not divide
+    the shard count, through the normal entry points: recurrentgemma-9b
+    (dense and int8 KV; only the MLPs split: RG-LRU's 4096 columns, the
+    16 q heads and the 2048-slot ring are whole on every shard),
+    mamba2-2.7b (only the conv's 5376 columns split) and whisper-medium at
+    the model level (every weight whole, the 1500-frame cross memory
+    split by sequence) over three shards; qwen3-14b on the paged engine
+    over five (8 q heads a shard over the 8 replicated KV heads, read in
+    runs of equal groups).  Each at tp = 1 and at its tp: bf16 at full
+    width, then the float32 check (tokens equal to tp = 1's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.sharding.placement import regroup
+
+    counters = launch_counters()
+    launches, shapes, models = {}, {}, []
+
+    def add(rep, got, got_shapes):
+        nonlocal launches, shapes
+        models.append(rep)
+        launches = {n: launches.get(n, 0) + got.get(n, 0)
+                    for n in set(launches) | set(got)}
+        shapes = add_shapes(shapes, got_shapes)
+
+    tps = (1, FALLBACK_TP)
+    rg = get_config("recurrentgemma-9b")
+    add(*tp_family_model("fb_hybrid", rg, seed, counters, tps=tps))
+    add(*tp_family_model("fb_hybrid_int8",
+                         dataclasses.replace(rg, kv_cache_dtype="int8"),
+                         seed, counters, tps=tps,
+                         prompts=[HYBRID_PROMPTS.index(n)
+                                  for n in HYBRID_INT8_PROMPTS]))
+    copies = (regroup.pieces, regroup.copies)
+    add(*tp_family_model("fb_ssm", get_config("mamba2-2.7b"), seed,
+                         counters, tps=tps))
+    models[-1]["reshard"] = {"pieces": regroup.pieces - copies[0],
+                             "copies_from_other_shards":
+                             regroup.copies - copies[1]}
+    add(*tp_encdec(get_config("whisper-medium"), seed, counters, tps=tps))
+    qwen = dataclasses.replace(get_config("qwen3-14b"),
+                               num_layers=QWEN3_TP5_LAYERS)
+    add(*tp_family_model("fb_qwen3", qwen, seed, counters,
+                         tps=(1, QWEN3_TP)))
+    models[-1]["cut"] = f"{QWEN3_TP5_LAYERS} of 40 layers"
+    emit({"phase": "serve_tp_fallbacks", "card": card(),
           "shards_on_one_card": True, "new_tokens": TP_FAMILY_NEW,
           "models": models})
     return launches, shapes
@@ -4874,6 +5157,7 @@ def main(argv=None):
         launches, shapes["serve"] = timed("serve", phase_serve, args.seed)
     runners = {"serve_tp": phase_serve_tp,
                "serve_tp_families": phase_serve_tp_families,
+               "serve_tp_fallbacks": phase_serve_tp_fallbacks,
                "ef_allreduce": phase_ef_allreduce,
                "serve_hybrid": phase_serve_hybrid,
                "serve_ssm": phase_serve_ssm,

@@ -179,3 +179,34 @@ def check(err: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def head_stride(t, dim: int, name: str) -> int:
+    """The heads a row of ``t`` holds in memory along its heads dim
+    ``dim``: ``t.shape[dim]`` where ``t`` is contiguous, more where it is
+    a view of a contiguous tensor narrowed along ``dim`` (the run of KV
+    heads a shard reads in place; its data pointer is then at the run's
+    first head).  Raises for any other layout."""
+    dim %= t.dim()
+    if t.numel() == 0:
+        return t.shape[dim]
+    shape = list(t.shape)
+    outer = [i for i in range(dim) if shape[i] > 1]
+    inner = 1
+    for size in shape[dim + 1:]:
+        inner *= size
+    S = shape[dim]
+    if outer:
+        between = 1
+        for size in shape[outer[-1] + 1:dim]:
+            between *= size
+        S = t.stride(outer[-1]) // (between * inner)
+    want, n = [0] * len(shape), 1
+    for i in reversed(range(len(shape))):
+        want[i] = n
+        n *= S if i == dim else shape[i]
+    if S < shape[dim] or any(shape[i] > 1 and t.stride(i) != want[i]
+                             for i in range(len(shape))):
+        raise ValueError(f"{name} must be contiguous, or a contiguous "
+                         f"tensor narrowed along its heads (dim {dim})")
+    return S

@@ -5,7 +5,10 @@
 // (Pallas _dec_kernel) and :decode_attention_int8_fwd (_dec_int8_kernel):
 // one query token per sequence, q [B,1,H,d], attends k/v [B,C,KVH,d]
 // where valid[b, j] is set (a partly filled cache or a ring buffer).
-// Query head h reads kv head h / G (G = H / KVH).  Output is q's type,
+// Query head h reads kv head h / G (G = H / KVH).  The cache (and its
+// scales) may be a view narrowed to KVH of the KVS heads its rows hold,
+// the pointers then at its first head: a shard reads the run of KV heads
+// it needs in place, with no copy of the cache.  Output is q's type,
 // accumulated in f32.
 //
 // What bounds it: bytes.  Each valid K/V row is read once, and the G
@@ -116,7 +119,7 @@ decode_partial_kernel(const Tq* __restrict__ q, const Tkv* __restrict__ k,
                       const uint8_t* __restrict__ valid,
                       float* __restrict__ part_acc,
                       float* __restrict__ part_ml, int C, int H, int KVH,
-                      int d, int chunk, int n_split, float scale) {
+                      int KVS, int d, int chunk, int n_split, float scale) {
   static_assert(kT == 32, "phase 2 gives each lane one position of a tile");
   constexpr int KE = (E * 32 + kThreads - 1) / kThreads;  // dims per thread
   const int split = blockIdx.x;
@@ -157,7 +160,7 @@ decode_partial_kernel(const Tq* __restrict__ q, const Tkv* __restrict__ k,
       const int j = t0 + jj;
       const bool ok = j < j1 && valid[(size_t)b * C + j] != 0;  // warp-uniform
       if (ok) {
-        const size_t row = ((size_t)b * C + j) * KVH + kvh;
+        const size_t row = ((size_t)b * C + j) * KVS + kvh;
         const float ks = kQuant ? k_scale[row] : 1.f;
         const float vs = kQuant ? v_scale[row] : 1.f;
         const Tkv* kr_p = k + row * d;
@@ -270,7 +273,7 @@ __device__ __forceinline__ void decode_block(
     const T* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const uint8_t* __restrict__ valid,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int C, int H,
-    int KVH, int chunk, int n_split, float scale_log2) {
+    int KVH, int KVS, int chunk, int n_split, float scale_log2) {
   using namespace attn_tile;
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -281,9 +284,9 @@ __device__ __forceinline__ void decode_block(
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const uint8_t* vb = valid + (size_t)b * C;
-  const long long row0 = (long long)b * C * KVH + kvh;  // row of slot 0
+  const long long row0 = (long long)b * C * KVS + kvh;  // row of slot 0
   auto keep = [&](int j) { return j < j1 && vb[j] != 0; };
-  auto row = [&](int j) { return row0 + (long long)j * KVH; };
+  auto row = [&](int j) { return row0 + (long long)j * KVS; };
   float o[D / 8][4], m[2], l[2];
   decode_tiles<D, T>(smem_raw, q + ((size_t)b * H + (size_t)kvh * G) * D,
                      G, k, v, k_scale, v_scale, keep, row, j0, j1,
@@ -302,10 +305,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ v_scale,
                   const uint8_t* __restrict__ valid,
                   float* __restrict__ part_acc, float* __restrict__ part_ml,
-                  int C, int H, int KVH, int chunk, int n_split,
+                  int C, int H, int KVH, int KVS, int chunk, int n_split,
                   float scale_log2) {
   decode_block<D>(q, k, v, k_scale, v_scale, valid, part_acc, part_ml, C, H,
-                  KVH, chunk, n_split, scale_log2);
+                  KVH, KVS, chunk, n_split, scale_log2);
 }
 
 template <int D>
@@ -318,16 +321,16 @@ decode_int8_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const uint8_t* __restrict__ valid,
                        float* __restrict__ part_acc,
                        float* __restrict__ part_ml, int C, int H, int KVH,
-                       int chunk, int n_split, float scale_log2) {
+                       int KVS, int chunk, int n_split, float scale_log2) {
   decode_block<D>(q, k, v, k_scale, v_scale, valid, part_acc, part_ml, C, H,
-                  KVH, chunk, n_split, scale_log2);
+                  KVH, KVS, chunk, n_split, scale_log2);
 }
 
 struct Args {
   const void *q, *k, *v, *k_scale, *v_scale, *valid;
   float *part_acc, *part_ml;
   void* out;
-  int B, C, H, KVH, d, chunk, n_split;
+  int B, C, H, KVH, KVS, d, chunk, n_split;
   float scale;
   cudaStream_t stream;
 };
@@ -368,7 +371,7 @@ cudaError_t launch_mma_d(const Args& a) {
                      static_cast<const float*>(a.k_scale),
                      static_cast<const float*>(a.v_scale),
                      static_cast<const uint8_t*>(a.valid), a.part_acc,
-                     a.part_ml, a.C, a.H, a.KVH, a.chunk, a.n_split,
+                     a.part_ml, a.C, a.H, a.KVH, a.KVS, a.chunk, a.n_split,
                      a.scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -385,7 +388,7 @@ cudaError_t launch_e(const Args& a) {
       static_cast<const Tkv*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale),
       static_cast<const uint8_t*>(a.valid), a.part_acc, a.part_ml, a.C, a.H,
-      a.KVH, a.d, a.chunk, a.n_split, a.scale);
+      a.KVH, a.KVS, a.d, a.chunk, a.n_split, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.out == nullptr) return err;
   return combine<Tq>(a);
@@ -430,6 +433,7 @@ cudaError_t launch_mma(const Args& a) {
 
 bool bad_args(const Args& a) {
   return a.KVH <= 0 || a.H % a.KVH != 0 || a.H / a.KVH > kMaxG ||
+         a.KVS < a.KVH ||
          a.chunk <= 0 || a.chunk % kT != 0 || a.n_split <= 0 ||
          (long long)a.chunk * a.n_split < a.C;
 }
@@ -443,12 +447,12 @@ bool bad_args(const Args& a) {
 extern "C" int decode_attention_fwd(int dtype, const void* q, const void* k,
                                     const void* v, const void* valid,
                                     void* part_acc, void* part_ml, void* out,
-                                    int B, int C, int H, int KVH, int d,
-                                    int chunk, int n_split, float scale,
-                                    void* stream) {
+                                    int B, int C, int H, int KVH, int KVS,
+                                    int d, int chunk, int n_split,
+                                    float scale, void* stream) {
   const Args a{q, k, v, nullptr, nullptr, valid,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               out, B, C, H, KVH, d, chunk, n_split, scale,
+               out, B, C, H, KVH, KVS, d, chunk, n_split, scale,
                static_cast<cudaStream_t>(stream)};
   if (B == 0 || C == 0) return 0;
   if (bad_args(a)) return static_cast<int>(cudaErrorInvalidValue);
@@ -469,10 +473,10 @@ extern "C" int decode_attention_int8_fwd(
     int dtype, const void* q, const void* k_q, const void* v_q,
     const void* k_scale, const void* v_scale, const void* valid,
     void* part_acc, void* part_ml, void* out, int B, int C, int H, int KVH,
-    int d, int chunk, int n_split, float scale, void* stream) {
+    int KVS, int d, int chunk, int n_split, float scale, void* stream) {
   const Args a{q, k_q, v_q, k_scale, v_scale, valid,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               out, B, C, H, KVH, d, chunk, n_split, scale,
+               out, B, C, H, KVH, KVS, d, chunk, n_split, scale,
                static_cast<cudaStream_t>(stream)};
   if (B == 0 || C == 0) return 0;
   if (bad_args(a)) return static_cast<int>(cudaErrorInvalidValue);
@@ -493,22 +497,22 @@ extern "C" int decode_attention_partial_fwd(int dtype, const void* q,
                                             const void* k, const void* v,
                                             const void* valid, void* part_acc,
                                             void* part_ml, int B, int C,
-                                            int H, int KVH, int d, int chunk,
-                                            int n_split, float scale,
-                                            void* stream) {
+                                            int H, int KVH, int KVS, int d,
+                                            int chunk, int n_split,
+                                            float scale, void* stream) {
   return decode_attention_fwd(dtype, q, k, v, valid, part_acc, part_ml,
-                              nullptr, B, C, H, KVH, d, chunk, n_split, scale,
-                              stream);
+                              nullptr, B, C, H, KVH, KVS, d, chunk, n_split,
+                              scale, stream);
 }
 
 extern "C" int decode_attention_int8_partial_fwd(
     int dtype, const void* q, const void* k_q, const void* v_q,
     const void* k_scale, const void* v_scale, const void* valid,
-    void* part_acc, void* part_ml, int B, int C, int H, int KVH, int d,
-    int chunk, int n_split, float scale, void* stream) {
+    void* part_acc, void* part_ml, int B, int C, int H, int KVH, int KVS,
+    int d, int chunk, int n_split, float scale, void* stream) {
   return decode_attention_int8_fwd(dtype, q, k_q, v_q, k_scale, v_scale,
                                    valid, part_acc, part_ml, nullptr, B, C, H,
-                                   KVH, d, chunk, n_split, scale, stream);
+                                   KVH, KVS, d, chunk, n_split, scale, stream);
 }
 
 // Merge n_split partials per (b, head) -- the splits of one cache or the

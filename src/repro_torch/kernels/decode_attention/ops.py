@@ -41,7 +41,8 @@ MMA_TILE = 64     # bf16-q kernels: cache positions per tile (16 a warp)
 MMA_K = 16        # bf16-q kernels' mma k-step: d must be a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_TAIL = [_I] * 7 + [_F, _P]   # B, C, H, KVH, d, chunk, n_split, scale, stream
+# B, C, H, KVH, KVS, d, chunk, n_split, scale, stream
+_TAIL = [_I] * 8 + [_F, _P]
 _SIGNATURES = {
     "decode_attention_fwd": [_I] + [_P] * 7 + _TAIL,
     "decode_attention_int8_fwd": [_I] + [_P] * 9 + _TAIL,
@@ -64,6 +65,9 @@ def split_plan(B, KVH, C, num_sms, *, tile=MMA_TILE, blocks_per_sm=1):
 
 
 def _check(q, k, v, valid, kv_dtype, scales=()):
+    """Raises unless the kernel takes these inputs → the heads a cache row
+    holds (KVS: more than ``k.shape[2]`` where the cache and its scales
+    are views narrowed to a run of their KV heads)."""
     dev = q.device
     for name, t in (("k", k), ("v", v), ("valid", valid),
                     *(("scale", s) for s in scales)):
@@ -92,13 +96,19 @@ def _check(q, k, v, valid, kv_dtype, scales=()):
     if mma and d % MMA_K:
         raise ValueError(f"d={d}: the bfloat16 kernel takes d a multiple "
                          f"of {MMA_K}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid),
-                    *(("scale", s) for s in scales)):
+    for name, t in (("q", q), ("valid", valid)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    kvs = _build.head_stride(k, 2, "k")
+    if _build.head_stride(v, 2, "v") != kvs or v.stride() != k.stride() \
+            or any(_build.head_stride(s, 2, "scale") != kvs
+                   for s in scales):
+        raise ValueError("k, v and their scales must hold as many heads "
+                         "a row")
     if mma and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start 16-byte aligned (the bf16 "
                          "kernel copies rows 16 bytes at a time)")
+    return kvs
 
 
 def _uses_mma(q_dtype, kv_dtype):
@@ -163,9 +173,10 @@ def launch_plan(q, k) -> tuple:
         q.device).multi_processor_count, **plan)
 
 
-def _launch(fn, q, k, tensors, *, partial=False):
-    """Run entry ``fn``: → out [B,1,H,d], or with ``partial`` the
-    partials (acc [B,H,n,d], ml [B,H,n,2])."""
+def _launch(fn, q, k, kvs, tensors, *, partial=False):
+    """Run entry ``fn`` over a cache whose rows hold ``kvs`` heads: → out
+    [B,1,H,d], or with ``partial`` the partials (acc [B,H,n,d], ml
+    [B,H,n,2])."""
     B, _, H, d = q.shape
     C, KVH = k.shape[1], k.shape[2]
     chunk, n_split = launch_plan(q, k)
@@ -179,7 +190,7 @@ def _launch(fn, q, k, tensors, *, partial=False):
         _DTYPES[q.dtype], *(t.data_ptr() for t in tensors),
         part_acc.data_ptr(), part_ml.data_ptr(),
         *(() if partial else (out.data_ptr(),)), B, C, H,
-        KVH, d, chunk, n_split, d ** -0.5, _build.stream_ptr(q.device))
+        KVH, kvs, d, chunk, n_split, d ** -0.5, _build.stream_ptr(q.device))
     _build.check(err, fn)
     return (part_acc, part_ml) if partial else out
 
@@ -193,16 +204,17 @@ def launch_key(q, k) -> tuple:
 
 @_build.counted
 def decode_attention(q, k, v, valid):
-    """q: [B,1,H,d]; k,v: [B,C,KVH,d] in q's dtype; valid: [B,C] bool →
-    [B,1,H,d].  Position j of row b attends iff ``valid[b, j]``."""
+    """q: [B,1,H,d]; k,v: [B,C,KVH,d] in q's dtype, contiguous or views
+    of a cache narrowed to KVH of its heads (read in place); valid: [B,C]
+    bool → [B,1,H,d].  Position j of row b attends iff ``valid[b, j]``."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid)
     if q.device.type == "meta":
         return _meta(decode_attention, q, k)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k, v, valid, q.dtype)
-    out = _launch("decode_attention_fwd", q, k, (q, k, v, valid))
+    kvs = _check(q, k, v, valid, q.dtype)
+    out = _launch("decode_attention_fwd", q, k, kvs, (q, k, v, valid))
     _build.count_launch(decode_attention, launch_key(q, k))
     return out
 
@@ -220,8 +232,8 @@ def decode_attention_int8(q, k_q, v_q, k_scale, v_scale, valid):
         return _meta(decode_attention_int8, q, k_q, int8=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
-    out = _launch("decode_attention_int8_fwd", q, k_q,
+    kvs = _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
+    out = _launch("decode_attention_int8_fwd", q, k_q, kvs,
                   (q, k_q, v_q, k_scale, v_scale, valid))
     _build.count_launch(decode_attention_int8, launch_key(q, k_q))
     return out
@@ -239,9 +251,9 @@ def decode_attention_partial(q, k, v, valid):
         return _meta(decode_attention_partial, q, k, partial=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k, v, valid, q.dtype)
-    out = _launch("decode_attention_partial_fwd", q, k, (q, k, v, valid),
-                  partial=True)
+    kvs = _check(q, k, v, valid, q.dtype)
+    out = _launch("decode_attention_partial_fwd", q, k, kvs,
+                  (q, k, v, valid), partial=True)
     _build.count_launch(decode_attention_partial, launch_key(q, k))
     return out
 
@@ -257,8 +269,8 @@ def decode_attention_int8_partial(q, k_q, v_q, k_scale, v_scale, valid):
                      partial=True)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
-    out = _launch("decode_attention_int8_partial_fwd", q, k_q,
+    kvs = _check(q, k_q, v_q, valid, torch.int8, (k_scale, v_scale))
+    out = _launch("decode_attention_int8_partial_fwd", q, k_q, kvs,
                   (q, k_q, v_q, k_scale, v_scale, valid), partial=True)
     _build.count_launch(decode_attention_int8_partial, launch_key(q, k_q))
     return out

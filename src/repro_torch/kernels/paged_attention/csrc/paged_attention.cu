@@ -4,7 +4,10 @@
 // (Pallas _paged_kernel): one query token per sequence attends a
 // block-paged KV pool [P, ps, KVH, d] through its page-table row, at the
 // positions [start, len) with len = min(lengths[b], N * ps) and, under a
-// window, start = max(0, lengths[b] - window).
+// window, start = max(0, lengths[b] - window).  The pool may be a view
+// narrowed to KVH of the KVS heads its rows hold (the pointers then start
+// at its first head): a shard reads the run of KV heads it needs in
+// place, with no copy of the pool.
 //
 // What bounds it: bytes.  Each kept (token, kv head) is read once as a
 // K row and a V row; at G = H/KVH query rows per kv head the kernel does
@@ -68,8 +71,8 @@ paged_decode_kernel(const float* __restrict__ q,
                     const float* __restrict__ v_pages,
                     const int* __restrict__ page_table,
                     const int* __restrict__ lengths, float* __restrict__ out,
-                    int H, int KVH, int d, int ps, int N, int P, int window,
-                    float scale) {
+                    int H, int KVH, int KVS, int d, int ps, int N, int P,
+                    int window, float scale) {
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int G = H / KVH;
@@ -103,7 +106,7 @@ paged_decode_kernel(const float* __restrict__ q,
   for (int j = start + warp; j < len; j += kWarps) {
     const int page = row[j / ps];
     if (page < 0 || page >= P) continue;  // never read outside the pool
-    const size_t base = (((size_t)page * ps + (j % ps)) * KVH + kvh) * d;
+    const size_t base = (((size_t)page * ps + (j % ps)) * KVS + kvh) * d;
     float kr[E], vr[E];
 #pragma unroll
     for (int i = 0; i < E; ++i) {
@@ -164,15 +167,16 @@ paged_decode_kernel(const float* __restrict__ q,
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const int* table, const int* lengths, float* out,
-                       int B, int H, int KVH, int d, int ps, int N, int P,
-                       int window, float scale, cudaStream_t stream) {
+                       int B, int H, int KVH, int KVS, int d, int ps, int N,
+                       int P, int window, float scale, cudaStream_t stream) {
   const int G = H / KVH;
   const dim3 grid(KVH, B);
   const size_t smem = (size_t)(2 * kWarps * G + kWarps * G * d) * sizeof(float);
 #define PAGED_CASE(E_)                                                    \
   case E_:                                                                \
     paged_decode_kernel<E_><<<grid, kWarps * 32, smem, stream>>>(         \
-        q, k, v, table, lengths, out, H, KVH, d, ps, N, P, window, scale); \
+        q, k, v, table, lengths, out, H, KVH, KVS, d, ps, N, P, window,   \
+        scale);                                                           \
     break;
   switch ((d + 31) / 32) {
     PAGED_CASE(1)
@@ -212,7 +216,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const int* __restrict__ page_table,
                  const int* __restrict__ lengths,
                  float* __restrict__ part_acc, float* __restrict__ part_ml,
-                 int H, int KVH, int ps, int N, int P, int window,
+                 int H, int KVH, int KVS, int ps, int N, int P, int window,
                  int n_split, float scale_log2) {
   using namespace attn_tile;
   const int split = blockIdx.x;
@@ -244,7 +248,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   auto keep = [&](int j) { return slot_s[j - j0] >= 0; };
-  auto row = [&](int j) { return (long long)slot_s[j - j0] * KVH + kvh; };
+  auto row = [&](int j) { return (long long)slot_s[j - j0] * KVS + kvh; };
   // from the first tile that reaches start (none where the window starts
   // at the length: the block then writes an empty partial)
   const int t0 = j0 + (max(start, j0) - j0) / kDecodeTile * kDecodeTile;
@@ -266,24 +270,24 @@ template <int D>
 cudaError_t launch_mma_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                          const __nv_bfloat16* v, const int* table,
                          const int* lengths, float* part_acc, float* part_ml,
-                         int B, int H, int KVH, int ps, int N, int P,
-                         int window, int n_split, float scale,
+                         int B, int H, int KVH, int KVS, int ps, int N,
+                         int P, int window, int n_split, float scale,
                          cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   const cudaError_t err = attn_tile::allow_smem(paged_mma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   paged_mma_kernel<D><<<dim3(n_split, KVH, B), attn_tile::kDecodeThreads,
                         smem, stream>>>(
-      q, k, v, table, lengths, part_acc, part_ml, H, KVH, ps, N, P, window,
-      n_split, scale * 1.4426950408889634f);
+      q, k, v, table, lengths, part_acc, part_ml, H, KVH, KVS, ps, N, P,
+      window, n_split, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                        const __nv_bfloat16* v, const int* table,
                        const int* lengths, float* part_acc, float* part_ml,
-                       __nv_bfloat16* out, int B, int H, int KVH, int d,
-                       int ps, int N, int P, int window, int n_split,
+                       __nv_bfloat16* out, int B, int H, int KVH, int KVS,
+                       int d, int ps, int N, int P, int window, int n_split,
                        float scale, cudaStream_t stream) {
   if (H / KVH > kMmaMaxG ||
       (long long)n_split != ((long long)N * ps + kChunk - 1) / kChunk)
@@ -294,7 +298,8 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 #define PAGED_MMA_CASE(D_)                                                  \
   case D_:                                                                  \
     err = launch_mma_d<D_>(q, k, v, table, lengths, part_acc, part_ml, B, H, \
-                           KVH, ps, N, P, window, n_split, scale, stream);  \
+                           KVH, KVS, ps, N, P, window, n_split, scale,      \
+                           stream);                                         \
     break;
       PAGED_D_CASES(PAGED_MMA_CASE)
 #undef PAGED_MMA_CASE
@@ -315,10 +320,11 @@ cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 extern "C" int paged_decode_attention_fwd(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* lengths, void* part_acc,
-    void* part_ml, void* out, int B, int H, int KVH, int d, int ps, int N,
-    int P, int window, int n_split, float scale, void* stream) {
+    void* part_ml, void* out, int B, int H, int KVH, int KVS, int d, int ps,
+    int N, int P, int window, int n_split, float scale, void* stream) {
   if (B == 0) return 0;
-  if (KVH <= 0 || H % KVH != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (KVH <= 0 || H % KVH != 0 || KVS < KVH)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* table = static_cast<const int*>(page_table);
   const int* lens = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -329,16 +335,16 @@ extern "C" int paged_decode_attention_fwd(
               : launch_f32(static_cast<const float*>(q),
                            static_cast<const float*>(k_pages),
                            static_cast<const float*>(v_pages), table, lens,
-                           static_cast<float*>(out), B, H, KVH, d, ps, N, P,
-                           window, scale, s);
+                           static_cast<float*>(out), B, H, KVH, KVS, d, ps,
+                           N, P, window, scale, s);
   } else if (dtype == 1) {
     err = launch_mma(static_cast<const __nv_bfloat16*>(q),
                      static_cast<const __nv_bfloat16*>(k_pages),
                      static_cast<const __nv_bfloat16*>(v_pages), table, lens,
                      static_cast<float*>(part_acc),
                      static_cast<float*>(part_ml),
-                     static_cast<__nv_bfloat16*>(out), B, H, KVH, d, ps, N, P,
-                     window, n_split, scale, s);
+                     static_cast<__nv_bfloat16*>(out), B, H, KVH, KVS, d,
+                     ps, N, P, window, n_split, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

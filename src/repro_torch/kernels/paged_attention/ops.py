@@ -30,7 +30,7 @@ CHUNK = 128       # bf16 kernel: positions per split (csrc kChunk)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"paged_decode_attention_fwd":
-               [_I] + [_P] * 8 + [_I] * 9 + [_F, _P]}
+               [_I] + [_P] * 8 + [_I] * 10 + [_F, _P]}
 
 
 def split_plan(N, ps):
@@ -43,6 +43,9 @@ def split_plan(N, ps):
 
 
 def _check(q, k_pages, v_pages, page_table, lengths):
+    """Raises unless the kernel takes these inputs → the heads a pool row
+    holds (KVS: more than ``k_pages.shape[2]`` where the pools are views
+    narrowed to a run of their KV heads)."""
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("lengths", lengths)):
@@ -71,13 +74,18 @@ def _check(q, k_pages, v_pages, page_table, lengths):
     if mma and d % MMA_K:
         raise ValueError(f"d={d}: the bfloat16 kernel takes d a multiple "
                          f"of {MMA_K}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("lengths", lengths)):
+    for name, t in (("q", q), ("page_table", page_table),
+                    ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    kvs = _build.head_stride(k_pages, 2, "k_pages")
+    if _build.head_stride(v_pages, 2, "v_pages") != kvs \
+            or v_pages.stride() != k_pages.stride():
+        raise ValueError("k_pages and v_pages must have one layout")
     if mma and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("q, k_pages and v_pages must start 16-byte aligned "
                          "(the bf16 kernel copies rows 16 bytes at a time)")
+    return kvs
 
 
 def launch_key(q, k_pages, page_table, *, window=0) -> tuple:
@@ -105,8 +113,9 @@ def paged_decode_attention_work(q, k_pages, page_table, *, tokens,
 @_build.counted
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            window=0):
-    """q: [B,1,H,d]; k_pages,v_pages: [P,ps,KVH,d]; page_table: [B,N]
-    int32; lengths: [B] int32 → [B,1,H,d].  Keys at positions
+    """q: [B,1,H,d]; k_pages,v_pages: [P,ps,KVH,d], contiguous or views
+    of a pool narrowed to KVH of its heads (read in place); page_table:
+    [B,N] int32; lengths: [B] int32 → [B,1,H,d].  Keys at positions
     ``[max(0, len - window), len)`` attend (all of ``[0, len)`` without a
     window)."""
     if q.device.type == "cpu":
@@ -120,7 +129,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                                     kv_rows=n), q, torch.empty_like(q))
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check(q, k_pages, v_pages, page_table, lengths)
+    kvs = _check(q, k_pages, v_pages, page_table, lengths)
     B, _, H, d = q.shape
     P, ps, KVH, _ = k_pages.shape
     N = page_table.shape[1]
@@ -136,7 +145,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, H, KVH,
-        d, ps, N, P, int(window), n_split, d ** -0.5,
+        kvs, d, ps, N, P, int(window), n_split, d ** -0.5,
         _build.stream_ptr(q.device))
     _build.check(err, "paged_decode_attention")
     _build.count_launch(paged_decode_attention,

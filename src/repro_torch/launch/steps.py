@@ -17,6 +17,7 @@ which a range about ``torch.autograd.grad`` would not see) and
 
 from __future__ import annotations
 
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -287,8 +288,8 @@ def make_mesh_train_step(model, optimizer, mesh):
     in rank order.  ``cfg.microbatches`` equal slices of each row's batch
     run one after another, their gradients summed and divided by their
     count.  Then :func:`mesh_update`."""
-    _check_mesh_train(model, optimizer)
     rls = R.make_rules(mesh, model.cfg)
+    _check_mesh_train(model, optimizer, rls)
     M = max(model.cfg.microbatches, 1)
 
     def train_step(state, batch):
@@ -314,11 +315,58 @@ def make_mesh_train_step(model, optimizer, mesh):
     return train_step
 
 
-def _check_mesh_train(model, optimizer):
-    if optimizer.master_weights or model.cfg.param_strategy != "fsdp":
-        raise NotImplementedError(
-            "the sharded step keeps params and moments in one layout: "
-            "param_strategy 'fsdp' without master weights")
+def _check_mesh_train(model, optimizer, rls):
+    """Raise for what the sharded train step does not run yet (ROADMAP
+    A.11f), before any of it runs: ZeRO-2 and master weights (the step
+    keeps params and moments in one layout), the ``ulysses`` and
+    ``heads_sp`` strategies, ``ulysses_sp`` beyond dense attention blocks,
+    and under ``heads`` the layouts that only serving runs: an RG-LRU
+    width or SSD block the model axis does not split, q heads that read
+    replicated KV heads in unequal groups, and an encoder-decoder whose
+    KV heads do not split.  No test holds their gradients against the
+    one-device step."""
+    from repro_torch.models import encdec, lm
+
+    cfg = model.cfg
+
+    def refuse(what):
+        raise NotImplementedError(f"the sharded train step does not run "
+                                  f"{what} yet (ROADMAP A.11f)")
+    if optimizer.master_weights or cfg.param_strategy != "fsdp":
+        refuse(f"param_strategy {cfg.param_strategy!r}"
+               + (" with master weights" if optimizer.master_weights
+                  else "")
+               + ": it keeps params and moments in one layout, 'fsdp' "
+               "without master weights")
+    if rls.tp_strategy in ("ulysses", "heads_sp"):
+        refuse(f"the {rls.tp_strategy} strategy")
+    kinds = {"encoder-decoder"} if model.is_encdec \
+        else set(lm.block_kinds(cfg))
+    if rls.tp_strategy == "ulysses_sp" and kinds != {"attn_mlp"}:
+        refuse(f"ulysses_sp on {sorted(kinds - {'attn_mlp'})} blocks")
+    tp_size = dict(zip(rls.mesh.axis_names,
+                       rls.mesh.devices.shape)).get("model", 1)
+    if rls.tp_strategy != "heads" or tp_size == 1:
+        return
+    specs = R.params_pspecs(rls, model)
+    if model.is_encdec:
+        tp = encdec.EncDecTP.from_specs(cfg, specs, tp_size)
+        if not tp.kv_split:
+            refuse(f"{cfg.name}'s {cfg.num_kv_heads} KV heads replicated "
+                   f"over {tp_size} shards")
+    else:
+        tp = lm.TensorParallel.from_specs(cfg, specs, tp_size)
+        if "rglru_mlp" in kinds and not tp.lru:
+            refuse(f"a replicated RG-LRU width ({cfg.lru_width} over "
+                   f"{tp_size} shards)")
+        if "ssd" in kinds and not (tp.ssd_heads and tp.ssd_fused
+                                   and tp.ssd_conv):
+            refuse(f"an SSD block the model axis does not split "
+                   f"({cfg.ssm_heads} heads over {tp_size} shards)")
+    if lm.uneven_groups(tp.kv_runs):
+        refuse(f"q heads that read their KV heads in unequal groups "
+               f"({cfg.num_heads} over {cfg.num_kv_heads} KV heads, "
+               f"{tp_size} shards)")
 
 
 def microbatch_rows(rls, batch, M) -> list:
@@ -402,11 +450,11 @@ def make_prefill_step(model, rls, capacity):
     return prefill_step
 
 
-def make_decode_step(model, rls):
+def make_decode_step(model, rls, capacity):
     """→ decode_step(params, cache, tokens, positions) over a mesh: each
     data coordinate's row runs one contiguous decode step on its slice
-    of the batch and its coordinates' caches, in place → per row
-    logits."""
+    of the batch and its coordinates' caches (of ``capacity`` positions),
+    in place → per row logits."""
     def decode_step(params, cache, tokens, positions):
         out = []
         rows = row_batches(rls, {"tokens": tokens, "positions": positions})
@@ -415,7 +463,7 @@ def make_decode_step(model, rls):
             with on_row(rp.coords):
                 out.append(model.decode_step(
                     rp, _row_cache(cache, rp.coords), b["tokens"],
-                    b["positions"])[0])
+                    b["positions"], capacity=capacity)[0])
         return out
     return decode_step
 
@@ -444,8 +492,8 @@ def make_microbatch_step(model, optimizer, mesh):
     first and held through the microbatch, as it is alive through every
     microbatch after the first, so the peak is theirs.  The optimizer
     then takes the one microbatch's gradients as they are."""
-    _check_mesh_train(model, optimizer)
     rls = R.make_rules(mesh, model.cfg)
+    _check_mesh_train(model, optimizer, rls)
     M = max(model.cfg.microbatches, 1)
 
     def step(state, batch):
@@ -512,6 +560,6 @@ def lower_cell(cfg, shape, mesh, *, optimizer=None) -> Lowered:
                           share=False)
         return (place_params(model, rls, params), place_cache(rls, cache),
                 tok["tokens"], tok["positions"])
-    return Lowered("decode", make_decode_step(model, rls),
+    return Lowered("decode", make_decode_step(model, rls, shape.seq_len),
                    (params, cache, specs["tokens"], specs["positions"]),
                    place_decode, model, rls)

@@ -15,12 +15,18 @@ Under tensor parallelism (:mod:`.lm`'s sharded path) each shard calls
 these functions with its own parameters: its q heads (and, where they
 divide the shard count, its KV heads) and its rows of ``wo``, whose
 product is a partial sum the caller reduces.  Where the KV heads are
-replicated but the q heads are not, ``kv_heads`` names the KV heads the
-shard's q heads read (:func:`kv_head_range`); only those reach the
-kernel, so its ``q_head // G`` mapping stays right.  A contiguous cache
-whose KV heads do not split is split by *sequence* instead (the serving
-rules' ``cache_pspecs``): :func:`decode_attention_seq_split` runs every q
-head over each shard's slots and merges the shards' partials.
+replicated but the q heads are not, ``kv_runs`` splits the shard's q
+heads into runs that read their KV heads in equal groups
+(:func:`kv_head_runs`); the kernel runs once a run on that run's KV
+heads alone, so its ``q_head // G`` mapping stays right, and the outputs
+are concatenated in head order.  The decode kernels read a run's heads
+of the cache or pool in place (a view narrowed along its heads), so no
+step copies the cache.  A contiguous cache whose KV heads do
+not split is split by *sequence* where its slots divide the shard count
+(the serving rules' ``cache_pspecs``): :func:`decode_attention_seq_split`
+runs every q head over each shard's slots and merges the shards'
+partials; where the slots do not divide either, every shard holds the
+whole cache and attends it with its own q heads.
 """
 
 from __future__ import annotations
@@ -83,29 +89,74 @@ def _project_kv(cfg, p, x):
     return k, v
 
 
+def kv_head_runs(num_heads, num_kv_heads, first, count):
+    """The runs in which q heads ``[first, first + count)`` read their KV
+    heads under GQA (q head h reads KV head ``h // (num_heads //
+    num_kv_heads)``): ``((q_lo, q_hi, kv_lo, kv_hi), ...)`` in head order,
+    the q range counted from ``first``.  A run is maximal: q heads that
+    read KV heads ``[kv_lo, kv_hi)`` in equal consecutive groups, the
+    only mapping a kernel given those KV heads alone computes.  Heads that
+    read their KV heads in unequal groups give several runs (q heads
+    [0, 8) of 40 over 8 KV heads: 5 over KV head 0, then 3 over KV head
+    1)."""
+    G = num_heads // num_kv_heads
+    groups = []                       # [kv head, q heads reading it]
+    for i in range(count):
+        kv = (first + i) // G
+        if groups and groups[-1][0] == kv:
+            groups[-1][1] += 1
+        else:
+            groups.append([kv, 1])
+    runs = []                         # [q_lo, q_hi, kv_lo, kv_hi, group]
+    for kv, n in groups:
+        if runs and runs[-1][4] == n:
+            runs[-1][1] += n
+            runs[-1][3] += 1
+        else:
+            q = runs[-1][1] if runs else 0
+            runs.append([q, q + n, kv, kv + 1, n])
+    return tuple(tuple(r[:4]) for r in runs)
+
+
 def kv_head_range(num_heads, num_kv_heads, first, count):
     """(lo, hi): the KV heads that q heads ``[first, first + count)`` read
     under GQA (q head h reads KV head ``h // (num_heads // num_kv_heads)``).
-    Raises unless they read ``[lo, hi)`` in equal consecutive groups, the
-    only mapping a kernel given those KV heads alone computes."""
-    G = num_heads // num_kv_heads
-    lo, hi = first // G, (first + count - 1) // G + 1
-    g = count // (hi - lo)
-    if g * (hi - lo) != count or any(
-            (first + i) // G - lo != i // g for i in range(count)):
+    Raises unless they read ``[lo, hi)`` in equal consecutive groups (one
+    run of :func:`kv_head_runs`), the only mapping a kernel given those KV
+    heads alone computes."""
+    runs = kv_head_runs(num_heads, num_kv_heads, first, count)
+    lo, hi = runs[0][2], runs[-1][3]
+    if len(runs) > 1:
         raise NotImplementedError(
             f"q heads [{first}, {first + count}) of {num_heads} read KV "
             f"heads [{lo}, {hi}) of {num_kv_heads} in unequal groups")
     return lo, hi
 
 
-def _kv_for_kernel(t, kv_heads):
-    """K or V ``[..., KVH, hd]`` narrowed to the KV heads ``(lo, hi)``,
-    contiguous for the kernels."""
-    if kv_heads is None:
-        return t.contiguous()
-    lo, hi = kv_heads
-    return t[..., lo:hi, :].contiguous()
+def _heads(t, lo, hi, dim=-2, copy=True):
+    """``t`` narrowed to heads ``[lo, hi)`` of dim ``dim`` (``t`` itself
+    where that is every head): a contiguous copy with ``copy``, else the
+    view, which the decode kernels read in place."""
+    if lo != 0 or hi != t.shape[dim]:
+        t = t.narrow(dim, lo, hi - lo)
+    return t.contiguous() if copy else t
+
+
+def by_runs(q, kv_runs, attend, *kv, dims=None, views=False):
+    """``attend(q, *kv)`` (q ``[..., H, hd]``; each of ``kv`` with its KV
+    heads at ``dims[i]``, default -2) once a run of ``kv_runs``, on the
+    run's q heads and KV heads alone, the outputs concatenated in head
+    order; one call on every head where ``kv_runs`` is None.  With
+    ``views`` each run's K/V are views of ``kv`` (the decode kernels read
+    a cache narrowed to a run of heads in place); else contiguous copies
+    (flash takes contiguous K/V: a prefill's own, not a cache)."""
+    dims = dims or (-2,) * len(kv)
+    kv_runs = kv_runs or ((0, q.shape[-2], 0, kv[0].shape[dims[0]]),)
+    outs = [attend(_heads(q, a, b),
+                   *(_heads(t, lo, hi, d, copy=not views)
+                     for t, d in zip(kv, dims)))
+            for a, b, lo, hi in kv_runs]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
 
 
 def _out_proj(out, wo):
@@ -154,7 +205,7 @@ def prefix_causal_mask(S, Tpad, prefix_len, device=None):
 
 def full_attention(cfg, p, x, *, positions, kv_x=None, kv=None,
                    causal=True, window=0, return_kv=False, prefix_kv=None,
-                   prefix_len=0, kv_heads=None):
+                   prefix_len=0, kv_runs=None):
     """Full-sequence attention (forward / prefill / encoder / cross).
 
     kv_x: source of keys and values (cross-attention, no RoPE; non-causal:
@@ -168,9 +219,9 @@ def full_attention(cfg, p, x, *, positions, kv_x=None, kv=None,
         the valid prefix keys plus their own causal keys; ``return_kv``
         returns only the suffix K/V.  Requires causal global
         self-attention.
-    kv_heads: ``(lo, hi)``, the KV heads the kernel reads (a shard whose
-        q heads are sharded over replicated KV heads); the returned K/V
-        keep every head.
+    kv_runs: the runs of :func:`kv_head_runs` (a shard whose q heads are
+        sharded over replicated KV heads): the kernel runs once a run, on
+        its KV heads alone; the returned K/V keep every head.
     """
     cross = kv_x is not None or kv is not None
     if cross and causal:
@@ -191,16 +242,13 @@ def full_attention(cfg, p, x, *, positions, kv_x=None, kv=None,
                              "self-attention only")
         pk, pv = prefix_kv
         Tpad = pk.shape[1]
-        out = fa_ops.flash_attention(
-            q.contiguous(),
-            _kv_for_kernel(torch.cat([pk.to(k.dtype), k], 1), kv_heads),
-            _kv_for_kernel(torch.cat([pv.to(v.dtype), v], 1), kv_heads),
-            causal=True, prefix_pad=Tpad, prefix_len=prefix_len)
+        out = by_runs(q, kv_runs, lambda qq, kk, vv: fa_ops.flash_attention(
+            qq, kk, vv, causal=True, prefix_pad=Tpad, prefix_len=prefix_len),
+            torch.cat([pk.to(k.dtype), k], 1),
+            torch.cat([pv.to(v.dtype), v], 1))
     else:
-        out = fa_ops.flash_attention(q.contiguous(),
-                                     _kv_for_kernel(k, kv_heads),
-                                     _kv_for_kernel(v, kv_heads),
-                                     causal=causal, window=window)
+        out = by_runs(q, kv_runs, lambda qq, kk, vv: fa_ops.flash_attention(
+            qq, kk, vv, causal=causal, window=window), k, v)
     out = _out_proj(out, p["wo"])
     if return_kv:
         return out, (k, v)
@@ -273,7 +321,8 @@ def decode_valid(positions, C, window):
     return valid
 
 
-def decode_attention(cfg, p, x, cache, positions, *, window=0):
+def decode_attention(cfg, p, x, cache, positions, *, window=0,
+                     kv_runs=None):
     """One-token decode over a contiguous cache: x [B,1,D]; cache k/v
     [B,C,KVH,hd] (int8 with scales when ``kv_cache_dtype == "int8"``);
     positions [B] is the index of the *current* token.  Returns out
@@ -283,19 +332,21 @@ def decode_attention(cfg, p, x, cache, positions, *, window=0):
     for a windowed ring buffer — of ``cache`` **in place** (the JAX
     reference donated the cache and returned a new one).  Keys are
     stored post-RoPE, so ring order does not matter under the validity
-    mask."""
+    mask.  ``kv_runs``: as :func:`full_attention`'s (the kernel then
+    reads each run's KV heads of the cache in place)."""
     C = cache["k"].shape[1]
     q, k, v = decode_qkv(cfg, p, x, positions)
     write_decode_kv(cfg, cache, k, v,
                     (positions % C if window > 0 else positions).long())
     valid = decode_valid(positions, C, window)
     if cfg.kv_cache_dtype == "int8":
-        out = da_ops.decode_attention_int8(
-            q.contiguous(), cache["k"], cache["v"], cache["k_scale"],
-            cache["v_scale"], valid)
+        out = by_runs(q, kv_runs, lambda qq, kk, vv, ks, vs:
+                      da_ops.decode_attention_int8(qq, kk, vv, ks, vs, valid),
+                      cache["k"], cache["v"], cache["k_scale"],
+                      cache["v_scale"], dims=(-2, -2, -1, -1), views=True)
     else:
-        out = da_ops.decode_attention(q.contiguous(), cache["k"],
-                                      cache["v"], valid)
+        out = by_runs(q, kv_runs, lambda qq, kk, vv: da_ops.decode_attention(
+            qq, kk, vv, valid), cache["k"], cache["v"], views=True)
     return _out_proj(out, p["wo"])
 
 
@@ -353,14 +404,16 @@ def decode_attention_seq_split(cfg, qs, caches, valids):
     return da_ops.decode_combine(acc, ml, qs[0].dtype)
 
 
-def cross_decode_attention(cfg, p, x, ck, cv, valid):
+def cross_decode_attention(cfg, p, x, ck, cv, valid, *, kv_runs=None):
     """One decoder token's cross-attention over the fixed encoder memory:
     x [B,1,D]; ck/cv [B, enc_seq, KVH, hd] from
     :func:`cross_attention_cache`; valid [B, enc_seq] all true (every
     frame is attended; the caller makes it once a step).  Runs in the
-    contiguous decode kernel.  Returns out [B,1,D]."""
+    contiguous decode kernel (once a run of ``kv_runs``, as
+    :func:`full_attention`'s).  Returns out [B,1,D]."""
     q = _project_q(cfg, p, x)
-    out = da_ops.decode_attention(q.contiguous(), ck, cv, valid)
+    out = by_runs(q, kv_runs, lambda qq, kk, vv: da_ops.decode_attention(
+        qq, kk, vv, valid), ck, cv, views=True)
     return _out_proj(out, p["wo"])
 
 
@@ -380,7 +433,7 @@ def init_paged_kv_cache(cfg, num_pages, page_size, dtype, device):
 
 
 def paged_decode_attention(cfg, p, x, cache, positions, page_table, *,
-                           kv_heads=None):
+                           kv_runs=None):
     """One-token decode over paged KV: x [B,1,D]; cache k/v pools
     [P,ps,KVH,hd]; positions [B] (index of the current token); page_table
     [B,N] int32 — entry n holds the pool page storing positions
@@ -391,8 +444,8 @@ def paged_decode_attention(cfg, p, x, cache, positions, page_table, *,
     reference donated the pool buffer and returned a new one; writing in
     place is the same without the copy).  Retired slots point every table
     entry at the scratch page 0, where their dead writes land harmlessly.
-    ``kv_heads``: as :func:`full_attention`'s (the kernel then reads a
-    copy of the pool narrowed to those heads).
+    ``kv_runs``: as :func:`full_attention`'s (the kernel then reads each
+    run's KV heads of the pool in place).
     """
     ps = cache["k"].shape[1]
     N = page_table.shape[1]
@@ -410,7 +463,7 @@ def paged_decode_attention(cfg, p, x, cache, positions, page_table, *,
     cache["k"][page_ids, offs] = k[:, 0].to(cache["k"].dtype)
     cache["v"][page_ids, offs] = v[:, 0].to(cache["v"].dtype)
     lengths = (positions + 1).to(torch.int32)
-    out = pa_ops.paged_decode_attention(
-        q.contiguous(), _kv_for_kernel(cache["k"], kv_heads),
-        _kv_for_kernel(cache["v"], kv_heads), page_table, lengths)
+    out = by_runs(q, kv_runs, lambda qq, kk, vv: pa_ops.paged_decode_attention(
+        qq, kk, vv, page_table, lengths), cache["k"], cache["v"],
+        views=True)
     return _out_proj(out, p["wo"])

@@ -19,7 +19,12 @@ runs at the model level, as the reference runs it (its engine cannot
 admit an encoder-decoder request): the encoder's and decoder's
 attentions at each shard's heads, the self cache and the cross memory
 split by KV heads, the MLPs column- then row-parallel and the logits
-split by vocab, with the pieces of :mod:`.lm`'s sharded program.
+split by vocab, with the pieces of :mod:`.lm`'s sharded program.  What
+does not divide the shard count is replicated, as the serving rules
+place it: KV heads that do not split leave each cache split by sequence
+where its slots divide (the cross memory's 1500 frames over three
+shards: each shard's partial attention over its frames, one combine),
+else whole on every shard (the self cache's 448 slots).
 """
 
 from __future__ import annotations
@@ -36,8 +41,10 @@ from repro_torch.sharding.placement import (
     on_row,
     reduce_sum,
 )
+from repro_torch.sharding.rules import cache_pspecs, make_serving_rules
 
 from .lm import (
+    _localize,
     _on_model,
     _seq_to_cache,
     _tp_attention,
@@ -46,10 +53,13 @@ from .lm import (
     logit_parts,
     mask_vocab_padding,
     mesh_layer,
+    seq_split,
+    seq_split_attention,
     shard_key,
     top_tree,
     tp_decode_attention,
     tp_embed,
+    tp_kv_runs,
     tp_logits,
     unstack,
 )
@@ -184,13 +194,15 @@ def prefill(cfg, params, batch, capacity):
     return logits[:, -1], {"dec": cache}
 
 
-def decode_step(cfg, params, cache, tokens, positions):
+def decode_step(cfg, params, cache, tokens, positions, capacity=None):
     """tokens [B,1]; positions [B] (index of the current token) →
     (logits [B,V], cache).  The step's self-attention K/V are written into
     ``cache`` in place; the cross-attention memory is read only.  With
-    :class:`ShardedParams` the sharded step (:func:`decode_step_tp`)."""
+    :class:`ShardedParams` the sharded step (:func:`decode_step_tp`), which
+    reads the self cache's ``capacity``."""
     if isinstance(params, ShardedParams):
-        return decode_step_tp(cfg, params, cache, tokens, positions)
+        return decode_step_tp(cfg, params, cache, tokens, positions,
+                              capacity)
     B = tokens.shape[0]
     h = params["embed"].to(cfg.activation_dtype)[tokens.long()]
     h = h + sinusoidal_positions(positions[:, None], cfg.d_model, h.dtype)
@@ -217,29 +229,39 @@ class EncDecTP:
     """What the resolved specs shard (the fields :mod:`.lm`'s sharded
     pieces read): ``attn_sum`` (heads split: each attention's output is a
     partial sum), ``kv_split``, ``ffn_sum`` (the MLPs' hidden dim),
-    ``vocab``.  The caches split by KV heads only: a mesh whose shard
-    count does not divide them raises."""
+    ``vocab``, and each shard's ``kv_heads`` and ``kv_runs``
+    (:func:`~repro_torch.models.lm.tp_kv_runs`).  A dim that is not split
+    is replicated: its block's output is shard 0's."""
 
     experts = False
 
     def __init__(self, cfg, params: ShardedParams):
-        dec = params.specs["dec_layers"]
+        self._read(cfg, params.specs, params.tp)
+        self.devices = params.devices
+
+    @classmethod
+    def from_specs(cls, cfg, specs, tp):
+        """The flags of parameter ``specs`` over ``tp`` shards, with no
+        parameters placed (``devices`` None)."""
+        self = object.__new__(cls)
+        self._read(cfg, specs, tp)
+        self.devices = None
+        return self
+
+    def _read(self, cfg, specs, tp):
+        dec = specs["dec_layers"]
         attn = dec["self_attn"]     # leaves [L, ...]
         if _on_model(attn["wq"][3]) or _on_model(attn["wo"][2]):
             raise NotImplementedError(
                 "head_dim sharded over model (the ulysses strategies): "
                 "serving runs the heads strategy")
-        self.devices = params.devices
-        self.tp = params.tp
+        self.tp = tp
         self.attn_sum = _on_model(attn["wo"][1])
         self.kv_split = _on_model(attn["wk"][2])
-        if not self.kv_split and self.tp > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.num_kv_heads} KV heads do not split "
-                f"{self.tp} ways")
         self.ffn_sum = _on_model(dec["mlp"]["w_down"][1])
-        self.vocab = _on_model(params.specs["embed"][0])
-        self.kv_heads = [None] * self.tp
+        self.vocab = _on_model(specs["embed"][0])
+        self.kv_heads, self.kv_runs = tp_kv_runs(cfg, self.tp, self.attn_sum,
+                                                 self.kv_split)
 
 
 def _tp_stack(params, name, n):
@@ -259,7 +281,8 @@ def encode_tp(cfg, params, tp, frames):
     positions = broadcast(pos[None, :].repeat(B, 1), tp.devices)
     for ps in _tp_stack(params, "enc_layers", cfg.enc_layers):
         h = _tp_attention(cfg, tp, ps, h, lambda r, p, x: att.full_attention(
-            cfg, p["attn"], x, positions=positions[r], causal=False))
+            cfg, p["attn"], x, positions=positions[r], causal=False,
+            kv_runs=tp.kv_runs[r]))
         h = _tp_feed_forward(cfg, tp, "mlp", ps, h, gated=False)
     return apply_norm(cfg, params.shards[0]["enc_final_norm"], h)
 
@@ -272,7 +295,8 @@ def _tp_dec_embed(cfg, params, tp, tokens, positions):
 def prefill_tp(cfg, params, batch, capacity):
     """:func:`prefill` over sharded parameters → (last logits [B,V] on
     shard 0's device, ``{shard_key(r): {"dec": {k, v, cross_k,
-    cross_v}}}``: each shard's caches at its KV heads, on its device)."""
+    cross_v}}}``: each shard's caches at the local shapes of the serving
+    rules' ``cache_pspecs``, on its device)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     if capacity < S:
@@ -288,7 +312,7 @@ def prefill_tp(cfg, params, batch, capacity):
         def self_attend(r, p, x):
             out, (k, v) = att.full_attention(
                 cfg, p["self_attn"], x, positions=positions[r], causal=True,
-                return_kv=True)
+                return_kv=True, kv_runs=tp.kv_runs[r])
             caches[r].append({"k": _seq_to_cache(k, capacity),
                               "v": _seq_to_cache(v, capacity)})
             return out
@@ -299,7 +323,7 @@ def prefill_tp(cfg, params, batch, capacity):
             return att.full_attention(cfg, p["cross_attn"], x,
                                       positions=positions[r],
                                       kv=(cross["k"], cross["v"]),
-                                      causal=False)
+                                      causal=False, kv_runs=tp.kv_runs[r])
         h = _tp_attention(cfg, tp, ps, h, self_attend, key="self_attn")
         h = _tp_attention(cfg, tp, ps, h, cross_attend, norm="ln2",
                           key="cross_attn")
@@ -307,34 +331,50 @@ def prefill_tp(cfg, params, batch, capacity):
     h = apply_norm(cfg, params.shards[0]["dec_final_norm"], h[:, -1:])
     logits = tp_logits(cfg, [p["embed"] for p in params.shards], tp, h,
                        transpose=True)
-    cache = {shard_key(r): {"dec": {n: torch.stack([c[n] for c in cs])
-                                    for n in cs[0]}}
-             for r, cs in enumerate(caches)}
+    meta = init_cache(cfg, B, capacity, "meta")
+    specs = cache_pspecs(make_serving_rules(params.mesh, cfg), meta)
+    cache = {shard_key(r): _localize(
+        {"dec": {n: torch.stack([c[n] for c in cs]) for n in cs[0]}}, meta,
+        specs, params.mesh, coord)
+        for r, (cs, coord) in enumerate(zip(caches, params.ranks))}
     return logits[:, 0], cache
 
 
-def decode_step_tp(cfg, params, cache, tokens, positions):
+def decode_step_tp(cfg, params, cache, tokens, positions, capacity):
     """:func:`decode_step` over sharded parameters and the sharded cache of
-    :func:`prefill_tp` (self K/V written in place) → (logits [B,V] on
-    shard 0's device, cache)."""
+    :func:`prefill_tp` (self K/V written in place; ``capacity`` its self
+    cache's slots, :func:`~repro_torch.models.lm.seq_split`) → (logits
+    [B,V] on shard 0's device, cache).  The cross memory, of
+    ``enc_seq`` frames, is attended per shard (KV heads split, or whole
+    on every shard) or by one partial a shard and a combine (split by
+    sequence)."""
     tp = EncDecTP(cfg, params)
     B = tokens.shape[0]
     h = _tp_dec_embed(cfg, params, tp, tokens, positions[:, None])
     dcs = [cache[shard_key(r)]["dec"] for r in range(tp.tp)]
-    valid = broadcast(torch.ones(B, cfg.enc_seq, dtype=torch.bool,
-                                 device=h.device), tp.devices)
+    T = dcs[0]["cross_k"].shape[2]
+    cross_split = not tp.kv_split and seq_split(tp, T, cfg.enc_seq)
+    valid = broadcast(torch.ones(B, T, dtype=torch.bool, device=h.device),
+                      tp.devices)
     for i, ps in enumerate(_tp_stack(params, "dec_layers", cfg.num_layers)):
         x = apply_norm(cfg, ps[0]["ln1"], h)
         h = h + tp_decode_attention(
             cfg, tp, ps, x, [{"k": c["k"][i], "v": c["v"][i]} for c in dcs],
-            positions, key="self_attn")
-        x = apply_norm(cfg, ps[0]["ln2"], h)
-        outs = [att.cross_decode_attention(cfg, p["cross_attn"], xr,
-                                           c["cross_k"][i], c["cross_v"][i],
-                                           vd)
-                for p, xr, c, vd in zip(ps, broadcast(x, tp.devices), dcs,
-                                        valid)]
-        h = h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
+            positions, key="self_attn", capacity=capacity)
+        xs = broadcast(apply_norm(cfg, ps[0]["ln2"], h), tp.devices)
+        if cross_split:
+            h = h + seq_split_attention(
+                cfg, tp, ps, [att._project_q(cfg, p["cross_attn"], xr)
+                              for p, xr in zip(ps, xs)],
+                [{"k": c["cross_k"][i], "v": c["cross_v"][i]} for c in dcs],
+                valid, key="cross_attn")
+        else:
+            outs = [att.cross_decode_attention(
+                cfg, p["cross_attn"], xr, c["cross_k"][i], c["cross_v"][i],
+                vd, kv_runs=runs)
+                for p, xr, c, vd, runs in zip(ps, xs, dcs, valid,
+                                              tp.kv_runs)]
+            h = h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
         h = _tp_feed_forward(cfg, tp, "mlp", ps, h, norm="ln3", gated=False)
     h = apply_norm(cfg, params.shards[0]["dec_final_norm"], h)
     logits = tp_logits(cfg, [p["embed"] for p in params.shards], tp, h,

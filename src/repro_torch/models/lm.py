@@ -36,8 +36,10 @@ does).  The residual stream, the norms and the
 sampling stay replicated: computed once, on shard 0's device.  The
 cache is one tree per shard under :func:`shard_key`, each laid out as
 the serving rules' ``cache_pspecs`` say: a contiguous K/V cache whose KV
-heads do not split (recurrentgemma's one KV head) is split by sequence,
-and its decode merges the shards' partial attentions.
+heads do not split (recurrentgemma's one KV head) is split by sequence
+where its slots divide the shard count, and its decode merges the
+shards' partial attentions; where they do not, every shard holds the
+whole cache, as it holds every replicated leaf (:class:`TensorParallel`).
 
 Two cache layouts:
 - the **paged** and **prefix-aware** path of the attention-only families
@@ -458,13 +460,15 @@ def decode_block(cfg, kind, p, h, cache, positions):
     return feed_forward(cfg, kind, p, h)[0]
 
 
-def decode_step(cfg, params, cache, tokens, positions):
+def decode_step(cfg, params, cache, tokens, positions, capacity=None):
     """One decode step over the grouped contiguous cache: tokens [B,1],
     positions [B] (index of the current token).  Updates ``cache`` in
     place and returns (logits [B,V], cache).  With :class:`ShardedParams`
-    the sharded step (:func:`decode_step_tp`)."""
+    the sharded step (:func:`decode_step_tp`), which reads the cache's
+    ``capacity``."""
     if isinstance(params, ShardedParams):
-        return decode_step_tp(cfg, params, cache, tokens, positions)
+        return decode_step_tp(cfg, params, cache, tokens, positions,
+                              capacity)
     h = params["embed"].to(cfg.activation_dtype)[tokens.long()]
     for (kind, p), (_, c) in zip(blocks(cfg, params), blocks(cfg, cache)):
         h = decode_block(cfg, kind, p, h, c, positions)
@@ -522,53 +526,85 @@ def _on_model(entry) -> bool:
 
 
 class TensorParallel:
-    """What the resolved parameter specs shard, for the sharded program:
-    ``attn_sum`` (``wo``'s contraction dims name ``model``: each shard's
-    attention output is a partial sum), ``kv_split`` (the KV heads are
-    split too; else a contiguous cache is split by sequence), ``ffn_sum``
-    (likewise the MLP's down projection), ``experts`` (the MoE experts
-    are split: the ``shard_map`` dispatch), ``vocab`` (the embedding and
-    the logits are split by vocab rows), and per shard the KV heads its q
-    heads read when the q heads are sharded over replicated KV heads
-    (else None).  The recurrent blocks must split (RG-LRU's width, SSD's
-    heads and fused columns); a mesh that would replicate them raises."""
+    """What the resolved parameter specs shard, for the sharded program.
+    Each flag says whether a block's dim is split over ``model``; a dim
+    the serving rules could not split is replicated (every shard holds
+    the whole leaf, and a replicated block's output is whole on every
+    shard: shard 0's is taken, nothing is summed):
+
+    * ``attn_sum``: the q heads (``wo``'s contraction dims name
+      ``model``: each shard's attention output is a partial sum);
+    * ``kv_split``: the KV heads (else a contiguous cache is split by
+      sequence where its slots divide the shard count, whole otherwise);
+    * ``ffn_sum``: the MLP's hidden dim (the down projection is a partial
+      sum); ``experts``: the MoE experts (the ``shard_map`` dispatch);
+    * ``vocab``: the embedding's and the logits' vocab rows;
+    * ``lru``: RG-LRU's width (replicated: every shard runs the whole
+      block over the whole width and keeps the whole state);
+    * ``ssd_heads``, ``ssd_fused``, ``ssd_conv``: the SSD block's heads
+      (its ``ssm`` state), ``w_in``'s fused columns and the conv's
+      columns (and its ``conv`` state), each split or whole on its own
+      (:func:`~repro_torch.models.ssd.tp_layout`).
+
+    Per shard, where the q heads are sharded over replicated KV heads,
+    ``kv_heads[r]`` is the range of KV heads its q heads read and
+    ``kv_runs[r]`` the runs in which they read them
+    (:func:`~repro_torch.models.attention.kv_head_runs`: one run where the
+    groups are equal); else both are None."""
 
     def __init__(self, cfg, params: ShardedParams):
-        sp = _block_specs(cfg, params.specs)
+        self._read(cfg, params.specs, params.tp)
+        self.devices = params.devices
+
+    @classmethod
+    def from_specs(cls, cfg, specs, tp):
+        """The flags of parameter ``specs`` over ``tp`` shards, with no
+        parameters placed (``devices`` None)."""
+        self = object.__new__(cls)
+        self._read(cfg, specs, tp)
+        self.devices = None
+        return self
+
+    def _read(self, cfg, specs, tp):
+        sp = _block_specs(cfg, specs)
         attn = next((s["attn"] for s in sp if "attn" in s), None)
         if attn is not None and any(
                 _on_model(e) for e in (attn["wq"][2], attn["wo"][1])):
             raise NotImplementedError(
                 "head_dim sharded over model (the ulysses strategies): "
                 "serving runs the heads strategy")
-        self.devices = params.devices
-        self.tp = params.tp
+        self.tp = tp
         self.attn_sum = attn is not None and _on_model(attn["wo"][0])
         self.kv_split = attn is not None and _on_model(attn["wk"][1])
         mlp = next((s["mlp"] for s in sp if "mlp" in s), None)
         self.ffn_sum = mlp is not None and _on_model(mlp["w_down"][0])
         moe = next((s["moe"] for s in sp if "moe" in s), None)
         self.experts = moe is not None and _on_model(moe["w_gate"][0])
-        self.vocab = _on_model(params.specs["embed"][0])
-        for s in sp:
-            if "rglru" in s and not _on_model(s["rglru"]["w_in"][1]):
-                raise NotImplementedError(
-                    f"{cfg.name}: lru_width {cfg.lru_width} does not split "
-                    f"{self.tp} ways")
-            if "ssd" in s:
-                ssdmod.tp_layout(cfg, self.tp)   # raises where heads do not
-                if not all(_on_model(e) for e in (
-                        s["ssd"]["w_in"][1], s["ssd"]["conv_w"][1],
-                        s["ssd"]["w_out"][0])):
-                    raise NotImplementedError(
-                        f"{cfg.name}: the SSD block's columns do not split "
-                        f"{self.tp} ways")
-        self.kv_heads = [None] * params.tp
-        if self.attn_sum and not self.kv_split:
-            Hl = cfg.num_heads // params.tp
-            self.kv_heads = [att.kv_head_range(cfg.num_heads,
-                                               cfg.num_kv_heads, r * Hl, Hl)
-                             for r in range(params.tp)]
+        self.vocab = _on_model(specs["embed"][0])
+        lru = next((s["rglru"] for s in sp if "rglru" in s), None)
+        self.lru = lru is not None and _on_model(lru["w_in"][1])
+        ssd = next((s["ssd"] for s in sp if "ssd" in s), None)
+        self.ssd_heads = ssd is not None and cfg.ssm_heads % self.tp == 0
+        self.ssd_fused = ssd is not None and _on_model(ssd["w_in"][1])
+        self.ssd_conv = ssd is not None and _on_model(ssd["conv_w"][1])
+        self.kv_heads, self.kv_runs = tp_kv_runs(cfg, self.tp, self.attn_sum,
+                                                 self.kv_split)
+
+
+def tp_kv_runs(cfg, tp, attn_sum, kv_split):
+    """([each shard's KV head range], [each shard's runs]) where the q
+    heads are sharded over replicated KV heads, else Nones."""
+    if not attn_sum or kv_split:
+        return [None] * tp, [None] * tp
+    Hl = cfg.num_heads // tp
+    runs = [att.kv_head_runs(cfg.num_heads, cfg.num_kv_heads, r * Hl, Hl)
+            for r in range(tp)]
+    return [(rs[0][2], rs[-1][3]) for rs in runs], runs
+
+
+def uneven_groups(kv_runs) -> bool:
+    """Some shard reads its KV heads in unequal groups (several runs)."""
+    return any(r is not None and len(r) > 1 for r in kv_runs)
 
 
 def _block_specs(cfg, specs):
@@ -724,7 +760,7 @@ def prefill_tp(cfg, params, batch, capacity, *, prefix=None,
                       "prefix_len": plen}
             out, (k, v) = att.full_attention(
                 cfg, p["attn"], x, positions=pos[r], return_kv=True,
-                kv_heads=tp.kv_heads[r], **kw)
+                kv_runs=tp.kv_runs[r], **kw)
             ks[r].append(k)
             vs[r].append(v)
             return out
@@ -758,7 +794,7 @@ def decode_step_paged_tp(cfg, params, cache, tokens, positions, page_table):
             layer_kv = {"k": pools[r]["k"][i], "v": pools[r]["v"][i]}
             return att.paged_decode_attention(
                 cfg, p["attn"], x, layer_kv, pos[r], tables[r],
-                kv_heads=tp.kv_heads[r])
+                kv_runs=tp.kv_runs[r])
         h = _tp_attention(cfg, tp, ps, h, attend)
         h = _tp_feed_forward(cfg, tp, kind, ps, h)
     h = apply_norm(cfg, params.shards[0]["final_norm"], h)
@@ -770,24 +806,13 @@ def decode_step_paged_tp(cfg, params, cache, tokens, positions, page_table):
 
 def cache_layout_tp(cfg, params, batch, capacity):
     """(the grouped cache as ``meta`` tensors, its leaves' specs under the
-    serving rules).  Raises where the rules would replicate a leaf the
-    sharded program keeps split: a K/V ring whose KV heads and slots both
-    fail to split."""
+    serving rules).  A leaf the rules do not split is whole on every
+    shard: a K/V ring whose KV heads and slots both fail to split, a
+    recurrent state whose width or heads do not divide the shard
+    count."""
     meta = init_cache(cfg, batch, capacity, "meta")
-    specs = cache_pspecs(make_serving_rules(params.mesh, cfg), meta,
-                         layout="contiguous")
-
-    def check(tree, sp, name=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                check(v, sp[k], k)
-            elif k in ("k", "v") and "model" not in sp[k]:
-                raise NotImplementedError(
-                    f"{cfg.name}: a K/V cache of {v.shape[-3]} slots and "
-                    f"{v.shape[-2]} KV heads splits neither way over "
-                    f"{params.tp} shards")
-    check(meta, specs)
-    return meta, specs
+    return meta, cache_pspecs(make_serving_rules(params.mesh, cfg), meta,
+                              layout="contiguous")
 
 
 def init_cache_tp(cfg, params, batch, capacity):
@@ -847,7 +872,7 @@ def _tp_mixer_prefill(cfg, tp, kind, ps, h, pos, capacity):
     def attend(r, p, xr):
         out, kv = att.full_attention(
             cfg, p["attn"], xr, positions=pos[r], window=window,
-            return_kv=True, kv_heads=tp.kv_heads[r])
+            return_kv=True, kv_runs=tp.kv_runs[r])
         caches[r] = {n: _seq_to_cache(leaf, cap)
                      for n, leaf in att.pack_kv(cfg, *kv).items()}
         return out
@@ -910,31 +935,57 @@ def _prefill_contiguous_tp(cfg, params, tp, batch, capacity):
     return logits[:, 0], cache
 
 
+def seq_split(tp, local, slots):
+    """Whether a cache whose KV heads do not split, of ``slots`` slots in
+    all and ``local`` a shard, is split by sequence (else every shard
+    holds it whole)."""
+    if local == slots:
+        return False
+    if local * tp.tp == slots:
+        return True
+    raise ValueError(f"a shard's cache of {local} slots is neither the "
+                     f"{slots} slots nor their {tp.tp}-way split")
+
+
 def tp_decode_attention(cfg, tp, ps, x, caches, positions, *, window=0,
-                        key="attn"):
+                        key="attn", capacity=None):
     """One decode token's attention over a sharded contiguous cache (the
     block's normed input ``x`` on shard 0's device; ``caches[r]`` shard
-    r's layer cache, written in place) → the output on shard 0's device.
+    r's layer cache, written in place; ``capacity`` the positions the
+    cache was made for, which a cache whose KV heads do not split needs)
+    → the output on shard 0's device.
 
-    KV heads split: each shard attends its own heads.  Otherwise the
-    cache is split by sequence (shard r holds slots ``[r·C_r, (r+1)·C_r)``
-    of ``C = tp·C_r``): each shard writes the step's K/V only where the
+    KV heads split, or a cache whose slots do not split either (whole on
+    every shard): each shard writes the step's K/V into its own cache and
+    attends it with its own q heads (in runs over replicated KV heads,
+    ``tp.kv_runs``).  Otherwise the cache is split by sequence (shard r
+    holds slots ``[r·C_r, (r+1)·C_r)`` of ``C = tp·C_r``,
+    :func:`seq_split`): each shard writes the step's K/V only where the
     row's slot is its own, q's heads are gathered to every shard, each
     shard's slots give a partial attention of all heads, one combine
     merges them (:func:`att.decode_attention_seq_split`) and each shard
     takes its own heads of the result into its rows of ``wo``."""
     xs = broadcast(x, tp.devices)
     pos = broadcast(positions, tp.devices)
-    if tp.kv_split:
-        outs = [att.decode_attention(cfg, p[key], xr, c, pr, window=window)
-                for p, xr, c, pr in zip(ps, xs, caches, pos)]
-        return reduce_sum(outs)[0] if tp.attn_sum else outs[0]
-    if caches[0]["k"].shape[2] != cfg.num_kv_heads:
-        raise NotImplementedError(
-            f"{cfg.name}: a cache split by KV heads under replicated "
-            f"attention weights (ulysses_sp decoding a cache whose KV "
-            f"heads divide the model axis)")
     Cl = caches[0]["k"].shape[1]
+    if not tp.kv_split:
+        if caches[0]["k"].shape[2] != cfg.num_kv_heads:
+            raise NotImplementedError(
+                f"{cfg.name}: a cache split by KV heads under replicated "
+                f"attention weights (ulysses_sp decoding a cache whose KV "
+                f"heads divide the model axis; ROADMAP A.11f)")
+        if capacity is None:
+            raise ValueError(
+                f"{cfg.name}: {cfg.num_kv_heads} KV heads do not split "
+                f"{tp.tp} ways, so the cache may be whole or split by "
+                f"sequence: pass the capacity")
+    if tp.kv_split or not seq_split(
+            tp, Cl, min(capacity, window) if window else capacity):
+        outs = [att.decode_attention(cfg, p[key], xr, c, pr, window=window,
+                                     kv_runs=runs)
+                for p, xr, c, pr, runs in zip(ps, xs, caches, pos,
+                                              tp.kv_runs)]
+        return reduce_sum(outs)[0] if tp.attn_sum else outs[0]
     C = Cl * tp.tp
     qs = []
     for r, (p, xr, c, pr) in enumerate(zip(ps, xs, caches, pos)):
@@ -943,12 +994,25 @@ def tp_decode_attention(cfg, tp, ps, x, caches, positions, *, window=0,
         att.write_decode_kv(cfg, c, k, v, local, own=(local >= 0)
                             & (local < Cl))
         qs.append(q)
-    q = gather(qs, 2).contiguous() if tp.attn_sum else qs[0].contiguous()
     valid = att.decode_valid(positions, C, window)
-    out = att.decode_attention_seq_split(
-        cfg, broadcast(q, tp.devices), caches,
+    return seq_split_attention(
+        cfg, tp, ps, qs, caches,
         [valid[:, r * Cl:(r + 1) * Cl].to(d).contiguous()
-         for r, d in enumerate(tp.devices)])
+         for r, d in enumerate(tp.devices)], key=key)
+
+
+def seq_split_attention(cfg, tp, ps, qs, caches, valids, *, key):
+    """Attention of one decode token over a cache split by sequence:
+    ``qs[r]`` shard r's q heads (only ``qs[0]`` is read where the heads
+    are replicated), ``caches[r]`` and ``valids[r]`` its slots.  q's heads
+    are gathered to every shard, each shard's slots give a partial
+    attention of all heads, one combine merges them
+    (:func:`att.decode_attention_seq_split`) and each shard takes its own
+    heads of the result into its rows of ``wo`` → the output on shard 0's
+    device."""
+    q = gather(qs, 2).contiguous() if tp.attn_sum else qs[0].contiguous()
+    out = att.decode_attention_seq_split(cfg, broadcast(q, tp.devices),
+                                         caches, valids)
     if not tp.attn_sum:
         return att._out_proj(out, ps[0][key]["wo"])
     Hl = ps[0][key]["wo"].shape[0]
@@ -957,10 +1021,12 @@ def tp_decode_attention(cfg, tp, ps, x, caches, positions, *, window=0,
         for r, (p, o) in enumerate(zip(ps, broadcast(out, tp.devices)))])[0]
 
 
-def decode_step_tp(cfg, params, cache, tokens, positions):
+def decode_step_tp(cfg, params, cache, tokens, positions, capacity):
     """:func:`decode_step` over sharded parameters and a sharded
-    contiguous cache (``{shard_key(r): grouped cache}``, updated in place)
-    → (logits [B,V] on shard 0's device, cache)."""
+    contiguous cache (``{shard_key(r): grouped cache}``, updated in place,
+    of ``capacity`` positions: where the KV heads do not split it tells a
+    whole ring from one split by sequence, :func:`seq_split`) → (logits
+    [B,V] on shard 0's device, cache)."""
     tp = TensorParallel(cfg, params)
     h = _tp_embed_inputs(cfg, params, tp, {"tokens": tokens})[0]
     shard_blocks = [blocks(cfg, cache[shard_key(r)]) for r in range(tp.tp)]
@@ -976,7 +1042,8 @@ def decode_step_tp(cfg, params, cache, tokens, positions):
                                           cs, tp.devices)
         else:
             h = h + tp_decode_attention(cfg, tp, ps, x, cs, positions,
-                                        window=_window(cfg, kind))
+                                        window=_window(cfg, kind),
+                                        capacity=capacity)
         h = _tp_feed_forward(cfg, tp, kind, ps, h)
     h = apply_norm(cfg, params.shards[0]["final_norm"], h)
     return _tp_logits(cfg, params, tp, h)[:, 0], cache
@@ -1158,7 +1225,7 @@ def _tp_block(cfg, kind, tp, ps, h, pos):
         window = _window(cfg, kind)
         h = _tp_attention(cfg, tp, ps, h, lambda r, p, x: att.full_attention(
             cfg, p["attn"], x, positions=pos[r], window=window,
-            kv_heads=tp.kv_heads[r]))
+            kv_runs=tp.kv_runs[r]))
     if kind == "ssd":
         return h, None
     return _tp_feed_forward(cfg, tp, kind, ps, h, with_aux=True)

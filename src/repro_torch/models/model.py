@@ -144,14 +144,19 @@ class Model:
         return lm.init_cache(self.cfg, batch, capacity,
                              resolve_device(device))
 
-    def decode_step(self, params, cache, tokens, positions):
+    def decode_step(self, params, cache, tokens, positions, *,
+                    capacity=None):
         """tokens [B,1], positions [B] → (logits [B,V], cache updated in
         place) over the grouped contiguous cache (an encoder-decoder's
-        ``{"dec": ...}`` cache)."""
+        ``{"dec": ...}`` cache).  ``capacity``, the positions the cache was
+        made for, tells a sharded step (:class:`ShardedParams`) a cache
+        that every shard holds whole from one split by sequence; the
+        one-device step does not read it."""
         if self.is_encdec:
             return encdec.decode_step(self.cfg, params, cache, tokens,
-                                      positions)
-        return lm.decode_step(self.cfg, params, cache, tokens, positions)
+                                      positions, capacity)
+        return lm.decode_step(self.cfg, params, cache, tokens, positions,
+                              capacity)
 
     # -- paged KV -------------------------------------------------------------
 

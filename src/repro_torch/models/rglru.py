@@ -18,7 +18,12 @@ Each gate is then the :func:`reduce_sum` of the shards' float32 partial
 products, of which a shard keeps its own columns; the scan runs at
 W/tp, and the output projection is a partial sum.  Summing the
 contraction in pieces changes its order: the gates agree with the
-one-device block to float32 rounding.
+one-device block to float32 rounding.  A width the shard count does not
+divide is replicated (every shard's leaves are whole): each shard runs
+the one-device block over the whole width on its copy of the input and
+keeps the whole state, and shard 0's output is the block's.  The copies
+stay bit-equal, since every shard runs the same kernels on the same
+input.
 """
 
 from __future__ import annotations
@@ -120,12 +125,22 @@ def _final_state(p, u, h):
     return {"h": h[:, -1].clone(), "conv": hist.clone()}
 
 
+def _replicated(cfg, ps):
+    """Every shard holds the whole width (it does not split)."""
+    return ps[0]["conv_b"].shape[0] == cfg.lru_width
+
+
 def apply_rglru_tp(cfg, ps, x, devices, *, return_state=False):
     """:func:`apply_rglru` over tensor-parallel shards (``ps[r]`` on
     ``devices[r]``; x replicated, on shard 0's device) → the output on
     shard 0's device, and with ``return_state`` each shard's decode cache
-    (its W/tp columns)."""
+    (its W/tp columns, or the whole width where it is replicated)."""
     xs = broadcast(x, devices)
+    if _replicated(cfg, ps):
+        outs = [apply_rglru(cfg, p, xr, return_state=return_state)
+                for p, xr in zip(ps, xs)]
+        return (outs[0][0], [st for _, st in outs]) if return_state \
+            else outs[0]
     branches = [_branches(p, xr) for p, xr in zip(ps, xs)]
     convs = [causal_conv(u, p["conv_w"], p["conv_b"])
              for p, (_, u) in zip(ps, branches)]
@@ -177,9 +192,12 @@ def _step_out(p, x, cache, hist, gate, a, bx):
 
 def decode_rglru_tp(cfg, ps, x, caches, devices):
     """:func:`decode_rglru` over tensor-parallel shards: ``caches[r]`` is
-    shard r's cache (W/tp columns), updated in place → the output on
-    shard 0's device."""
+    shard r's cache (W/tp columns, or the whole width), updated in place
+    → the output on shard 0's device."""
     xs = broadcast(x, devices)
+    if _replicated(cfg, ps):
+        return [decode_rglru(cfg, p, xr, c)
+                for p, xr, c in zip(ps, xs, caches)][0]
     branches = [_branches(p, xr) for p, xr in zip(ps, xs)]
     steps = [_conv_step(p, u, c)
              for p, (_, u), c in zip(ps, branches, caches)]

@@ -20,6 +20,13 @@ into the heads layout (x by heads, B and C on every shard).  The scan
 then runs at H/tp heads; the gated RMSNorm's mean over the whole
 ``d_inner`` takes one :func:`reduce_sum` of the per-row sums of squares,
 and ``w_out`` (its rows split as the heads are) is row-parallel.
+
+Each of those dims is split only where the rules split it
+(:func:`tp_splits`); one that does not divide the shard count is whole
+on every shard (:func:`tp_layout`).  At mamba2-2.7b's widths over three
+shards only the conv splits: every shard forms the whole projection,
+convolves its own columns, and the conv outputs are gathered to every
+shard's scan over all 80 heads, whose state each shard keeps whole.
 """
 
 from __future__ import annotations
@@ -141,64 +148,96 @@ def decode_ssd(cfg, p, x, cache):
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism: shards by heads, parameters in the rules' even split
+# tensor parallelism: shards by heads, parameters in the rules' layout
 
 
-def tp_layout(cfg, tp):
-    """The column ranges of the sharded block: ``fused`` (w_in's even
-    split), ``proj`` (per shard: its z and dt by heads and its conv
-    columns, in w_in's coordinates), ``conv`` (the conv's even split) and
+def tp_splits(cfg, ps) -> dict:
+    """Which of the block's dims the shards' parameters ``ps`` split:
+    ``fused`` (``w_in``'s columns), ``conv`` (the conv's columns),
+    ``inner`` (``w_out``'s rows and ``norm_scale``) and ``heads`` (the
+    scan's heads and the ``ssm`` state: split where the shard count
+    divides them, as the serving rules split the state)."""
+    DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    tp = len(ps)
+    return {"fused": ps[0]["w_in"].shape[1] != 2 * DI + 2 * N + H,
+            "conv": ps[0]["conv_w"].shape[1] != DI + 2 * N,
+            "inner": ps[0]["w_out"].shape[0] != DI,
+            "heads": H % tp == 0 and H >= tp}
+
+
+def tp_layout(cfg, tp, *, fused=True, conv=True, inner=True, heads=True):
+    """The column ranges of the sharded block, a list of ``(lo, hi)`` a
+    shard in global coordinates; a dim that is not split gives every
+    shard the whole range.  ``fused`` (what each shard's projection
+    holds: w_in's even split), ``conv`` (the conv's), ``inner`` (w_out's
+    rows), ``head_bounds`` (the scan's heads), ``proj`` (per shard: its z
+    and dt by heads and its conv columns, in w_in's coordinates) and
     ``heads`` (per shard: its x by heads, then all of B and C, in the
     conv's coordinates)."""
     DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    if H % tp:
-        raise NotImplementedError(f"{H} SSM heads do not split {tp} ways")
-    fused = even_bounds(2 * DI + 2 * N + H, tp)
-    conv = even_bounds(DI + 2 * N, tp)
-    DIl, Hl = DI // tp, H // tp
-    proj = [[(r * DIl, (r + 1) * DIl), (DI + a, DI + b),
-             (2 * DI + 2 * N + r * Hl, 2 * DI + 2 * N + (r + 1) * Hl)]
-            for r, (a, b) in enumerate(conv)]
-    heads = [[(r * DIl, (r + 1) * DIl), (DI, DI + 2 * N)]
-             for r in range(tp)]
-    return {"fused": fused, "proj": proj, "conv": conv, "heads": heads}
+
+    def bounds(n, split):
+        return even_bounds(n, tp) if split else [(0, n)] * tp
+    hb, xb = bounds(H, heads), bounds(DI, heads)
+    conv_b = bounds(DI + 2 * N, conv)
+    dt0 = 2 * DI + 2 * N
+    proj = [[xb[r], (DI + a, DI + b), (dt0 + hb[r][0], dt0 + hb[r][1])]
+            for r, (a, b) in enumerate(conv_b)]
+    return {"fused": bounds(2 * DI + 2 * N + H, fused), "conv": conv_b,
+            "inner": bounds(DI, inner), "head_bounds": hb, "proj": proj,
+            "heads": [[xb[r], (DI, DI + 2 * N)] for r in range(tp)],
+            "split": dict(fused=fused, conv=conv, inner=inner, heads=heads)}
 
 
-def _split_proj_tp(cfg, tp, projs, devices):
-    """Each shard's (z, conv input, dt) from the shards' column-parallel
-    projections."""
-    lay = tp_layout(cfg, tp)
-    DIl, Wcl = cfg.d_inner // tp, (cfg.d_inner + 2 * cfg.ssm_state) // tp
-    return [(t[..., :DIl], t[..., DIl:DIl + Wcl], t[..., DIl + Wcl:])
-            for t in regroup(projs, lay["fused"], lay["proj"], devices)]
+def _split_proj_tp(lay, projs, devices):
+    """Each shard's (z, conv input, dt) from the shards' projections (a
+    column-parallel split, or each shard's whole projection)."""
+    out = []
+    for r, t in enumerate(regroup(projs, lay["fused"], lay["proj"],
+                                  devices)):
+        (z0, z1), (c0, c1), _ = lay["proj"][r]
+        nz, nc = z1 - z0, c1 - c0
+        out.append((t[..., :nz], t[..., nz:nz + nc], t[..., nz + nc:]))
+    return out
 
 
-def _split_conv_tp(cfg, tp, convs, devices):
+def _split_conv_tp(cfg, lay, convs, devices):
     """Each shard's (x by heads, B, C) from the shards' conv outputs."""
-    lay = tp_layout(cfg, tp)
-    DIl, N = cfg.d_inner // tp, cfg.ssm_state
-    return [(t[..., :DIl], t[..., DIl:DIl + N], t[..., DIl + N:])
-            for t in regroup(convs, lay["conv"], lay["heads"], devices)]
+    N = cfg.ssm_state
+    out = []
+    for r, t in enumerate(regroup(convs, lay["conv"], lay["heads"],
+                                  devices)):
+        nx = lay["heads"][r][0][1] - lay["heads"][r][0][0]
+        out.append((t[..., :nx], t[..., nx:nx + N], t[..., nx + N:]))
+    return out
 
 
-def _head_params(p, r, Hl):
-    """Shard r's slices of the replicated per-head vectors."""
-    hs = slice(r * Hl, (r + 1) * Hl)
+def _head_params(p, hb):
+    """A shard's heads ``hb`` of the replicated per-head vectors."""
+    hs = slice(*hb)
     return p["a_log"][hs], p["dt_bias"][hs], p["d_skip"][hs]
 
 
-def _gate_norm_out_tp(ps, ys, zs, d_inner):
-    """:func:`_gate_norm_out` over shards: ``ys[r]``/``zs[r]`` are shard
-    r's heads; the mean square over the whole ``d_inner`` is the
-    :func:`reduce_sum` of the shards' per-row sums, then each shard's
-    normed slice goes through its rows of ``w_out`` (a partial sum).
-    → the output on shard 0's device."""
+def _gate_norm_out_tp(lay, ps, ys, zs, d_inner):
+    """:func:`_gate_norm_out` over shards → the output on shard 0's
+    device.  Heads split: ``ys[r]``/``zs[r]`` are shard r's heads; the
+    mean square over the whole ``d_inner`` is the :func:`reduce_sum` of
+    the shards' per-row sums, then each shard's normed slice goes through
+    its rows of ``w_out`` (a partial sum).  Heads replicated: every shard
+    holds the whole of y; with ``w_out`` whole shard 0's block is the
+    answer, with its rows split each shard puts its columns of the
+    normed y through them."""
+    split = lay["split"]
+    if not split["heads"] and not split["inner"]:
+        return _gate_norm_out(ps[0], ys[0], zs[0])
     gated = [y.to(z.dtype) * F.silu(z) for y, z in zip(ys, zs)]
-    sums = reduce_sum([g.float().square().sum(-1, keepdim=True)
-                       for g in gated])
+    sq = [g.float().square().sum(-1, keepdim=True) for g in gated]
+    sums = reduce_sum(sq) if split["heads"] else sq
     outs = []
-    for p, g, ss in zip(ps, gated, sums):
+    for p, g, ss, (lo, hi) in zip(ps, gated, sums, lay["inner"]):
         normed = g.float() * torch.rsqrt(ss / d_inner + _NORM_EPS)
+        if not split["heads"]:
+            normed = normed[..., lo:hi]
         normed = (normed * (1.0 + p["norm_scale"].float())).to(g.dtype)
         outs.append(normed @ p["w_out"].to(g.dtype))
     return reduce_sum(outs)[0]
@@ -208,27 +247,31 @@ def apply_ssd_tp(cfg, ps, x, devices, *, return_state=False):
     """:func:`apply_ssd` over tensor-parallel shards (``ps[r]`` on
     ``devices[r]``; x replicated, on shard 0's device) → the output on
     shard 0's device, and with ``return_state`` each shard's decode cache:
-    ``ssm`` at its H/tp heads, ``conv`` its columns of the conv layout."""
+    ``ssm`` at its heads (all of them where they do not split), ``conv``
+    its columns of the conv layout (all of them where they do not
+    split)."""
     b, S, _ = x.shape
-    tp = len(ps)
-    Hl, P = cfg.ssm_heads // tp, cfg.ssm_headdim
+    P = cfg.ssm_headdim
+    lay = tp_layout(cfg, len(ps), **tp_splits(cfg, ps))
     xs = broadcast(x, devices)
-    split = _split_proj_tp(cfg, tp, [xr @ p["w_in"].to(x.dtype)
-                                     for p, xr in zip(ps, xs)], devices)
+    split = _split_proj_tp(lay, [xr @ p["w_in"].to(x.dtype)
+                                 for p, xr in zip(ps, xs)], devices)
     convs = [F.silu(causal_conv(cin, p["conv_w"], p["conv_b"]))
              for p, (_, cin, _) in zip(ps, split)]
     ys, states = [], []
-    for r, (p, (xi, B_, C_), (_, _, dt)) in enumerate(zip(
-            ps, _split_conv_tp(cfg, tp, convs, devices), split)):
-        a_log, dt_bias, d_skip = _head_params(p, r, Hl)
+    for p, hb, (xi, B_, C_), (_, _, dt) in zip(
+            ps, lay["head_bounds"], _split_conv_tp(cfg, lay, convs, devices),
+            split):
+        a_log, dt_bias, d_skip = _head_params(p, hb)
         dt = softplus(dt.float() + dt_bias.float())
-        xh = xi.reshape(b, S, Hl, P)
+        xh = xi.reshape(b, S, hb[1] - hb[0], P)
         y, state = ssd_ops.ssd_chunked(xh, dt, a_log, B_, C_,
                                        chunk=cfg.ssm_chunk)
         y = y + xh.float() * d_skip.float()[None, None, :, None]
-        ys.append(y.reshape(b, S, Hl * P))
+        ys.append(y.reshape(b, S, -1))
         states.append(state)
-    out = _gate_norm_out_tp(ps, ys, [z for z, _, _ in split], cfg.d_inner)
+    out = _gate_norm_out_tp(lay, ps, ys, [z for z, _, _ in split],
+                            cfg.d_inner)
     if not return_state:
         return out
     K = ps[0]["conv_w"].shape[0]
@@ -240,13 +283,14 @@ def apply_ssd_tp(cfg, ps, x, devices, *, return_state=False):
 def decode_ssd_tp(cfg, ps, x, caches, devices):
     """:func:`decode_ssd` over tensor-parallel shards: ``caches[r]`` is
     shard r's cache (its heads of ``ssm``, its conv-layout columns of
-    ``conv``), updated in place → the output on shard 0's device."""
+    ``conv``: whole where they do not split), updated in place → the
+    output on shard 0's device."""
     b = x.shape[0]
-    tp = len(ps)
-    Hl, P = cfg.ssm_heads // tp, cfg.ssm_headdim
+    P = cfg.ssm_headdim
+    lay = tp_layout(cfg, len(ps), **tp_splits(cfg, ps))
     xs = broadcast(x, devices)
-    split = _split_proj_tp(cfg, tp, [xr @ p["w_in"].to(x.dtype)
-                                     for p, xr in zip(ps, xs)], devices)
+    split = _split_proj_tp(lay, [xr @ p["w_in"].to(x.dtype)
+                                 for p, xr in zip(ps, xs)], devices)
     hists, convs = [], []
     for p, c, xr, (_, pre, _) in zip(ps, caches, xs, split):
         hist = torch.cat([c["conv"], pre.to(c["conv"].dtype)], dim=1)
@@ -256,18 +300,19 @@ def decode_ssd_tp(cfg, ps, x, caches, devices):
         hists.append(hist)
         convs.append(F.silu(conv_out))
     ys = []
-    for r, (p, c, hist, (xi, B_, C_), (_, _, dt)) in enumerate(zip(
-            ps, caches, hists, _split_conv_tp(cfg, tp, convs, devices),
-            split)):
-        a_log, dt_bias, d_skip = _head_params(p, r, Hl)
+    for p, c, hist, hb, (xi, B_, C_), (_, _, dt) in zip(
+            ps, caches, hists, lay["head_bounds"],
+            _split_conv_tp(cfg, lay, convs, devices), split):
+        a_log, dt_bias, d_skip = _head_params(p, hb)
         dt1 = softplus(dt[:, 0].float() + dt_bias.float())       # [B,Hl]
         dA = torch.exp(dt1 * -torch.exp(a_log.float()))
-        xh = xi.reshape(b, Hl, P).float()
+        xh = xi.reshape(b, hb[1] - hb[0], P).float()
         h = c["ssm"]
         h.mul_(dA[..., None, None]).add_(
             (xh * dt1[..., None])[..., None] * B_.float()[:, None, None, :])
         y = (h @ C_.float()[:, None, :, None])[..., 0]
         y = y + xh * d_skip.float()[None, :, None]
         c["conv"].copy_(hist[:, 1:])
-        ys.append(y.reshape(b, 1, Hl * P))
-    return _gate_norm_out_tp(ps, ys, [z for z, _, _ in split], cfg.d_inner)
+        ys.append(y.reshape(b, 1, -1))
+    return _gate_norm_out_tp(lay, ps, ys, [z for z, _, _ in split],
+                             cfg.d_inner)

@@ -45,9 +45,10 @@ decoder-only family shards: MoE on the paged layout (the ``shard_map``
 dispatch), and the contiguous layout (hybrid, SSM, int8-KV and windowed
 models, and the dense opt-out), whose slot cache is one grouped cache
 per shard at the local shapes of the serving rules' ``cache_pspecs``.
-The encoder-decoder family runs under a mesh at the model level only
-(the engine refuses it, as above), and head-dim-sharded strategies
-raise.
+A dim the rules cannot split (a width, a ring, KV heads read in unequal
+groups) is served replicated, as the rules place it.  The
+encoder-decoder family runs under a mesh at the model level only (the
+engine refuses it, as above), and head-dim-sharded strategies raise.
 """
 
 from __future__ import annotations
@@ -1110,8 +1111,8 @@ class ServingEngine:
                 self.params, self.kv_pages, self._tokens_dev,
                 self._positions_dev, self._table_dev)[0]
         return self.model.decode_step(self.params, self.cache,
-                                      self._tokens_dev,
-                                      self._positions_dev)[0]
+                                      self._tokens_dev, self._positions_dev,
+                                      capacity=self.max_len)[0]
 
     def _step_state(self):
         """Every tensor the decode step reads or writes in place."""

@@ -7,6 +7,7 @@ summary line's rows, flash's NaN-tail check, and the trace and profile
 reports."""
 
 import collections
+import json
 import sys
 import types
 
@@ -458,25 +459,27 @@ def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
 
 def test_train_phases_parse():
     """The five train phases, the fleet phase, the tensor-parallel,
-    all-reduce and tensor-parallel families phases and the PopPy programs'
-    phase are phases of the script, the newest last and in this order:
-    ``--phases`` takes them (and without a card the script stops before
-    running any), and an unknown name is refused."""
+    all-reduce, tensor-parallel families and fallbacks phases and the
+    PopPy programs' phase are phases of the script, in this order (the
+    fallbacks phase right after the families phase): ``--phases`` takes
+    them (and without a card the script stops before running any), and
+    an unknown name is refused."""
     train = ("train", "train_ssm", "train_hybrid", "train_moe",
              "train_encdec")
-    assert chip_smoke.PHASES[-11:] == ("train", "train_ssm",
+    assert chip_smoke.PHASES[-12:] == ("train", "train_ssm",
                                        "train_hybrid", "serve_fleet",
                                        "train_moe", "train_encdec",
                                        "serve_tp", "ef_allreduce",
-                                       "serve_tp_families", "train_tp",
+                                       "serve_tp_families",
+                                       "serve_tp_fallbacks", "train_tp",
                                        "poppy_apps")
     assert tuple(chip_smoke.TRAIN_CASES) == train
     assert set(train) < set(chip_smoke.PHASES)
     if not torch.cuda.is_available():
         assert chip_smoke.main(["--phases", ",".join(train)
                                 + ",serve_fleet,serve_tp,ef_allreduce,"
-                                "serve_tp_families,train_tp,"
-                                "poppy_apps"]) == 2
+                                "serve_tp_families,serve_tp_fallbacks,"
+                                "train_tp,poppy_apps"]) == 2
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phases", "train,train_vlm"])
 
@@ -1095,6 +1098,118 @@ def test_serve_tp_families_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
     assert launches["decode_combine"] > 0
     assert launches["decode_attention_partial"] > 0
     assert shapes["decode_combine"]
+
+
+def test_serve_tp_fallbacks_rehearsed_on_the_cpu(cpu_chip_smoke,
+                                                 monkeypatch, capsys):
+    """The fallbacks phase on reduced configs that reach the full-width
+    mixed layouts: recurrentgemma-9b at 5 layers, a 16-slot window and
+    d_ff 192 (only the MLPs split over three shards; dense and int8 KV),
+    mamba2-2.7b with ssm_state 14 (only the conv splits), whisper-medium
+    over 24 frames (the cross memory split by sequence, the self cache
+    whole) at tp = 1 and 3, and qwen3-14b's 40 q over 8 KV heads at
+    tp = 1 and 5 on the paged engine (a launch a run).  Exact launches,
+    each shard's cache at the rules' local shapes, the replicated leaves
+    bit-equal across shards, float32 tokens equal across tp.  The CPU
+    engine captures no graph."""
+    import dataclasses
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+    changes = {"recurrentgemma-9b": dict(num_layers=5, attn_window=16,
+                                         d_ff=192),
+               "mamba2-2.7b": dict(ssm_state=14),
+               "whisper-medium": dict(enc_seq=24),
+               "qwen3-14b": dict(num_heads=40, num_kv_heads=8)}
+    monkeypatch.setattr(configs, "get_config", lambda name: dataclasses.replace(
+        real(name).reduced(), **changes.get(name, {})))
+    _count_paged_on_cpu(monkeypatch)
+    _count_decode_on_cpu(monkeypatch)
+    mod = cpu_chip_smoke
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    mod.MAX_LEN = 64
+    mod.ENCDEC_CAPACITY = 32         # 4 prompt tokens and 16 steps
+    mod.HYBRID_PROMPTS = (40, 33, 20, 12, 9, 5, 3, 2)
+    mod.HYBRID_INT8_PROMPTS = (40, 12, 3, 2)
+    mod.SSM_PROMPTS = (40, 33, 20, 12, 9, 5, 3, 2)
+    mod.SERVE_ENGINE = dict(mod.SERVE_ENGINE, max_len=128, prefill_chunk=32)
+    mod.SERVE_PREFIX = 32
+    mod.SERVE_SUFFIXES = (3, 5, 9, 17)
+
+    def no_graph(label, graph, steps, per_step):
+        assert graph is None and steps > 0
+        return {"launches_per_replay": {n: k for n, k in per_step.items()
+                                        if k}}
+    mod.check_graph = no_graph
+    launches, shapes = mod.phase_serve_tp_fallbacks(0)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "serve_tp_fallbacks"
+    models = {m["model"] + "/" + m.get("kv_cache_dtype", "activation"): m
+              for m in line["models"]}
+    assert len(line["models"]) == 5
+    for m in line["models"]:
+        assert [r["tp"] for r in m["bfloat16"]] in ([1, 3], [1, 5])
+        assert all(r["tokens_equal_tp1"] for r in m["float32"]["by_tp"])
+        assert m["bfloat16"][1]["replicated_leaves_bit_equal"] > 0
+    for name in ("recurrentgemma-9b/activation", "recurrentgemma-9b/int8"):
+        r = models[name]["bfloat16"][1]   # the whole ring, a launch a shard
+        kname = "decode_attention_int8" if "int8" in name \
+            else "decode_attention"
+        assert r["launches_per_step"] == {kname: 3}
+        assert r["launches"]["rglru_scan"] == 4 * 3 * r["admissions"]
+    assert models["mamba2-2.7b/activation"]["reshard"][
+        "copies_from_other_shards"] > 0
+    enc = models["whisper-medium/activation"]["bfloat16"][1]
+    assert enc["launches"]["decode_combine"] == 2 * mod.TP_FAMILY_NEW
+    qwen = models["qwen3-14b/activation"]
+    assert qwen["cut"] == "2 of 40 layers"
+    # runs of 2, 3, 1, 3 and 2 a shard: 11 launches a layer
+    assert qwen["bfloat16"][1]["launches_per_step"] == {
+        "paged_decode_attention": 2 * 11}
+    assert launches["decode_attention_partial"] > 0
+    assert shapes["paged_decode_attention"]
+
+
+def test_fallback_kernel_rows_rehearsed_on_the_cpu(cpu_chip_smoke, capsys):
+    """The kernels phase's rows at the fallbacks' new shapes (timers
+    stubbed): the paged decode kernel at each run of qwen3-14b's q heads
+    at tp = 5, read in place from the pool of 8 KV heads, and the partial
+    over a third of whisper-medium's 1500 frames with the combine of
+    three, each within tolerance of its plain version, with a bound and a
+    library call where there is one; the decode wrappers on a cache
+    narrowed to a run of heads within tolerance of their plain versions.
+    The launches a layer of qwen3-14b at tp = 5, counted from the GQA
+    mapping alone, are the 11 runs."""
+    mod = cpu_chip_smoke
+    assert mod.attention_runs(types.SimpleNamespace(
+        num_heads=40, num_kv_heads=8), 5) == 11
+    assert mod.attention_runs(types.SimpleNamespace(
+        num_heads=32, num_kv_heads=8), 4) == 4
+    mod.time_ms = lambda fn, args, **k: (fn(*args), (0.0, True))[1]
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    gen = torch.Generator().manual_seed(0)
+    rows = [r for r in mod.fallback_kernel_rows(gen)
+            if r["dtype"] == "float32"]
+    assert [(r["kernel"], r.get("H"), r.get("KVH")) for r in rows] == [
+        ("paged_decode_attention", 5, 1), ("paged_decode_attention", 3, 1),
+        ("paged_decode_attention", 2, 1), ("paged_decode_attention", 1, 1),
+        ("paged_decode_attention", 8, 2),
+        ("decode_attention_partial", 16, 16), ("decode_combine", 16, None)]
+    for r in rows:
+        assert r["max_abs_err"] <= r["tol"] and r["bound_ms"] > 0
+    assert rows[5]["C"] == 500 and rows[5]["of_slots"] == 1500
+    assert rows[6]["shards"] == 3
+    assert all(r["library_ms"] == 0.0 for r in rows[:6])
+    views = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if "decode_head_views" in ln]
+    assert [v["decode_head_views"] for v in views] == ["bfloat16",
+                                                       "float32"]
+    for v in views:
+        assert set(v["max_abs_err"]) == {"decode_attention",
+                                         "decode_attention_int8",
+                                         "decode_attention_partial"}
+        assert max(v["max_abs_err"].values()) <= v["tol"]
 
 
 def test_decode_split_rows_rehearsed_on_the_cpu(cpu_chip_smoke):

@@ -120,7 +120,7 @@ def test_sharded_ring_decode_matches_one_device(tp, kv_dtype):
         xn = lm.apply_norm(cfg, p["ln1"], x)
         want = att.decode_attention(cfg, p["attn"], xn, one, pos, window=8)
         got = lm.tp_decode_attention(cfg, tpl, ps, xn, caches, pos,
-                                     window=8)
+                                     window=8, capacity=32)
         assert (got - want).abs().max().item() <= TOL
         pos = pos + 1
     for name, leaf in one.items():

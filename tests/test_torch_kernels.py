@@ -531,3 +531,59 @@ def test_paged_group_limit_per_dtype(dtype, G, ok):
         with pytest.raises(ValueError, match="H/KVH"):
             pa_pt._check(*args)
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_wrappers_read_head_narrowed_views(dtype):
+    """A shard's run of replicated KV heads is a view of the cache or pool
+    narrowed along its heads: the decode and paged wrappers' checks take
+    it and give the heads a row holds (the stride the kernels read it
+    with, in place), the plain versions read it as they read its copy,
+    and a layout the kernels cannot address (slots cut short) is
+    refused."""
+    rng = np.random.RandomState(3)
+    B, C, S, lo, hi, d = 2, 24, 8, 3, 5, 32
+    H = 4 * (hi - lo)
+    q = torch.as_tensor(rng.randn(B, 1, H, d)).to(dtype)
+    k = torch.as_tensor(rng.randn(B, C, S, d)).to(dtype)
+    v = torch.as_tensor(rng.randn(B, C, S, d)).to(dtype)
+    valid = torch.as_tensor(rng.rand(B, C) < 0.7)
+    kr, vr = k[:, :, lo:hi], v[:, :, lo:hi]
+    assert da_pt._check(q, kr, vr, valid, dtype) == S
+    assert da_pt._check(q, kr.contiguous(), vr.contiguous(), valid,
+                        dtype) == hi - lo
+    for fn in (da_pt.decode_attention, da_pt.decode_attention_partial):
+        torch.testing.assert_close(
+            fn(q, kr, vr, valid), fn(q, kr.contiguous(), vr.contiguous(),
+                                     valid), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="narrowed along its heads"):
+        da_pt._check(q, k[:, :C // 2, lo:hi], v[:, :C // 2, lo:hi],
+                     valid[:, :C // 2].contiguous(), dtype)
+    with pytest.raises(ValueError, match="as many heads"):
+        da_pt._check(q, kr, vr.contiguous(), valid, dtype)
+    (k8, ks), (v8, vs) = att_pt.quantize_kv(k), att_pt.quantize_kv(v)
+    views = (k8[:, :, lo:hi], v8[:, :, lo:hi], ks[:, :, lo:hi],
+             vs[:, :, lo:hi])
+    assert da_pt._check(q, *views[:2], valid, torch.int8, views[2:]) == S
+    torch.testing.assert_close(
+        da_pt.decode_attention_int8(q, *views, valid),
+        da_pt.decode_attention_int8(q, *(t.contiguous() for t in views),
+                                    valid), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="as many heads"):
+        da_pt._check(q, *views[:2], valid, torch.int8,
+                     (views[2].contiguous(), views[3]))
+    P, ps, N = 9, 4, 2
+    pool_k = torch.as_tensor(rng.randn(P, ps, S, d)).to(dtype)
+    pool_v = torch.as_tensor(rng.randn(P, ps, S, d)).to(dtype)
+    table = torch.as_tensor(rng.permutation(P - 1)[:B * N].reshape(B, N)
+                            + 1).to(torch.int32)
+    lens = torch.tensor([7, 3], dtype=torch.int32)
+    pk, pv = pool_k[:, :, lo:hi], pool_v[:, :, lo:hi]
+    assert pa_pt._check(q, pk, pv, table, lens) == S
+    torch.testing.assert_close(
+        pa_pt.paged_decode_attention(q, pk, pv, table, lens),
+        pa_pt.paged_decode_attention(q, pk.contiguous(), pv.contiguous(),
+                                     table, lens), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="narrowed along its heads"):
+        pa_pt._check(q, pool_k[:, :2, lo:hi], pool_v[:, :2, lo:hi],
+                     table, lens)

@@ -176,8 +176,9 @@ def test_mesh_serves_what_it_refused(arch, rep, kw):
 
 def test_mesh_refuses_what_it_does_not_shard(models):
     """The encoder-decoder engine (a request carries no encoder frames, as
-    the reference's), head-dim-sharded strategies (serving runs the heads
-    strategy) and recurrent widths that do not split."""
+    the reference's) and head-dim-sharded strategies (serving runs the
+    heads strategy).  Recurrent widths that do not split are served
+    replicated (``test_torch_serving_tp_fallbacks.py``)."""
     mesh = make_serving_mesh(2, devices=["cpu"] * 2)
     w = build_model(get_config("whisper-medium").reduced())
     with pytest.raises(NotImplementedError, match="encoder"):
@@ -187,7 +188,3 @@ def test_mesh_refuses_what_it_does_not_shard(models):
     with pytest.raises(NotImplementedError, match="head_dim"):
         TensorParallel(mt.cfg, ShardedParams(pt, params_pspecs(ulysses, mt),
                                              mesh))
-    h = build_model(get_config("recurrentgemma-9b").reduced())
-    with pytest.raises(NotImplementedError, match="split 3 ways"):
-        ServingEngine(h, h.init(0, device="cpu"), device="cpu",
-                      mesh=make_serving_mesh(3, devices=["cpu"] * 3))
