@@ -221,7 +221,31 @@ Phases, each printing one JSON line:
              apart, of placing the state).  Then float32 at 2
              layers: loss and gradients held to the (1, 1) step's within
              ``TRAIN_TP_TOL_F32``.
-19. poppy_apps — compound-AI programs written against the port's own
+19. train_tp_layouts — the sharded train step in the layouts
+             ``train_tp`` does not reach (:data:`TP_LAYOUTS`), at full
+             width and cut depth (2 layers, 3 for one rglru/rglru/attn
+             group, 2 + 2 for whisper-medium): ``ulysses_sp`` picked by
+             ``make_rules`` at (1, 3) for recurrentgemma-9b (B 1, S 2304:
+             shard 2's window reaches back across the shard boundary),
+             olmoe-1b-7b (B 4, S 1020, which splits three ways: MoE
+             routed over the row's whole token set) and
+             whisper-medium (B 4, 1500 frames split, the decoder's 448
+             positions whole on every shard); stablelm-3b
+             under ``ulysses`` and ``heads_sp`` at (1, 2), ZeRO-2 at (2,
+             1) and ``zero2_master`` at (2, 2); ``heads`` with the
+             replicated layouts: recurrentgemma-9b, mamba2-2.7b and
+             whisper-medium at (1, 3), qwen3-14b at (1, 5).  Each holds,
+             in float32, the loss and every gradient leaf to the
+             one-device step's within ``TRAIN_TP_TOL_F32`` and every
+             replica of a slice to one gradient.  The three ulysses_sp
+             cases and ZeRO-2 also run three bf16 steps on (1, 1) and on
+             their mesh: the step time against (1, 1)'s, flash launches a
+             step held exactly, the collectives by kind, the peak memory,
+             and every slice held more than once bit-equal across its
+             holders after the steps.  Then qwen3-14b's ulysses_sp decode
+             step at (1, 2) over a cache split by KV heads, its logits
+             against the one-device step's.
+20. poppy_apps — compound-AI programs written against the port's own
              ``@poppy`` (``repro_torch.core``), through a port
              ``Dispatcher`` (admission at 8) and ``LocalEngineBackend``
              into the paged engine at full-width stablelm-3b in bf16
@@ -257,7 +281,9 @@ flash, the backward of one SDPA call (:func:`backward_kernel_rows`);
 the SSD forward there is also held beside the plain version against a
 float64 step recurrence (``forward_vs_float64``).  Flash's forward runs
 at the train phases' shapes too, in bf16, with its bound and SDPA's
-time (:func:`train_flash_rows`).
+time (:func:`train_flash_rows`), and at train_tp_layouts' sequence
+shards: the windowed prefix form and the encoder's non-causal shard
+(:func:`layout_flash_rows`).
 
 Every serve engine replays its decode step as one CUDA graph, captured
 after the eager first step.  Each serve phase checks, per engine, one
@@ -306,7 +332,8 @@ PHASES = ("build", "kernels", "serve", "serve_hybrid", "serve_ssm",
           "serve_moe", "encdec", "serve_vlm", "train", "train_ssm",
           "train_hybrid", "serve_fleet", "train_moe", "train_encdec",
           "serve_tp", "ef_allreduce", "serve_tp_families",
-          "serve_tp_fallbacks", "train_tp", "poppy_apps")
+          "serve_tp_fallbacks", "train_tp", "train_tp_layouts",
+          "poppy_apps")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, dense bf16 tensor-core peak and
 # the float32 peak outside the tensor cores
@@ -806,7 +833,8 @@ def phase_kernels():
     for row in (hybrid_kernel_rows(gen) + ssd_kernel_rows(gen)
                 + encdec_kernel_rows(gen) + train_flash_rows(gen)
                 + backward_kernel_rows(gen) + tp_family_kernel_rows(gen)
-                + fallback_kernel_rows(gen) + ulysses_flash_rows(gen)):
+                + fallback_kernel_rows(gen) + ulysses_flash_rows(gen)
+                + layout_flash_rows(gen)):
         results.append(row)
         emit({"phase": "kernels", **row})
     return results
@@ -4591,6 +4619,59 @@ def ulysses_flash_rows(gen):
     return rows
 
 
+# the sequence shards of the train_tp_layouts phase's ulysses_sp cases:
+# recurrentgemma-9b's last of three shards of 2304 positions, its 768
+# query rows windowed back across the shard boundary, and one of three
+# shards of whisper-medium's 1500 encoder frames over every frame
+LAYOUT_FLASH = {
+    "hybrid": dict(shape="recurrentgemma-9b/ulysses_sp3",
+                   case="train shard 2 of 3, window 2048", B=1, S=768,
+                   T=2304, H=16, KVH=1, d=256, causal=True, window=2048,
+                   prefix_pad=1536, prefix_len=1536),
+    "encoder": dict(shape="whisper-medium/ulysses_sp3",
+                    case="train encoder shard of 3", B=4, S=500, T=1500,
+                    H=16, KVH=16, d=64, causal=False),
+}
+
+
+def layout_flash_rows(gen):
+    """Flash's two new forms at the train_tp_layouts phase's shards
+    (:data:`LAYOUT_FLASH`) against their plain versions, in bf16 and f32,
+    with the bound, the plain version's time and SDPA's with the same
+    mask: the windowed prefix form (a prefix key kept only inside the
+    window of the query's own position) and the encoder's non-causal
+    shard (:func:`flash_row`)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref, keep_mask)
+    rows = []
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        h = dict(LAYOUT_FLASH["hybrid"])
+        shape, case = h.pop("shape"), h.pop("case")
+        B, S, T, H, KVH, d = (h.pop(n) for n in ("B", "S", "T", "H", "KVH",
+                                                 "d"))
+        q = torch.randn(B, S, H, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, T, KVH, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, T, KVH, d, generator=gen, device="cuda").to(dtype)
+        label = f"flash {shape} {case} {dname}"
+        out = fa_ops.flash_attention(q, k, v, **h)
+        err = check_close(label, out, flash_attention_ref(q, k, v, **h),
+                          dname)
+        keep = keep_mask(S, T, **h, device="cuda")
+        b_ms, b_by = bound(*fa_ops.flash_attention_work(q, k, **h), dname)
+        rows.append(dict(
+            kernel="flash_attention", shape=shape, case=case, dtype=dname,
+            B=B, S=S, T=T, H=H, KVH=KVH, d=d, **h, max_abs_err=err,
+            tol=TOL[dname], kv_rows=int(keep.any(0).sum().item()),
+            launch_key=dict(fa_ops.launch_key(q, k, **h)),
+            **flash_times(h, keep, (q, k, v)), bound_ms=b_ms, bound_by=b_by))
+        e = dict(LAYOUT_FLASH["encoder"])
+        rows.append(flash_row(gen, e.pop("shape"), e.pop("case"), dname,
+                              **e))
+    return rows
+
+
 def gathered_grads(st_tree, grads):
     """{key: the global gradient} assembled from each coordinate's
     gradients of its slices (``mesh_loss_and_grads``), on the card."""
@@ -4733,7 +4814,380 @@ def phase_train_tp(seed):
     return launches, shapes
 
 
-# phase 19: compound-AI programs on the port's own PopPy core, driving the
+# phase 19: the sharded train step in every other layout the rules give,
+# every coordinate on this card
+
+# name → the model, its config changes, the mesh, the batch, the sequence
+# and the float32 check's depth; ``timed``: also three bf16 steps at that
+# depth against the (1, 1) mesh's ("grads": their forward and backward
+# alone, where the mesh's placed train state would not fit one card)
+TP_LAYOUTS = {
+    # 16 heads over 3 shards: make_rules picks ulysses_sp; S = 2304 runs
+    # past the 2048 window on shard 2.  Its train state placed on (1, 3)
+    # takes 88.3 GB (the 256,000-row vocab tables, the RG-LRU and the
+    # attention replicated on every shard), more than the card holds
+    "hybrid_ulysses_sp": dict(arch="recurrentgemma-9b", mesh=(1, 3),
+                              batch=1, seq=2304, depth=dict(num_layers=3),
+                              timed="grads"),
+    # S = 1020 splits three ways (1024 would run whole on every shard, the
+    # fallback whisper's decoder takes): MoE routes the row's gathered
+    # tokens, its capacity counted over all of them
+    "moe_ulysses_sp": dict(arch="olmoe-1b-7b", mesh=(1, 3), batch=4,
+                           seq=1020, depth=dict(num_layers=2), timed=True),
+    # 1500 frames split three ways, the decoder's 448 positions do not:
+    # every shard holds the whole decoder sequence
+    "encdec_ulysses_sp": dict(arch="whisper-medium", mesh=(1, 3), batch=4,
+                              seq=448, depth=dict(num_layers=2,
+                                                  enc_layers=2),
+                              timed=True),
+    "dense_ulysses": dict(arch="stablelm-3b", rep=dict(tp_strategy="ulysses"),
+                          mesh=(1, 2), batch=4, seq=1024,
+                          depth=dict(num_layers=2)),
+    "dense_heads_sp": dict(arch="stablelm-3b",
+                           rep=dict(tp_strategy="heads_sp"), mesh=(1, 2),
+                           batch=4, seq=1024, depth=dict(num_layers=2)),
+    "dense_zero2": dict(arch="stablelm-3b", rep=dict(param_strategy="zero2"),
+                        mesh=(2, 1), batch=4, seq=1024,
+                        depth=dict(num_layers=2), timed=True),
+    "dense_zero2_master": dict(arch="stablelm-3b",
+                               rep=dict(param_strategy="zero2_master"),
+                               mesh=(2, 2), batch=4, seq=1024,
+                               depth=dict(num_layers=2)),
+    # heads with what the model axis does not divide replicated: the
+    # RG-LRU width, the SSD block, whisper's KV heads, and qwen3-14b's 40
+    # q heads over 8 KV heads in unequal groups at 5 shards
+    "hybrid_heads": dict(arch="recurrentgemma-9b",
+                         rep=dict(tp_strategy="heads"), mesh=(1, 3),
+                         batch=1, seq=2304, depth=dict(num_layers=3)),
+    "ssm_heads": dict(arch="mamba2-2.7b", mesh=(1, 3), batch=4, seq=1024,
+                      depth=dict(num_layers=2)),
+    "encdec_heads": dict(arch="whisper-medium", rep=dict(tp_strategy="heads"),
+                         mesh=(1, 3), batch=4, seq=448,
+                         depth=dict(num_layers=2, enc_layers=2)),
+    "gqa_heads": dict(arch="qwen3-14b", mesh=(1, 5), batch=1, seq=1024,
+                      depth=dict(num_layers=2)),
+}
+TP_LAYOUT_STEPS = 3         # the first warms up and is not timed
+# the ulysses_sp decode over a cache split by KV heads: qwen3-14b's 8 KV
+# heads over 2 shards, a cache of 256 slots of which the step attends 101
+TP_LAYOUT_DECODE = dict(arch="qwen3-14b", mesh=(1, 2), batch=4,
+                        capacity=256, position=100, layers=2)
+
+
+def layout_mesh(shape):
+    from repro_torch.launch.mesh import Mesh
+    n = int(np.prod(shape))
+    return Mesh(np.array(["cuda"] * n, dtype=object).reshape(shape),
+                ("data", "model"))
+
+
+def layout_cfg(case, dname):
+    from repro_torch.configs import get_config
+    return get_config(case["arch"]).replace(
+        remat="full", microbatches=1, dtype=dname, **case.get("rep", {}),
+        **case["depth"])
+
+
+def replicas_equal(label, st):
+    """Every coordinate's local slice of ``st`` bit-equal to every other
+    coordinate's copy of that slice; → the slices held more than once."""
+    from repro_torch.sharding.placement import shard_slices
+    first, shared = {}, set()
+    for c in np.ndindex(st.mesh.devices.shape):
+        key = tuple((s.start, s.stop) for s in shard_slices(
+            st.shape, st.spec, st.mesh, c))
+        if key in first:
+            shared.add(key)
+            if not torch.equal(st.local(c), first[key]):
+                fail(f"{label}: coordinate {c}'s replica differs")
+        else:
+            first[key] = st.local(c)
+    return len(shared)
+
+
+def layout_f32_check(name, case, seed):
+    """Float32 at the case's depth: the mesh's loss and every gradient
+    leaf against the one-device step's under the same rules (relative L2
+    within ``TRAIN_TP_TOL_F32``), every replica of a slice given the same
+    gradient."""
+    import gc
+
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import named, place_tree
+
+    cfg = layout_cfg(case, "float32")
+    model = build_model(cfg)
+    mesh = layout_mesh(case["mesh"])
+    rls = R.make_rules(mesh, cfg)
+    params = model.init(seed, device="cuda")
+    batch = train_device_batch(cfg, train_batch(cfg, case["batch"],
+                                                case["seq"], 0, seed))
+    with R.use_rules(rls):
+        loss1, _, g1 = steps.loss_and_grads(model, params, batch)
+    ptree = place_tree(params, named(rls, R.params_pspecs(rls, model)))
+    loss2, _, g2 = steps.mesh_loss_and_grads(
+        model, rls, ptree, steps.row_batches(rls, batch))
+    full = gathered_grads(ptree, g2)
+    for key, st in steps.flatten(ptree).items():    # replicas: one gradient
+        for c in np.ndindex(mesh.devices.shape):
+            sl = shard_slices_of(st, c)
+            if not torch.equal(g2[c][key], full[key][sl]):
+                fail(f"train_tp_layouts {name}: {key}'s gradient at {c} "
+                     f"differs from its replicas'")
+    errs = {k: rel_l2(full[k], g1[k].float()) for k in full}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(loss2.item() - loss1.item()) / abs(loss1.item())
+    if not (loss_err <= TRAIN_TP_TOL_F32
+            and errs[worst] <= TRAIN_TP_TOL_F32):
+        fail(f"train_tp_layouts {name} f32: loss {loss_err}, gradient "
+             f"{worst} {errs[worst]} against (1, 1) (tol "
+             f"{TRAIN_TP_TOL_F32})")
+    out = {"tp_strategy": rls.tp_strategy, "loss_rel_err_vs_1x1": loss_err,
+           "worst_grad_rel_l2_vs_1x1": errs[worst], "worst_leaf": worst,
+           "leaves": len(errs)}
+    del params, ptree, g1, g2, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_slices_of(st, c):
+    from repro_torch.sharding.placement import shard_slices
+    return shard_slices(st.shape, st.spec, st.mesh, c)
+
+
+def layout_flash_launches(cfg, rls):
+    """Flash launches of one train step under ``rls`` at remat "full"
+    (each attention twice): a row's attention sub-layer launches once a
+    shard over sequence rows (split or whole), once a shard (a run of
+    its q heads) over heads that split, else once, on shard 0."""
+    from repro_torch.models import lm
+    sizes = rls.mesh.shape
+    tp = sizes.get("model", 1)
+    dp = int(np.prod(rls.mesh.devices.shape)) // tp
+    if cfg.family == "enc_dec":
+        n_attn = cfg.enc_layers + 2 * cfg.num_layers
+    else:
+        n_attn = sum(k.startswith("attn") for k in lm.block_kinds(cfg))
+    if lm.LAYOUTS[rls.tp_strategy][1]:
+        per = tp
+    elif cfg.num_heads % tp == 0:
+        _, runs = lm.tp_kv_runs(cfg, tp, True, cfg.num_kv_heads % tp == 0)
+        per = sum(len(r) if r else 1 for r in runs)
+    else:
+        per = 1
+    return 2 * dp * per * n_attn
+
+
+def layout_timed(name, case, seed, counters):
+    """Three bf16 steps at the case's depth on (1, 1) and on the case's
+    mesh (``timed="grads"``: each step's forward and backward alone,
+    :func:`~repro_torch.launch.steps.mesh_loss_and_grads` over the
+    placed parameters, replicas sharing one tensor): step times, flash launches a step held to
+    :func:`layout_flash_launches`, the collectives by kind and the peak
+    memory of the mesh's steps; after them every slice held more than
+    once bit-equal across its holders, in the parameters and the
+    optimizer state (the gradients, without the optimizer)."""
+    import gc
+
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding.placement import (
+        COLLECTIVES, ShardedTensor, named, place_tree)
+    from repro_torch.training.optimizer import AdamW
+
+    cfg = layout_cfg(case, "bfloat16")
+    model = build_model(cfg)
+    optimizer = AdamW(learning_rate=TRAIN_LR,
+                      master_weights=cfg.param_strategy == "zero2_master")
+    grads_only = case["timed"] == "grads"
+    host = train_batch(cfg, case["batch"], case["seq"], 0, seed)
+    out = {}
+    for shape in ((1, 1), case["mesh"]):
+        mesh = layout_mesh(shape)
+        rls = R.make_rules(mesh, cfg)
+        if grads_only:     # replicas share their storage: nothing updates
+            params = model.init(seed, device="cuda")
+            placed = {"params": place_tree(params, named(
+                rls, R.params_pspecs(rls, model)))}
+            del params
+
+            def step_fn(placed, batch, rls=rls, mesh=mesh):
+                loss, _, g = steps.mesh_loss_and_grads(
+                    model, rls, placed["params"],
+                    steps.row_batches(rls, batch))
+                # each coordinate's gradients in its layout, checked
+                # here: a step's gradients are not kept past it
+                shared = 0
+                for k, st in steps.flatten(placed["params"]).items():
+                    shards = np.empty(mesh.devices.shape, dtype=object)
+                    for c in np.ndindex(shards.shape):
+                        shards[c] = g[c][k]
+                    shared += replicas_equal(
+                        f"train_tp_layouts {name} {shape} grad {k}",
+                        ShardedTensor(st.sharding, st.shape, torch.float32,
+                                      shards))
+                placed["grad_slices_shared"] = shared
+                return placed, {"loss": loss}
+        else:
+            state = steps.init_train_state(model, optimizer, seed,
+                                           device="cuda")
+            placed = steps.place_train_state(model, optimizer, state, mesh,
+                                             rls)
+            del state
+            step_fn = steps.make_train_step(model, optimizer, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batch = train_device_batch(cfg, host)
+        want = {"flash_attention": layout_flash_launches(cfg, rls)}
+        times, losses = [], []
+        for i in range(TP_LAYOUT_STEPS):
+            before = {k: c.launches for k, c in counters.items()}
+            COLLECTIVES.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            placed, metrics = step_fn(placed, batch)
+            losses.append(metrics["loss"].item())
+            times.append(time.perf_counter() - t0)
+            got = {k: c.launches - before[k] for k, c in counters.items()}
+            if got["flash_attention"] != want["flash_attention"] or (
+                    cfg.family == "hybrid" and not got["rglru_scan"]):
+                fail(f"train_tp_layouts {name} {shape} step {i}: launches "
+                     f"{got}, flash {want['flash_attention']}")
+        coll = COLLECTIVES.snapshot()
+        trees = [placed["params"]] + ([] if grads_only else [placed["opt"]])
+        shared = sum(replicas_equal(f"train_tp_layouts {name} {shape} {k}",
+                                    st) for tree in trees
+                     for k, st in steps.flatten(tree).items())
+        shared += placed.get("grad_slices_shared", 0)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train_tp_layouts {name} {shape}: a loss is not finite")
+        out["x".join(map(str, shape))] = {
+            "tp_strategy": rls.tp_strategy, "step": "forward and backward"
+                if grads_only else "train step", "step_median_s":
+                statistics.median(times[1:]), "first_step_s": times[0],
+                "losses": losses, "flash_launches_per_step":
+                want["flash_attention"], "collectives_per_step": coll,
+                "replicated_slices_bit_equal": shared,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del placed, batch, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, mesh_rep = out["1x1"], out["x".join(map(str, case["mesh"]))]
+    mesh_rep["step_vs_1x1"] = mesh_rep["step_median_s"] \
+        / one["step_median_s"]
+    return out
+
+
+def layout_decode_check(seed):
+    """qwen3-14b under ulysses_sp at (1, 2), float32, one decode step of
+    the dry-run's decode step over a cache the rules split by KV heads
+    (random K/V in every slot up to the step's position) against the
+    one-device ``decode_step`` on a copy of the same cache: logits within
+    ``TRAIN_TP_TOL_F32`` (relative L2), decode-attention launches one a
+    shard a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode_graph import launch_counters
+    from repro_torch.sharding import rules as R
+
+    d = TP_LAYOUT_DECODE
+    cfg = get_config(d["arch"]).replace(
+        tp_strategy="ulysses_sp", dtype="float32", num_layers=d["layers"])
+    model = build_model(cfg)
+    rls = R.make_rules(layout_mesh(d["mesh"]), cfg)
+    params = model.init(seed, device="cuda")
+    B, C, pos = d["batch"], d["capacity"], d["position"]
+    cache = model.init_cache(B, C, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for leaf in steps.flatten(cache).values():
+        leaf[..., :pos, :, :] = torch.randn(
+            leaf[..., :pos, :, :].shape, generator=gen, device="cuda")
+    placed = steps.place_cache(rls, cache)
+    tokens = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    positions = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+    want = model.decode_step(params, cache, tokens, positions)[0]
+    counters = launch_counters()
+    zero_launches(counters)
+    got = steps.make_decode_step(model, rls, C)(
+        steps.place_params(model, rls, params), placed, tokens,
+        positions)[0]
+    launches = read_launches(counters)[0]
+    # the real vocab: the padding's -1e30 would swamp any difference
+    err = rel_l2(got[..., :cfg.vocab_size], want[..., :cfg.vocab_size])
+    shards = d["mesh"][1]
+    if err > TRAIN_TP_TOL_F32 or launches["decode_attention"] \
+            != shards * cfg.num_layers:
+        fail(f"train_tp_layouts ulysses_sp decode: logits {err} (tol "
+             f"{TRAIN_TP_TOL_F32}), launches {launches}")
+    specs = R.cache_pspecs(rls, cache)
+    return {"model": cfg.name, "tp_strategy": rls.tp_strategy,
+            "mesh": list(d["mesh"]), "layers": cfg.num_layers, "batch": B,
+            "capacity": C, "position": pos,
+            "cache_k_spec": list(steps.flatten(specs)["layers/b0/k"]),
+            "logits_rel_l2_vs_1x1": err,
+            "decode_attention_launches": launches["decode_attention"]}
+
+
+def phase_train_tp_layouts(seed):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.decode_graph import launch_counters
+
+    counters = launch_counters()
+    out = []
+    t_main = 0.0
+    launches, shapes = {}, {}
+    for name, case in TP_LAYOUTS.items():
+        t0 = time.perf_counter()
+        full = get_config(case["arch"])
+        rep = {"model": full.name, "mesh": list(case["mesh"]),
+               "config": case.get("rep", {}), "batch": case["batch"],
+               "seq": case["seq"],
+               "reduced": [f"{k} {getattr(full, k)} -> {v} (the phase's "
+                           f"time and one card's memory: the (1, 1) "
+                           f"state beside the mesh's)"
+                           for k, v in case["depth"].items()
+                           if getattr(full, k) != v],
+               "float32": layout_f32_check(name, case, seed)}
+        emit({"phase": "train_tp_layouts", "case": name,
+              "float32": rep["float32"]})
+        if case.get("timed"):
+            t1 = time.perf_counter()
+            zero_launches(counters)
+            rep["bfloat16"] = layout_timed(name, case, seed, counters)
+            got, got_shapes = read_launches(counters)
+            launches = {n: launches.get(n, 0) + got.get(n, 0)
+                        for n in set(launches) | set(got)}
+            shapes = add_shapes(shapes, got_shapes)
+            t_main += time.perf_counter() - t1
+        rep["case_s"] = time.perf_counter() - t0
+        out.append(rep)
+        emit({"phase": "train_tp_layouts", "case": name, **rep})
+    decode = layout_decode_check(seed)
+    emit({"phase": "train_tp_layouts", "card": card(),
+          "coordinates_on_one_card": True, "remat": "full",
+          "param_dtype": "float32", "lr": TRAIN_LR,
+          "f32_tol": TRAIN_TP_TOL_F32, "timed_s": t_main,
+          "cases": {c["model"] + " " + n: {
+              "mesh": c["mesh"], "tp_strategy": c["float32"]["tp_strategy"],
+              "loss_rel_err_vs_1x1": c["float32"]["loss_rel_err_vs_1x1"],
+              "worst_grad_rel_l2_vs_1x1":
+                  c["float32"]["worst_grad_rel_l2_vs_1x1"],
+              **({"step_vs_1x1": c["bfloat16"]["x".join(
+                  map(str, c["mesh"]))]["step_vs_1x1"]}
+                 if "bfloat16" in c else {})}
+              for n, c in zip(TP_LAYOUTS, out)},
+          "ulysses_sp_decode": decode})
+    return launches, shapes
+
+
+# phase 20: compound-AI programs on the port's own PopPy core, driving the
 # paged engine through the port's dispatcher and backend
 POPPY_DOCS = 8                 # program A's fan-out
 POPPY_AGENTS = 5               # program B's debaters
@@ -5166,6 +5620,7 @@ def main(argv=None):
                "serve_vlm": phase_serve_vlm,
                "serve_fleet": phase_serve_fleet,
                "train_tp": phase_train_tp,
+               "train_tp_layouts": phase_train_tp_layouts,
                "poppy_apps": phase_poppy_apps,
                **{name: functools.partial(phase_train, name)
                   for name in TRAIN_CASES}}

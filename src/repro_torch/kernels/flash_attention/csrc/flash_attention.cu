@@ -5,9 +5,12 @@
 // (Pallas _fa_kernel), extended with the serving engine's prefix mode:
 // keys are `prefix_pad` rows of a padded, already-prefilled prefix (the
 // first `prefix_len` valid) followed by the queries' own rows.  Query i
-// keeps key j iff j < prefix_len, or j >= prefix_pad and
+// sits at position prefix_len + i and keeps key j iff j < prefix_len and
+// j > prefix_len + i - window (window), or j >= prefix_pad and
 // j - prefix_pad <= i (causal) and j - prefix_pad > i - window (window).
-// With prefix_pad = prefix_len = 0 that is _fa_kernel's mask.
+// With prefix_pad = prefix_len = 0 that is _fa_kernel's mask; with
+// prefix_pad = prefix_len = r * S it is shard r's rows of a sequence split
+// over the model axis (ulysses_sp), windowed across the shard boundary.
 //
 // What bounds it: at the engine's prefill chunks on stablelm-3b (256
 // queries over a 512-row padded prefix, H = KVH, d = 80) the bytes: q,
@@ -82,8 +85,10 @@ __device__ __forceinline__ float warp_max(float v) {
 struct Mask {
   int causal, window, prefix_pad, prefix_len;
 
+  // the prefix keys query i keeps: [prefix_len + i - window + 1,
+  // prefix_len) under a window, else all prefix_len of them
   __device__ __forceinline__ bool keep(int i, int j) const {
-    if (j < prefix_len) return true;
+    if (j < prefix_len) return window <= 0 || j > prefix_len + i - window;
     if (j < prefix_pad) return false;
     const int rel = j - prefix_pad;
     if (causal && rel > i) return false;
@@ -94,7 +99,10 @@ struct Mask {
   // Can any query row in [qlo, qhi] keep any key in [k0, k1]?
   __device__ __forceinline__ bool tile_live(int qlo, int qhi, int k0,
                                             int k1) const {
-    if (k0 < prefix_len) return true;
+    // row qlo keeps the most prefix keys: its window reaches furthest back
+    if (k0 < prefix_len &&
+        (window <= 0 || min(k1, prefix_len - 1) > prefix_len + qlo - window))
+      return true;
     const int lo = max(k0, prefix_pad);
     if (lo > k1) return false;
     if (causal && lo - prefix_pad > qhi) return false;
@@ -105,7 +113,8 @@ struct Mask {
   // Does every query row in [qlo, qhi] keep every key in [k0, k1]?
   __device__ __forceinline__ bool tile_full(int qlo, int qhi, int k0,
                                             int k1) const {
-    if (k1 < prefix_len) return true;
+    if (k1 < prefix_len)
+      return window <= 0 || k0 > prefix_len + qhi - window;
     if (k0 < prefix_pad) return false;
     if (causal && k1 - prefix_pad > qlo) return false;
     if (window > 0 && k0 - prefix_pad <= qhi - window) return false;
@@ -117,9 +126,9 @@ struct Mask {
     return causal ? min(T, prefix_pad + qhi + 1) : T;
   }
   __device__ __forceinline__ int kbeg(int qlo) const {
-    return window > 0 && prefix_len == 0
-               ? max(0, prefix_pad + qlo - window + 1)
-               : 0;
+    if (window <= 0) return 0;
+    const int p0 = max(0, prefix_len + qlo - window + 1);
+    return p0 < prefix_len ? p0 : prefix_pad + max(0, qlo - window + 1);
   }
 };
 
@@ -159,7 +168,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // the last key the tile's last row can see (causal), and the first
-  // one its first row can see (window, when no prefix key is valid)
+  // one its first row can see (window)
   const int kend = mask.kend(qhi, T_);
   for (int k0 = mask.kbeg(q0); k0 < kend; k0 += kKT) {
     const int k1 = min(k0 + kKT, T_) - 1;

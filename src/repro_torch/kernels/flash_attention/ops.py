@@ -16,7 +16,8 @@ kernel), under the same mask: the reference's causal and window masks
 and the prefix mode alike.  The engine's prefix-aware prefill runs under
 no gradient; a ``ulysses_sp`` shard's queries, which start ``r·S/tp``
 rows into the sequence, train through the prefix mode
-(``prefix_pad = prefix_len = r·S/tp``).
+(``prefix_pad = prefix_len = r·S/tp``), whose window reaches back into
+the prefix rows.
 
 On ``meta`` tensors (the dry-run) the wrapper runs nothing: it returns
 an empty output and hands :func:`flash_attention_work` to the meter.
@@ -97,9 +98,10 @@ def kept_pairs(S, T, *, causal=True, window=0, prefix_pad=0,
                prefix_len=0) -> tuple:
     """(query-key pairs kept, K/V rows some query keeps) of
     :func:`~.ref.keep_mask` at these arguments, counted without forming
-    the mask: query i keeps the ``prefix_len`` valid prefix rows and its
-    own rows ``rel = j - prefix_pad`` in ``[lo_i, hi_i]``; the padding
-    rows past ``prefix_len`` are never read."""
+    the mask: query i keeps the valid prefix rows ``[plo_i, prefix_len)``
+    (all of them without a window) and its own rows ``rel = j -
+    prefix_pad`` in ``[lo_i, hi_i]``; the padding rows past
+    ``prefix_len`` are never read."""
     own = T - prefix_pad
     i = np.arange(S, dtype=np.int64)
     lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
@@ -107,7 +109,11 @@ def kept_pairs(S, T, *, causal=True, window=0, prefix_pad=0,
     n = np.maximum(0, hi - lo + 1)
     some = n > 0
     rows = int(hi[some].max() - lo[some].min() + 1) if some.any() else 0
-    return int(n.sum()) + S * prefix_len, rows + prefix_len
+    plo = np.minimum(np.maximum(0, prefix_len + i - window + 1), prefix_len) \
+        if window > 0 else np.zeros_like(i)
+    pre = prefix_len - plo
+    return (int(n.sum() + pre.sum()),
+            rows + (int(pre.max()) if S else 0))
 
 
 def flash_attention_work(q, k, *, causal=True, window=0, prefix_pad=0,
@@ -130,9 +136,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_pad=0,
     """q: [B,S,H,d]; k,v: [B,T,KVH,d] → [B,S,H,d].
 
     Keys are the ``prefix_pad`` rows of a padded prefix followed by the
-    queries' own rows.  Query i keeps key j iff j < prefix_len, or
-    j >= prefix_pad and j - prefix_pad <= i (when causal) and
-    j - prefix_pad > i - window (when window > 0).  ``prefix_pad`` and
+    queries' own rows.  Query i keeps key j iff j < prefix_len and
+    j > prefix_len + i - window (when window > 0), or j >= prefix_pad
+    and j - prefix_pad <= i (when causal) and j - prefix_pad > i - window
+    (when window > 0).  ``prefix_pad`` and
     ``prefix_len`` are host ints (the engine knows them); with both 0
     this is the reference kernel's causal/window attention.  Every form
     takes a gradient."""

@@ -7,20 +7,25 @@ import torch
 
 def keep_mask(S, T, *, causal=True, window=0, prefix_pad=0, prefix_len=0,
               device=None):
-    """[S, T] boolean: query i keeps key j iff j < prefix_len, or
+    """[S, T] boolean: query i, at position prefix_len + i, keeps key j
+    iff j < prefix_len and (window ⇒ j > prefix_len + i - window), or
     j >= prefix_pad and (causal ⇒ j - prefix_pad <= i) and
     (window ⇒ j - prefix_pad > i - window).  With no prefix this is the
-    reference kernel's causal/window mask."""
+    reference kernel's causal/window mask; with ``prefix_pad = prefix_len
+    = r·S`` it is the reference's mask over shard r's rows of a sequence
+    split over the model axis."""
     i = torch.arange(S, device=device)[:, None]
     j = torch.arange(T, device=device)[None, :]
     rel = j - prefix_pad
     own = (j >= prefix_pad) & torch.ones(S, 1, dtype=torch.bool,
                                          device=device)
+    pre = j < prefix_len
     if causal:
         own = own & (rel <= i)
     if window > 0:
         own = own & (rel > i - window)
-    return own | (j < prefix_len)
+        pre = pre & (j > prefix_len + i - window)
+    return own | pre
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, prefix_pad=0,

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class Mesh:
     """``devices``: a nested list or array of devices (``torch.device`` or
@@ -96,9 +98,11 @@ def make_serving_mesh(tp: int = 1, *, devices=None):
                 ("data", "model"))
 
 
-def make_host_mesh(device="cpu"):
-    """A trivial 1-device mesh for smoke and integration runs."""
-    return Mesh([[device]], ("data", "model"))
+def make_host_mesh(device="cuda"):
+    """A trivial 1-device mesh for smoke and integration runs: the card,
+    as the reference's ``jax.devices()[:1]`` is its accelerator, unless
+    the caller asks for another device (``device="cpu"``)."""
+    return Mesh([[resolve_device(device)]], ("data", "model"))
 
 
 def hardware_constants():

@@ -27,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm import MeshParams
 from repro_torch.sharding import rules as R
 from repro_torch.sharding.placement import (
+    COLLECTIVES,
     NamedSharding,
     ShardedParams,
     ShardedTensor,
@@ -289,7 +290,6 @@ def make_mesh_train_step(model, optimizer, mesh):
     run one after another, their gradients summed and divided by their
     count.  Then :func:`mesh_update`."""
     rls = R.make_rules(mesh, model.cfg)
-    _check_mesh_train(model, optimizer, rls)
     M = max(model.cfg.microbatches, 1)
 
     def train_step(state, batch):
@@ -315,60 +315,6 @@ def make_mesh_train_step(model, optimizer, mesh):
     return train_step
 
 
-def _check_mesh_train(model, optimizer, rls):
-    """Raise for what the sharded train step does not run yet (ROADMAP
-    A.11f), before any of it runs: ZeRO-2 and master weights (the step
-    keeps params and moments in one layout), the ``ulysses`` and
-    ``heads_sp`` strategies, ``ulysses_sp`` beyond dense attention blocks,
-    and under ``heads`` the layouts that only serving runs: an RG-LRU
-    width or SSD block the model axis does not split, q heads that read
-    replicated KV heads in unequal groups, and an encoder-decoder whose
-    KV heads do not split.  No test holds their gradients against the
-    one-device step."""
-    from repro_torch.models import encdec, lm
-
-    cfg = model.cfg
-
-    def refuse(what):
-        raise NotImplementedError(f"the sharded train step does not run "
-                                  f"{what} yet (ROADMAP A.11f)")
-    if optimizer.master_weights or cfg.param_strategy != "fsdp":
-        refuse(f"param_strategy {cfg.param_strategy!r}"
-               + (" with master weights" if optimizer.master_weights
-                  else "")
-               + ": it keeps params and moments in one layout, 'fsdp' "
-               "without master weights")
-    if rls.tp_strategy in ("ulysses", "heads_sp"):
-        refuse(f"the {rls.tp_strategy} strategy")
-    kinds = {"encoder-decoder"} if model.is_encdec \
-        else set(lm.block_kinds(cfg))
-    if rls.tp_strategy == "ulysses_sp" and kinds != {"attn_mlp"}:
-        refuse(f"ulysses_sp on {sorted(kinds - {'attn_mlp'})} blocks")
-    tp_size = dict(zip(rls.mesh.axis_names,
-                       rls.mesh.devices.shape)).get("model", 1)
-    if rls.tp_strategy != "heads" or tp_size == 1:
-        return
-    specs = R.params_pspecs(rls, model)
-    if model.is_encdec:
-        tp = encdec.EncDecTP.from_specs(cfg, specs, tp_size)
-        if not tp.kv_split:
-            refuse(f"{cfg.name}'s {cfg.num_kv_heads} KV heads replicated "
-                   f"over {tp_size} shards")
-    else:
-        tp = lm.TensorParallel.from_specs(cfg, specs, tp_size)
-        if "rglru_mlp" in kinds and not tp.lru:
-            refuse(f"a replicated RG-LRU width ({cfg.lru_width} over "
-                   f"{tp_size} shards)")
-        if "ssd" in kinds and not (tp.ssd_heads and tp.ssd_fused
-                                   and tp.ssd_conv):
-            refuse(f"an SSD block the model axis does not split "
-                   f"({cfg.ssm_heads} heads over {tp_size} shards)")
-    if lm.uneven_groups(tp.kv_runs):
-        refuse(f"q heads that read their KV heads in unequal groups "
-               f"({cfg.num_heads} over {cfg.num_kv_heads} KV heads, "
-               f"{tp_size} shards)")
-
-
 def microbatch_rows(rls, batch, M) -> list:
     """Each data row's batch slice as ``M`` microbatches: per row
     {key: [M, b / M, ...]}."""
@@ -377,31 +323,83 @@ def microbatch_rows(rls, batch, M) -> list:
 
 
 def mesh_update(optimizer, state, grads, mesh) -> dict:
-    """AdamW over every coordinate of ``mesh``: each coordinate's local
-    moments and parameters updated in place with the reference's
-    arithmetic from ``grads`` ({coordinate: {key: float32 gradient}}),
-    the global norm a ``reduce_sum`` of the coordinates' sums of squares
-    over the slices each holds first; ``state``'s step counted → the
-    optimizer's metrics (those of the first coordinate)."""
+    """AdamW over every coordinate of ``mesh`` with the reference's
+    arithmetic, updating in place: each coordinate's moments (and float32
+    master) and, through a view, its parameters' slice that they cover,
+    from that slice of its gradients (``grads``: {coordinate: {key:
+    float32 gradient}}).  Under ZeRO-2 the moments are split over the
+    data axes where the parameters are replicated, so each data replica
+    updates its moments' slice and :func:`_all_gather_params` hands every
+    replica the others' slices; under ``zero2_master`` the parameters are
+    the master cast to their dtype.  The global norm is a ``reduce_sum``
+    of the coordinates' sums of squares over the moments' slices each
+    holds first; ``state``'s step counted → the optimizer's metrics
+    (those of the first coordinate)."""
     coords = list(np.ndindex(mesh.devices.shape))
     ptree, opt = state["params"], state["opt"]
+    pflat, mflat = flatten(ptree), flatten(opt["mu"])
+    rels = {k: _within(pflat[k], mflat[k]) for k in pflat}
     with record_function("train:optimizer"):
-        canon = {k: _canonical(st) for k, st in flatten(ptree).items()}
+        canon = {k: _canonical(st) for k, st in mflat.items()}
+        gloc = {c: {k: g[rels[k][c]] for k, g in grads[c].items()}
+                for c in coords}
         sq = reduce_sum([optimizer.sum_squares(
-            {k: g for k, g in grads[c].items() if c in canon[k]})
+            {k: g for k, g in gloc[c].items() if c in canon[k]})
             * torch.ones((), device=mesh.devices[c]) for c in coords])
         out = []
         for c, s2 in zip(coords, sq):
-            params_c = local_tree(ptree, c)
+            params_c = unflatten(ptree, {k: st.local(c)[rels[k][c]]
+                                         for k, st in pflat.items()})
             opt_c = local_tree(opt, c)
             _, _, om = optimizer.update(
-                unflatten(params_c, grads[c]), opt_c, params_c,
+                unflatten(ptree, gloc[c]), opt_c, params_c,
                 gnorm=torch.sqrt(s2))
             opt["count"].shards[c].copy_(opt_c["count"] + 1)
             out.append(om)
+        for k, st in pflat.items():
+            if tuple(st.spec) != tuple(mflat[k].spec):
+                _all_gather_params(st, rels[k], canon[k])
     for c in coords:
         state["step"].shards[c].add_(1)
     return out[0]
+
+
+def _within(pst, mst) -> dict:
+    """{coordinate: the slices, within its local parameter slice of
+    ``pst``, of its local moment slice of ``mst``} (the whole slice where
+    the layouts agree; under ZeRO-2 its data replica's part)."""
+    out = {}
+    for c in np.ndindex(pst.mesh.devices.shape):
+        p = shard_slices(pst.shape, pst.spec, pst.mesh, c)
+        m = shard_slices(mst.shape, mst.spec, mst.mesh, c)
+        out[c] = tuple(slice(b.start - a.start, b.stop - a.start)
+                       for a, b in zip(p, m))
+    return out
+
+
+@torch.no_grad()
+def _all_gather_params(st, rels, owners):
+    """ZeRO-2's all-gather over the data axes: every coordinate's local
+    parameters take each slice that another coordinate of the same
+    parameter slice updated (``owners``: the first holder of each moment
+    slice; ``rels``: :func:`_within`)."""
+    mesh = st.mesh
+    coords = list(np.ndindex(mesh.devices.shape))
+    region = {c: tuple((s.start, s.stop) for s in shard_slices(
+        st.shape, st.spec, mesh, c)) for c in coords}
+    recv = []
+    for c in coords:
+        n = 0
+        for m in coords:
+            if m not in owners or region[m] != region[c] \
+                    or rels[m] == rels[c]:
+                continue
+            dst = st.local(c)[rels[m]]
+            dst.copy_(st.local(m)[rels[m]])
+            n += dst.numel() * dst.element_size()
+        recv.append((c, n))
+    if any(n for _, n in recv):
+        COLLECTIVES.record("all-gather", recv)
 
 
 # ---------------------------------------------------------------------------
@@ -493,7 +491,6 @@ def make_microbatch_step(model, optimizer, mesh):
     microbatch after the first, so the peak is theirs.  The optimizer
     then takes the one microbatch's gradients as they are."""
     rls = R.make_rules(mesh, model.cfg)
-    _check_mesh_train(model, optimizer, rls)
     M = max(model.cfg.microbatches, 1)
 
     def step(state, batch):

@@ -44,15 +44,24 @@ from repro_torch.sharding.placement import (
 from repro_torch.sharding.rules import cache_pspecs, make_serving_rules
 
 from .lm import (
+    LAYOUTS,
+    SeqSplit,
     _localize,
     _on_model,
     _seq_to_cache,
     _tp_attention,
     _tp_feed_forward,
+    ffn_whole,
+    final_hidden,
     flat_leaves,
+    heads_attention,
+    heads_view,
     logit_parts,
     mask_vocab_padding,
     mesh_layer,
+    residual,
+    rows_attention,
+    rows_mlp,
     seq_split,
     seq_split_attention,
     shard_key,
@@ -230,14 +239,16 @@ class EncDecTP:
     pieces read): ``attn_sum`` (heads split: each attention's output is a
     partial sum), ``kv_split``, ``ffn_sum`` (the MLPs' hidden dim),
     ``vocab``, and each shard's ``kv_heads`` and ``kv_runs``
-    (:func:`~repro_torch.models.lm.tp_kv_runs`).  A dim that is not split
-    is replicated: its block's output is shard 0's."""
+    (:func:`~repro_torch.models.lm.tp_kv_runs`), and the parameters'
+    ``strategy``.  A dim that is not split is replicated: its block's
+    output is shard 0's."""
 
     experts = False
 
     def __init__(self, cfg, params: ShardedParams):
         self._read(cfg, params.specs, params.tp)
         self.devices = params.devices
+        self.strategy = getattr(params, "strategy", "heads")
 
     @classmethod
     def from_specs(cls, cfg, specs, tp):
@@ -246,6 +257,7 @@ class EncDecTP:
         self = object.__new__(cls)
         self._read(cfg, specs, tp)
         self.devices = None
+        self.strategy = "heads"
         return self
 
     def _read(self, cfg, specs, tp):
@@ -353,7 +365,12 @@ def decode_step_tp(cfg, params, cache, tokens, positions, capacity):
     h = _tp_dec_embed(cfg, params, tp, tokens, positions[:, None])
     dcs = [cache[shard_key(r)]["dec"] for r in range(tp.tp)]
     T = dcs[0]["cross_k"].shape[2]
-    cross_split = not tp.kv_split and seq_split(tp, T, cfg.enc_seq)
+    # attention weights gathered whole (the ulysses strategies) over a
+    # memory the rules split by KV heads: the heads that read them
+    cross_view = not tp.kv_split \
+        and dcs[0]["cross_k"].shape[3] != cfg.num_kv_heads
+    cross_split = not (tp.kv_split or cross_view) \
+        and seq_split(tp, T, cfg.enc_seq)
     valid = broadcast(torch.ones(B, T, dtype=torch.bool, device=h.device),
                       tp.devices)
     for i, ps in enumerate(_tp_stack(params, "dec_layers", cfg.num_layers)):
@@ -369,12 +386,14 @@ def decode_step_tp(cfg, params, cache, tokens, positions, capacity):
                 [{"k": c["cross_k"][i], "v": c["cross_v"][i]} for c in dcs],
                 valid, key="cross_attn")
         else:
+            cps, ctp = heads_view(cfg, ps, "cross_attn", tp) if cross_view \
+                else (ps, tp)
             outs = [att.cross_decode_attention(
                 cfg, p["cross_attn"], xr, c["cross_k"][i], c["cross_v"][i],
                 vd, kv_runs=runs)
-                for p, xr, c, vd, runs in zip(ps, xs, dcs, valid,
-                                              tp.kv_runs)]
-            h = h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
+                for p, xr, c, vd, runs in zip(cps, xs, dcs, valid,
+                                              ctp.kv_runs)]
+            h = h + (reduce_sum(outs)[0] if ctp.attn_sum else outs[0])
         h = _tp_feed_forward(cfg, tp, "mlp", ps, h, norm="ln3", gated=False)
     h = apply_norm(cfg, params.shards[0]["dec_final_norm"], h)
     logits = tp_logits(cfg, [p["embed"] for p in params.shards], tp, h,
@@ -382,45 +401,70 @@ def decode_step_tp(cfg, params, cache, tokens, positions, capacity):
     return logits[:, 0], cache
 
 
+def _attend(cfg, tp, ps, h, seq, *, key, norm, causal=True, memory=None):
+    """h + one attention sub-layer of a row in its strategy's layout:
+    each shard's query rows with the whole weights (the ulysses
+    strategies; ``memory`` each shard's whole cross (K, V)) or each
+    shard's heads (``memory`` the encoder output whole on each shard)."""
+    if LAYOUTS[tp.strategy][1]:
+        return residual(cfg, tp, seq, ps, h, norm, rows=lambda xs:
+                        rows_attention(cfg, ps, xs, seq, key=key,
+                                       causal=causal, memory=memory))
+
+    def attend(r, p, x, runs):
+        kv = None if memory is None else tuple(att.cross_attention_cache(
+            cfg, p[key], memory[r]).values())
+        return att.full_attention(cfg, p[key], x, positions=seq.whole[r],
+                                  causal=causal, kv=kv, kv_runs=runs)
+    return residual(cfg, tp, seq, ps, h, norm, whole=lambda x:
+                    heads_attention(cfg, tp, ps, x, attend, key=key,
+                                    every=False))
+
+
+def _mlp(cfg, tp, ps, h, seq, norm):
+    """h + the non-gated MLP of a row in its strategy's layout."""
+    if LAYOUTS[tp.strategy][2]:
+        return residual(cfg, tp, seq, ps, h, norm, rows=lambda xs:
+                        rows_mlp(cfg, ps, xs, seq, gated=False))
+    return residual(cfg, tp, seq, ps, h, norm, whole=lambda x: ffn_whole(
+        cfg, tp, "mlp", ps, x, gated=False))
+
+
 def forward_tp(cfg, mp, batch_rows):
     """:func:`forward` of every data coordinate's row under a mesh
     (:class:`lm.MeshParams`) → per row (each shard's vocab slice of the
     logits, aux 0): the encoder's and decoder's layers one at a time
     across rows, each under remat with its leaves gathered inside
-    (:func:`lm.mesh_layer`)."""
-    if mp.ulysses:
-        raise NotImplementedError(f"{cfg.name}: ulysses_sp runs the "
-                                  f"decoder-only dense family only")
+    (:func:`lm.mesh_layer`), each sub-layer in the strategy's layout
+    (:data:`lm.LAYOUTS`).  Over sequence rows the encoder's queries
+    attend every gathered key (no causal mask, no prefix), and the
+    decoder's attend the whole memory, whose K/V each shard projects from
+    its encoder rows and all-gathers; the encoder frames and the decoder
+    positions split or stay whole on their own (:class:`lm.SeqSplit`)."""
     top = {p: mp.gathered(p) for p in flat_leaves(mp.tree)
            if p.split("/")[0] not in ("enc_layers", "dec_layers")}
-    rows, hs, enc_pos, dec_pos = [], [], [], []
+    rows, hs = [], []
     for i, batch in enumerate(batch_rows):
         row, view = mp.row_view(i)
         tp = EncDecTP(cfg, view)
-        rows.append((row, tp))
         frames = batch["encoder_frames"]
         B, T, D = frames.shape
-        S = batch["tokens"].shape[1]
         with on_row(row):
+            enc_seq = SeqSplit(B, T, tp.devices)
+            dec_seq = SeqSplit(B, batch["tokens"].shape[1], tp.devices)
             pos = torch.arange(T, dtype=torch.int32, device=frames.device)
-            hs.append(frames + sinusoidal_positions(pos, D,
-                                                    frames.dtype)[None])
-            enc_pos.append(broadcast(pos[None, :].repeat(B, 1), tp.devices))
-            dpos = torch.arange(S, dtype=torch.int32, device=frames.device)
-            dec_pos.append(broadcast(dpos[None, :].repeat(B, 1),
-                                     tp.devices))
+            h = frames + sinusoidal_positions(pos, D, frames.dtype)[None]
+            hs.append(enc_seq.scatter(h) if LAYOUTS[tp.strategy][0] else h)
+        rows.append((row, tp, enc_seq, dec_seq))
 
     def enc_block(per, hs):
         out = []
-        for (row, tp), h, ep in zip(rows, hs, enc_pos):
+        for (row, tp, seq, _), h in zip(rows, hs):
             ps = [per[c] for c in row]
             with on_row(row):
-                h = _tp_attention(cfg, tp, ps, h, lambda r, p, x:
-                                  att.full_attention(
-                                      cfg, p["attn"], x, positions=ep[r],
-                                      causal=False))
-                out.append(_tp_feed_forward(cfg, tp, "mlp", ps, h,
-                                            gated=False))
+                h = _attend(cfg, tp, ps, h, seq, key="attn", norm="ln1",
+                            causal=False)
+                out.append(_mlp(cfg, tp, ps, h, seq, "ln2"))
         return out
 
     unst = {c: unstack(mp.loc_trees[c]["enc_layers"], cfg.enc_layers)
@@ -428,37 +472,46 @@ def forward_tp(cfg, mp, batch_rows):
     for i in range(cfg.enc_layers):
         hs = mesh_layer(cfg, mp, "enc_layers",
                         {c: unst[c][i] for c in mp.coords}, enc_block, hs)
-    encs, enc_hs, hs = [], hs, []
-    for (row, tp), h, batch, dp in zip(rows, enc_hs, batch_rows, dec_pos):
+    mems, enc_hs, hs = [], hs, []
+    for (row, tp, enc_seq, dec_seq), h, batch in zip(rows, enc_hs,
+                                                     batch_rows):
         with on_row(row):
-            enc = apply_norm(cfg, top_tree(top, "enc_final_norm", row[0]),
-                             h)
-            encs.append(broadcast(enc, tp.devices))
+            norms = [top_tree(top, "enc_final_norm", c) for c in row]
+            if LAYOUTS[tp.strategy][0]:
+                enc = [apply_norm(cfg, n, hr) for n, hr in zip(norms, h)]
+            else:
+                enc = apply_norm(cfg, norms[0], h)
+            # the memory as the cross-attention reads it: each shard's
+            # encoder rows (sequence rows) or the whole output (heads)
+            if LAYOUTS[tp.strategy][1]:
+                mems.append(enc if LAYOUTS[tp.strategy][0]
+                            else enc_seq.scatter(enc))
+            else:
+                mems.append(broadcast(enc_seq.gather(enc)
+                                      if LAYOUTS[tp.strategy][0] else enc,
+                                      tp.devices))
             tokens = batch["tokens"]
             h = tp_embed(cfg, [top["embed"][c] for c in row], tp, tokens)
-            hs.append(h + sinusoidal_positions(dp[0], cfg.d_model, h.dtype))
+            h = h + sinusoidal_positions(dec_seq.whole[0], cfg.d_model,
+                                         h.dtype)
+            hs.append(dec_seq.scatter(h) if LAYOUTS[tp.strategy][0] else h)
 
     def dec_block(per, hs):
         out = []
-        for (row, tp), h, dp, enc in zip(rows, hs, dec_pos, encs):
+        for (row, tp, enc_seq, seq), h, mem in zip(rows, hs, mems):
             ps = [per[c] for c in row]
-
-            def cross(r, p, x):
-                ck = att.cross_attention_cache(cfg, p["cross_attn"], enc[r])
-                return att.full_attention(cfg, p["cross_attn"], x,
-                                          positions=dp[r],
-                                          kv=(ck["k"], ck["v"]),
-                                          causal=False)
             with on_row(row):
-                h = _tp_attention(cfg, tp, ps, h, lambda r, p, x:
-                                  att.full_attention(
-                                      cfg, p["self_attn"], x,
-                                      positions=dp[r], causal=True),
-                                  key="self_attn")
-                h = _tp_attention(cfg, tp, ps, h, cross, norm="ln2",
-                                  key="cross_attn")
-                out.append(_tp_feed_forward(cfg, tp, "mlp", ps, h,
-                                            norm="ln3", gated=False))
+                if LAYOUTS[tp.strategy][1]:
+                    kv = [att.cross_attention_cache(cfg, p["cross_attn"], m)
+                          for p, m in zip(ps, mem)]
+                    memory = list(zip(enc_seq.all_gather([c["k"] for c in kv]),
+                                      enc_seq.all_gather([c["v"] for c in kv])))
+                else:
+                    memory = mem
+                h = _attend(cfg, tp, ps, h, seq, key="self_attn", norm="ln1")
+                h = _attend(cfg, tp, ps, h, seq, key="cross_attn", norm="ln2",
+                            causal=False, memory=memory)
+                out.append(_mlp(cfg, tp, ps, h, seq, "ln3"))
         return out
 
     unst = {c: unstack(mp.loc_trees[c]["dec_layers"], cfg.num_layers)
@@ -467,9 +520,10 @@ def forward_tp(cfg, mp, batch_rows):
         hs = mesh_layer(cfg, mp, "dec_layers",
                         {c: unst[c][i] for c in mp.coords}, dec_block, hs)
     out = []
-    for (row, tp), h in zip(rows, hs):
+    for (row, tp, _, seq), h in zip(rows, hs):
         with on_row(row):
-            h = apply_norm(cfg, top_tree(top, "dec_final_norm", row[0]), h)
+            h = final_hidden(cfg, tp, seq, [top_tree(top, "dec_final_norm", c)
+                                            for c in row], h)
             parts = logit_parts(cfg, [top["embed"][c] for c in row], tp, h,
                                 transpose=True)
         out.append((parts, torch.zeros((), dtype=torch.float32,

@@ -28,11 +28,17 @@ this program once a data coordinate, on its slice of the batch, each
 leaf gathered over the data axes for use (FSDP; :class:`~repro_torch.
 sharding.placement.RowParams` for inference, :func:`forward_tp` and
 :func:`mesh_layer` for training, where one backward reduce-scatters
-every row's gradients).  Under ``ulysses_sp`` (heads that do not split
-the model axis) a row's shards split its sequence instead and run whole
-gathered layers (:func:`ulysses_attention`, :func:`_prefill_ulysses`;
-a decode step of one token replicates, as the reference's fallback
-does).  The residual stream, the norms and the
+every row's gradients).  The strategies other than ``heads`` split a
+row's sequence over its shards where the rules say so (:data:`LAYOUTS`,
+:func:`mesh_block`): ``ulysses_sp`` (heads that do not split the model
+axis) keeps the residual stream split by sequence and runs each shard's
+rows through whole gathered attention and MLP weights
+(:func:`rows_attention`), ``ulysses`` splits only the attention's
+queries, ``heads_sp`` only the residual stream; the recurrent mixers and
+the MoE layer gather the sequence and run the heads layout; a sequence
+the shard count does not divide is whole on every shard, and a decode
+step of one token replicates, as the reference's fallback does.  Under
+``heads`` the residual stream, the norms and the
 sampling stay replicated: computed once, on shard 0's device.  The
 cache is one tree per shard under :func:`shard_key`, each laid out as
 the serving rules' ``cache_pspecs`` say: a contiguous K/V cache whose KV
@@ -550,11 +556,16 @@ class TensorParallel:
     ``kv_heads[r]`` is the range of KV heads its q heads read and
     ``kv_runs[r]`` the runs in which they read them
     (:func:`~repro_torch.models.attention.kv_head_runs`: one run where the
-    groups are equal); else both are None."""
+    groups are equal); else both are None.  ``strategy`` is the
+    parameters' (``heads`` for a serving engine's): the ulysses
+    strategies hand the program attention weights gathered whole
+    (:func:`~repro_torch.sharding.placement.gather_axes`); a serving
+    program handed them split over their head_dim raises."""
 
     def __init__(self, cfg, params: ShardedParams):
         self._read(cfg, params.specs, params.tp)
         self.devices = params.devices
+        self.strategy = getattr(params, "strategy", "heads")
 
     @classmethod
     def from_specs(cls, cfg, specs, tp):
@@ -563,6 +574,7 @@ class TensorParallel:
         self = object.__new__(cls)
         self._read(cfg, specs, tp)
         self.devices = None
+        self.strategy = "heads"
         return self
 
     def _read(self, cfg, specs, tp):
@@ -686,40 +698,44 @@ def tp_logits(cfg, tables, tp, h, *, transpose):
 
 
 def _tp_attention(cfg, tp, ps, h, attend, *, norm="ln1", key="attn"):
-    """h + the attention of every shard: ``attend(r, p, x)`` runs shard
-    r's heads on its copy of the normed input; the outputs are partial
-    sums under ``tp.attn_sum``, else shard 0's is the whole."""
+    """h + the attention of every shard (:func:`heads_attention`):
+    ``attend(r, p, x)`` runs shard r's heads on its copy of the normed
+    input."""
     x = apply_norm(cfg, ps[0][norm], h)
-    constrain_activation("act_qkv", x.shape[:-1] + (cfg.num_heads,
-                                                    cfg.head_dim),
-                         [x.shape[:-1] + p[key]["wq"].shape[1:]
-                          for p in ps])
-    outs = [attend(r, p, xr) for r, (p, xr) in
-            enumerate(zip(ps, broadcast(x, tp.devices)))]
-    return h + (reduce_sum(outs)[0] if tp.attn_sum else outs[0])
+    return h + heads_attention(cfg, tp, ps, x,
+                               lambda r, p, xr, _: attend(r, p, xr), key=key)
 
 
 def _tp_feed_forward(cfg, tp, kind, ps, h, *, norm="ln2", gated=True,
                      with_aux=False):
-    """h + the block's feed-forward over the shards: the MoE layer by the
+    """h + the block's feed-forward over the shards (:func:`ffn_whole`).
+    ``with_aux``: → (h, the MoE layer's aux loss or None)."""
+    aux = []
+    h = h + ffn_whole(cfg, tp, kind, ps, apply_norm(cfg, ps[0][norm], h),
+                      aux, gated=gated)
+    return (h, aux[0] if aux else None) if with_aux else h
+
+
+def ffn_whole(cfg, tp, kind, ps, x, aux=None, *, gated=True):
+    """The feed-forward of the whole normed ``x`` (on shard 0) in the
+    heads layout → the output on shard 0: the MoE layer by the
     ``shard_map`` dispatch (the global one where the experts do not
-    split), else the MLP, column- then row-parallel.  ``with_aux``: →
-    (h, the MoE layer's aux loss or None)."""
-    x = apply_norm(cfg, ps[0][norm], h)
-    aux = None
+    split; its aux loss appended to ``aux``), else the MLP, column- then
+    row-parallel."""
     if kind == "attn_moe":
         if tp.experts:
-            y, aux = moemod.apply_moe_tp(cfg, [p["moe"] for p in ps], x,
-                                         tp.devices)
+            y, a = moemod.apply_moe_tp(cfg, [p["moe"] for p in ps], x,
+                                       tp.devices)
         else:
-            y, aux = moemod.apply_moe_global(cfg, ps[0]["moe"], x)
-    else:
-        constrain_activation("act_ffn", x.shape[:-1] + (cfg.d_ff,),
-                             [x.shape[:-1] + p["mlp"]["w_up"].shape[1:]
-                              for p in ps])
-        y = mlpmod.apply_mlp_tp(cfg, [p["mlp"] for p in ps], x, tp.devices,
-                                row_parallel=tp.ffn_sum, gated=gated)
-    return (h + y, aux) if with_aux else h + y
+            y, a = moemod.apply_moe_global(cfg, ps[0]["moe"], x)
+        if aux is not None:
+            aux.append(a)
+        return y
+    constrain_activation("act_ffn", x.shape[:-1] + (cfg.d_ff,),
+                         [x.shape[:-1] + p["mlp"]["w_up"].shape[1:]
+                          for p in ps])
+    return mlpmod.apply_mlp_tp(cfg, [p["mlp"] for p in ps], x, tp.devices,
+                               row_parallel=tp.ffn_sum, gated=gated)
 
 
 def prefill_tp(cfg, params, batch, capacity, *, prefix=None,
@@ -731,17 +747,15 @@ def prefill_tp(cfg, params, batch, capacity, *, prefix=None,
     tree too.  Contiguous models (or ``contiguous``, the dry-run's
     prefill, which fills the grouped cache as the reference's does):
     ``{shard_key(r): grouped cache}``, each shard's leaves at the serving
-    rules' local shapes (:func:`init_cache_tp`).  Parameters gathered
-    over ``model`` (a ``ulysses_sp`` row) prefill sequence-parallel
-    (:func:`_prefill_ulysses`)."""
-    if getattr(params, "strategy", "heads") == "ulysses_sp":
-        return _prefill_ulysses(cfg, params, batch, capacity)
-    tp = TensorParallel(cfg, params)
-    if is_contiguous(cfg) or contiguous:
+    rules' local shapes (:func:`init_cache_tp`), each block in the
+    parameters' strategy's layout (:func:`_prefill_mesh`)."""
+    if is_contiguous(cfg) or contiguous \
+            or getattr(params, "strategy", "heads") != "heads":
         if prefix is not None:
             raise ValueError(f"{cfg.name}: prefix-aware prefill needs a "
                              f"positionally sliceable cache")
-        return _prefill_contiguous_tp(cfg, params, tp, batch, capacity)
+        return _prefill_mesh(cfg, params, batch, capacity)
+    tp = TensorParallel(cfg, params)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     if capacity < S:
@@ -853,85 +867,34 @@ def _localize(tree, meta, specs, mesh, coord):
     return out
 
 
-def _tp_mixer_prefill(cfg, tp, kind, ps, h, pos, capacity):
-    """A block's first half over the prompt → (h, each shard's block
-    cache as the shard computed it)."""
-    x = apply_norm(cfg, ps[0]["ln1"], h)
-    if kind == "rglru_mlp":
-        out, caches = rgmod.apply_rglru_tp(cfg, [p["rglru"] for p in ps], x,
-                                           tp.devices, return_state=True)
-        return h + out, caches
-    if kind == "ssd":
-        out, caches = ssdmod.apply_ssd_tp(cfg, [p["ssd"] for p in ps], x,
-                                          tp.devices, return_state=True)
-        return h + out, caches
-    window = _window(cfg, kind)
-    cap = min(capacity, window) if window else capacity
-    caches = [None] * tp.tp
-
-    def attend(r, p, xr):
-        out, kv = att.full_attention(
-            cfg, p["attn"], xr, positions=pos[r], window=window,
-            return_kv=True, kv_runs=tp.kv_runs[r])
-        caches[r] = {n: _seq_to_cache(leaf, cap)
-                     for n, leaf in att.pack_kv(cfg, *kv).items()}
-        return out
-    return _tp_attention(cfg, tp, ps, h, attend), caches
-
-
-def _prefill_ulysses(cfg, params, batch, capacity):
-    """A ``ulysses_sp`` row's prefill: each shard runs its sequence rows
-    through whole layers (:func:`ulysses_attention`), its cache the
-    all-gathered K/V cut to its slice of the serving rules' layout; the
-    last position's logits from the last shard's rows."""
+def _prefill_mesh(cfg, params, batch, capacity):
+    """The contiguous prefill over sharded parameters (the dry-run's
+    prefill step under any strategy): the blocks in the strategy's
+    layout (:func:`mesh_block`), each shard's cache the K/V and states it
+    computed cut to its slice of the serving rules' layout; the last
+    position's logits."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    if capacity < S:
-        raise ValueError(f"capacity {capacity} < prompt length {S}")
-    tp = _VocabTP(params)
-    hs, pos = mesh_embed(cfg, [p["embed"] for p in params.shards], tp,
-                         batch, params.devices, ulysses=True)
-    meta, specs = cache_layout_tp(cfg, params, B, capacity)
-    per_shard = [[] for _ in params.devices]
-    for kind, ps in _tp_layers(cfg, params):
-        if kind != "attn_mlp":
-            _ulysses_block(cfg, kind, ps, hs, pos)      # raises
-        hs, (K, V) = ulysses_attention(cfg, ps, hs, pos)
-        hs = ulysses_mlp(cfg, ps, hs)
-        for r, (k, v) in enumerate(zip(K, V)):
-            per_shard[r].append({n: _seq_to_cache(leaf, capacity) for n, leaf
-                                 in att.pack_kv(cfg, k, v).items()})
-    cache = {shard_key(r): _localize(_group_caches(cfg, cs), meta, specs,
-                                     params.mesh, coord)
-             for r, (cs, coord) in enumerate(zip(per_shard, params.ranks))}
-    h = apply_norm(cfg, params.shards[-1]["final_norm"], hs[-1][:, -1:])
-    name = "embed" if cfg.tie_embeddings else "lm_head"
-    logits = tp_logits(cfg, [p[name] for p in params.shards], tp, h,
-                       transpose=cfg.tie_embeddings)
-    return logits[:, 0], cache
-
-
-def _prefill_contiguous_tp(cfg, params, tp, batch, capacity):
-    S = batch["tokens"].shape[1]
     if capacity < S and any(k in ("attn_mlp", "attn_moe")
                             for k in block_kinds(cfg)):
         raise ValueError(f"capacity {capacity} < prompt length {S}")
-    h, positions = _tp_embed_inputs(cfg, params, tp, batch)
-    B = h.shape[0]
+    tp = TensorParallel(cfg, params)
+    h, seq = mesh_embed(cfg, [p["embed"] for p in params.shards], tp,
+                        batch)
     meta, specs = cache_layout_tp(cfg, params, B, capacity)
-    pos = broadcast(positions, tp.devices)
-    per_shard = [[] for _ in tp.devices]
+    per_shard = [[] for _ in params.devices]
     for kind, ps in _tp_layers(cfg, params):
-        h, caches = _tp_mixer_prefill(cfg, tp, kind, ps, h, pos, capacity)
+        h, _, caches = mesh_block(cfg, kind, tp, ps, h, seq, fill=capacity)
         for r, c in enumerate(caches):
             per_shard[r].append(c)
-        if kind != "ssd":
-            h = _tp_feed_forward(cfg, tp, kind, ps, h)
     cache = {shard_key(r): _localize(_group_caches(cfg, cs), meta, specs,
                                      params.mesh, coord)
              for r, (cs, coord) in enumerate(zip(per_shard, params.ranks))}
-    h = apply_norm(cfg, params.shards[0]["final_norm"], h)
-    logits = _tp_logits(cfg, params, tp, h[:, -1:])
+    h = final_hidden(cfg, tp, seq, [p["final_norm"] for p in params.shards],
+                     h, last=True)
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    logits = tp_logits(cfg, [p[name] for p in params.shards], tp, h,
+                       transpose=cfg.tie_embeddings)
     return logits[:, 0], cache
 
 
@@ -958,7 +921,8 @@ def tp_decode_attention(cfg, tp, ps, x, caches, positions, *, window=0,
     KV heads split, or a cache whose slots do not split either (whole on
     every shard): each shard writes the step's K/V into its own cache and
     attends it with its own q heads (in runs over replicated KV heads,
-    ``tp.kv_runs``).  Otherwise the cache is split by sequence (shard r
+    ``tp.kv_runs``; cut from whole weights by :func:`heads_view` where
+    the cache's KV heads split but the weights came gathered).  Otherwise the cache is split by sequence (shard r
     holds slots ``[r·C_r, (r+1)·C_r)`` of ``C = tp·C_r``,
     :func:`seq_split`): each shard writes the step's K/V only where the
     row's slot is its own, q's heads are gathered to every shard, each
@@ -968,12 +932,12 @@ def tp_decode_attention(cfg, tp, ps, x, caches, positions, *, window=0,
     xs = broadcast(x, tp.devices)
     pos = broadcast(positions, tp.devices)
     Cl = caches[0]["k"].shape[1]
+    if not tp.kv_split and caches[0]["k"].shape[2] != cfg.num_kv_heads:
+        # attention weights gathered whole (the ulysses strategies) over a
+        # cache the rules split by KV heads: each shard runs the q heads
+        # that read its KV heads
+        ps, tp = heads_view(cfg, ps, key, tp)
     if not tp.kv_split:
-        if caches[0]["k"].shape[2] != cfg.num_kv_heads:
-            raise NotImplementedError(
-                f"{cfg.name}: a cache split by KV heads under replicated "
-                f"attention weights (ulysses_sp decoding a cache whose KV "
-                f"heads divide the model axis; ROADMAP A.11f)")
         if capacity is None:
             raise ValueError(
                 f"{cfg.name}: {cfg.num_kv_heads} KV heads do not split "
@@ -1050,7 +1014,7 @@ def decode_step_tp(cfg, params, cache, tokens, positions, capacity):
 
 
 # ---------------------------------------------------------------------------
-# training under a mesh: the data axes (FSDP) and ulysses_sp
+# training under a mesh: the data axes (FSDP, ZeRO-2) and the strategies
 
 
 class MeshParams:
@@ -1072,7 +1036,6 @@ class MeshParams:
         self.rows = data_rows(self.mesh)
         self.loc_trees = loc_trees
         self.strategy = strategy
-        self.ulysses = strategy == "ulysses_sp"
         self._layer_st = {}
         self.specs = {}
         for path, st in leaf_paths(tree):
@@ -1102,10 +1065,11 @@ class MeshParams:
 
     def row_view(self, i: int):
         """(the row's coordinates, an object with the ``specs``,
-        ``devices`` and ``tp`` the tensor-parallel classes read)."""
+        ``devices``, ``tp`` and ``strategy`` the tensor-parallel classes
+        read)."""
         row = self.rows[i]
         return row, SimpleNamespace(
-            specs=self.specs, tp=len(row),
+            specs=self.specs, tp=len(row), strategy=self.strategy,
             devices=[self.mesh.devices[c] for c in row])
 
 
@@ -1138,125 +1102,259 @@ def mesh_layer(cfg, mp, prefix, layer_locs, fn, carry, *, stacked=True):
     return remat(cfg, run)(carry, *flat)
 
 
-def seq_slices(h, devices):
-    """A replicated [B, S, ...] tensor's sequence split ``len(devices)``
-    ways: shard r's rows ``[r·S/tp, (r+1)·S/tp)`` on its device."""
-    tp = len(devices)
-    S = h.shape[1]
-    if S % tp:
-        raise ValueError(f"sequence {S} does not split {tp} ways")
-    Sl = S // tp
-    return [hr[:, r * Sl:(r + 1) * Sl].contiguous()
-            for r, hr in enumerate(broadcast(h, devices))]
+# -- the four strategies' layouts ---------------------------------------------
+
+# strategy → (residual stream split by sequence, attention over each
+# shard's sequence rows, MLP over each shard's rows); otherwise the
+# residual is whole on shard 0, attention runs each shard's heads and the
+# MLP its columns.  The recurrent mixers and the MoE layer run the heads
+# layout on the whole sequence under every strategy: a recurrence (and
+# its conv) runs along the whole sequence, and MoE's capacity counts the
+# row's whole token set, as the reference's dispatch does
+LAYOUTS = {"heads": (False, False, False),
+           "ulysses": (False, True, False),
+           "heads_sp": (True, False, False),
+           "ulysses_sp": (True, True, True)}
 
 
-def ulysses_attention(cfg, ps, hs, pos, *, key="attn", norm="ln1"):
-    """``ulysses_sp`` attention of one row: shard r holds query rows
-    ``[r·S/tp, (r+1)·S/tp)`` (``hs[r]``, positions ``pos[r]``) and the
-    layer's whole weights; K/V are all-gathered over the sequence, and
-    each shard's queries attend keys ``[0, (r+1)·S/tp)`` causally, the
-    flash kernel's prefix form with ``prefix_pad = prefix_len = r·S/tp``.
-    → (each shard's h + attention output, each shard's all-gathered
-    (K, V))."""
-    B, Sl, _ = hs[0].shape
-    tp = len(hs)
-    xs = [apply_norm(cfg, p[norm], h) for p, h in zip(ps, hs)]
+class SeqSplit:
+    """A row's sequence of ``S`` positions over its shards' ``devices``:
+    shard r holds rows ``[r·S/tp, (r+1)·S/tp)`` where S splits tp ways,
+    else every shard holds the whole sequence (the activation rules'
+    fallback for a dim the model axis does not divide).  ``whole[r]`` and
+    ``rows[r]`` are the positions [B, S] and [B, S_r] on shard r."""
+
+    def __init__(self, B, S, devices):
+        self.devices = list(devices)
+        n = len(self.devices)
+        self.S, self.split = S, S % n == 0
+        self.Sl = S // n if self.split else S
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=self.devices[0])[None].repeat(B, 1)
+        self.whole = broadcast(pos, self.devices)
+        self.rows = [w[:, self.offset(r):self.offset(r) + self.Sl]
+                     for r, w in enumerate(self.whole)]
+
+    def offset(self, r) -> int:
+        return r * self.Sl if self.split else 0
+
+    def scatter(self, h) -> list:
+        """A whole [B, S, ...] tensor (on shard 0) → each shard's rows."""
+        hs = broadcast(h, self.devices)
+        if not self.split:
+            return hs
+        return [hr[:, self.offset(r):self.offset(r) + self.Sl].contiguous()
+                for r, hr in enumerate(hs)]
+
+    def gather(self, parts):
+        """Each shard's rows → the whole tensor on shard 0's device."""
+        return gather(parts, 1) if self.split else parts[0]
+
+    def all_gather(self, parts) -> list:
+        """Each shard's rows → the whole tensor on every shard (K and V
+        all-gathered over the sequence)."""
+        return all_gather(parts, 1) if self.split else list(parts)
+
+
+def residual(cfg, tp, seq, ps, h, norm, *, whole=None, rows=None):
+    """h + f(norm(h)) in the row's residual layout (``tp.strategy``):
+    ``whole(x)`` takes the normed input whole on shard 0 and gives its
+    output there, ``rows(xs)`` each shard's normed rows and gives each
+    shard's output rows.  Where the residual is split by sequence a whole
+    f gathers the rows and scatters its output; where it is whole a rows
+    f scatters the input and gathers the output."""
+    if not LAYOUTS[tp.strategy][0]:
+        x = apply_norm(cfg, ps[0][norm], h)
+        return h + (whole(x) if rows is None
+                    else seq.gather(rows(seq.scatter(x))))
+    constrain_activation("act_hidden", (h[0].shape[0], seq.S,
+                                        h[0].shape[-1]),
+                         [hr.shape for hr in h])
+    xs = [apply_norm(cfg, p[norm], hr) for p, hr in zip(ps, h)]
+    ys = rows(xs) if rows is not None else seq.scatter(whole(seq.gather(xs)))
+    return [hr + y for hr, y in zip(h, ys)]
+
+
+def rows_attention(cfg, ps, xs, seq, *, key="attn", causal=True, window=0,
+                   memory=None, caches=None, cap=None):
+    """Each shard's attention of its normed query rows ``xs[r]`` with the
+    layer's whole weights → each shard's output rows.  Self-attention:
+    the shards' K/V all-gathered over the sequence; shard r's queries,
+    rows ``[off_r, off_r + S_r)``, attend them causally in flash's prefix
+    form (``prefix_pad = prefix_len = off_r``, a window reaching back
+    across the shard boundary), or every key where not ``causal`` (the
+    encoder).  ``memory``: cross-attention, each shard's whole (K, V).
+    With ``cap`` each shard's ``caches[r]`` is its whole K/V packed into
+    ``cap`` slots."""
+    B = xs[0].shape[0]
     qs, ks, vs = [], [], []
-    for p, x, pr in zip(ps, xs, pos):
+    for p, x, pr in zip(ps, xs, seq.rows):
         q = att._project_q(cfg, p[key], x)
-        k, v = att._project_kv(cfg, p[key], x)
-        if cfg.use_rope:
-            cos, sin = rope_cos_sin(pr, cfg.head_dim, cfg.rope_theta, x.dtype)
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if memory is None:
+            k, v = att._project_kv(cfg, p[key], x)
+            if cfg.use_rope:
+                cos, sin = rope_cos_sin(pr, cfg.head_dim, cfg.rope_theta,
+                                        x.dtype)
+                q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            ks.append(k)
+            vs.append(v)
         qs.append(q)
-        ks.append(k)
-        vs.append(v)
-    S = Sl * tp
-    constrain_activation("act_qkv", (B, S, cfg.num_heads, cfg.head_dim),
+    constrain_activation("act_qkv", (B, seq.S, cfg.num_heads, cfg.head_dim),
                          [q.shape for q in qs])
-    K, V = gather_seq(ks), gather_seq(vs)
-    constrain_activation("act_kv", (B, S, cfg.num_kv_heads, cfg.head_dim),
-                         [k.shape for k in K])
+    if memory is None:
+        K, V = seq.all_gather(ks), seq.all_gather(vs)
+        constrain_activation("act_kv", (B, seq.S, cfg.num_kv_heads,
+                                        cfg.head_dim), [k.shape for k in K])
+    else:
+        K, V = [k for k, _ in memory], [v for _, v in memory]
     outs = []
-    for r, (p, q, k, v, h) in enumerate(zip(ps, qs, K, V, hs)):
+    for r, (p, q, k, v) in enumerate(zip(ps, qs, K, V)):
+        off = seq.offset(r) if memory is None and causal else 0
         o = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=True,
-                                   prefix_pad=r * Sl, prefix_len=r * Sl)
-        outs.append(h + att._out_proj(o, p[key]["wo"]))
-    return outs, (K, V)
+                                   v.contiguous(), causal=causal,
+                                   window=window, prefix_pad=off,
+                                   prefix_len=off)
+        outs.append(att._out_proj(o, p[key]["wo"]))
+        if cap is not None:
+            caches[r] = {n: _seq_to_cache(leaf, cap)
+                         for n, leaf in att.pack_kv(cfg, k, v).items()}
+    return outs
 
 
-def gather_seq(parts):
-    """Each shard's copy of the sequence-split ``parts`` concatenated
-    (dim 1): K and V all-gathered over the sequence."""
-    return all_gather(parts, 1)
-
-
-def ulysses_mlp(cfg, ps, hs, *, norm="ln2", gated=True):
-    """Each shard's h + the MLP of its rows, with the layer's whole
+def rows_mlp(cfg, ps, xs, seq, *, gated=True):
+    """Each shard's MLP of its normed rows, with the layer's whole
     weights."""
-    B, Sl, _ = hs[0].shape
-    xs = [apply_norm(cfg, p[norm], h) for p, h in zip(ps, hs)]
-    constrain_activation("act_ffn", (B, Sl * len(hs), cfg.d_ff),
+    constrain_activation("act_ffn", (xs[0].shape[0], seq.S, cfg.d_ff),
                          [x.shape[:-1] + (cfg.d_ff,) for x in xs])
-    return [h + mlpmod.apply_mlp(cfg, p["mlp"], x, gated=gated)
-            for p, h, x in zip(ps, hs, xs)]
+    return [mlpmod.apply_mlp(cfg, p["mlp"], x, gated=gated)
+            for p, x in zip(ps, xs)]
 
 
-def ulysses_positions(B, S, devices):
-    """Each shard's positions ``[B, S/tp]`` on its device."""
-    tp = len(devices)
-    Sl = S // tp
-    return [torch.arange(r * Sl, (r + 1) * Sl, dtype=torch.int32,
-                         device=d)[None].repeat(B, 1)
-            for r, d in enumerate(devices)]
+def heads_view(cfg, ps, key, tp):
+    """Each shard's attention parameters ``p[key]`` cut from whole
+    (gathered) weights to the layout the heads rules give: its q heads
+    and their rows of ``wo`` where the heads split the shard count, its
+    KV heads where theirs do (else every KV head, read in runs) → (each
+    shard's parameter tree, flags as :class:`TensorParallel` gives them:
+    ``attn_sum``, ``kv_split``, ``kv_heads``, ``kv_runs``)."""
+    n = tp.tp
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    attn_sum, kv_split = H % n == 0, KVH % n == 0
+    Hl = H // n if attn_sum else H
+    Kl = KVH // n if kv_split else KVH
+    out = []
+    for r, p in enumerate(ps):
+        q0, k0 = (r * Hl if attn_sum else 0), (r * Kl if kv_split else 0)
+        cut = {}
+        for name, w in p[key].items():
+            if name in ("wq", "wk", "wv"):
+                w = w.narrow(1, *((q0, Hl) if name == "wq" else (k0, Kl)))
+            elif name in ("wo", "bq", "bk", "bv"):
+                w = w.narrow(0, *((k0, Kl) if name in ("bk", "bv")
+                                  else (q0, Hl)))
+            cut[name] = w
+        out.append({**p, key: cut})
+    kv_heads, kv_runs = tp_kv_runs(cfg, n, attn_sum, kv_split)
+    return out, SimpleNamespace(
+        tp=n, attn_sum=attn_sum, kv_split=kv_split, kv_heads=kv_heads,
+        kv_runs=kv_runs, devices=tp.devices, strategy="heads")
 
 
-def _tp_block(cfg, kind, tp, ps, h, pos):
-    """One block of one row under the heads layout → (h, MoE aux or
-    None)."""
+def heads_attention(cfg, tp, ps, x, attend, *, key="attn", every=True):
+    """Every shard's q heads over the whole normed ``x`` (on shard 0):
+    ``attend(r, p, x_r, kv_runs)`` runs shard r's heads with ``p`` its
+    parameters (cut by :func:`heads_view` under ``heads_sp``, whose
+    attention weights come gathered) → the output on shard 0: the partial
+    sums reduced where the heads split, else shard 0's, which alone is
+    computed unless ``every`` (a prefill fills every shard's cache)."""
+    if tp.strategy == "heads_sp":
+        ps, tp = heads_view(cfg, ps, key, tp)
+    xs = broadcast(x, tp.devices)
+    if not (tp.attn_sum or every):
+        xs = xs[:1]
+    constrain_activation("act_qkv", x.shape[:-1] + (cfg.num_heads,
+                                                    cfg.head_dim),
+                         [x.shape[:-1] + p[key]["wq"].shape[1:]
+                          for p in ps[:len(xs)]])
+    outs = [attend(r, p, xr, tp.kv_runs[r])
+            for r, (p, xr) in enumerate(zip(ps, xs))]
+    return reduce_sum(outs)[0] if tp.attn_sum else outs[0]
+
+
+def mesh_block(cfg, kind, tp, ps, h, seq, *, fill=None):
+    """One block of one row in the layout of ``tp.strategy``
+    (:data:`LAYOUTS`; ``h`` whole on shard 0 or each shard's rows of
+    ``seq``) → (h, the MoE layer's aux loss or None, each shard's block
+    cache where ``fill`` gives a capacity, else Nones)."""
+    caches = [None] * tp.tp
+    _, by_rows, mlp_rows = LAYOUTS[tp.strategy]
     if kind in _RECURRENT:
         name = _RECURRENT[kind][0]
         fn = rgmod.apply_rglru_tp if kind == "rglru_mlp" \
             else ssdmod.apply_ssd_tp
-        x = apply_norm(cfg, ps[0]["ln1"], h)
-        h = h + fn(cfg, [p[name] for p in ps], x, tp.devices)
+
+        def mix(x):
+            out = fn(cfg, [p[name] for p in ps], x, tp.devices,
+                     return_state=fill is not None)
+            if fill is None:
+                return out
+            caches[:] = out[1]
+            return out[0]
+        h = residual(cfg, tp, seq, ps, h, "ln1", whole=mix)
     else:
         window = _window(cfg, kind)
-        h = _tp_attention(cfg, tp, ps, h, lambda r, p, x: att.full_attention(
-            cfg, p["attn"], x, positions=pos[r], window=window,
-            kv_runs=tp.kv_runs[r]))
-    if kind == "ssd":
-        return h, None
-    return _tp_feed_forward(cfg, tp, kind, ps, h, with_aux=True)
+        cap = None if fill is None else min(fill, window) if window \
+            else fill
+        if by_rows:
+            h = residual(cfg, tp, seq, ps, h, "ln1", rows=lambda xs:
+                         rows_attention(cfg, ps, xs, seq, window=window,
+                                        caches=caches, cap=cap))
+        else:
+            def attend(r, p, x, runs):
+                out, kv = att.full_attention(
+                    cfg, p["attn"], x, positions=seq.whole[r], window=window,
+                    return_kv=True, kv_runs=runs)
+                if cap is not None:
+                    caches[r] = {n: _seq_to_cache(leaf, cap) for n, leaf
+                                 in att.pack_kv(cfg, *kv).items()}
+                return out
+            h = residual(cfg, tp, seq, ps, h, "ln1", whole=lambda x:
+                         heads_attention(cfg, tp, ps, x, attend,
+                                         every=fill is not None))
+    if kind == "ssd":   # pre-norm only: no feed-forward after the mixer
+        return h, None, caches
+    aux = []
+    if mlp_rows and kind != "attn_moe":
+        h = residual(cfg, tp, seq, ps, h, "ln2",
+                     rows=lambda xs: rows_mlp(cfg, ps, xs, seq))
+    else:
+        h = residual(cfg, tp, seq, ps, h, "ln2",
+                     whole=lambda x: ffn_whole(cfg, tp, kind, ps, x, aux))
+    return h, (aux[0] if aux else None), caches
 
 
-def _ulysses_block(cfg, kind, ps, hs, pos):
-    if kind != "attn_mlp":
-        raise NotImplementedError(
-            f"{cfg.name}: ulysses_sp runs dense attention blocks only "
-            f"({kind!r}); make_rules picks heads for every other family")
-    B, Sl, D = hs[0].shape
-    constrain_activation("act_hidden", (B, Sl * len(hs), D),
-                         [h.shape for h in hs])
-    hs, _ = ulysses_attention(cfg, ps, hs, pos)
-    return ulysses_mlp(cfg, ps, hs), None
-
-
-def mesh_embed(cfg, tables, tp, batch, devices, *, ulysses):
-    """A row's embedded inputs: the replicated h on shard 0 (heads), or
-    each shard's sequence rows (ulysses_sp); and the positions."""
+def mesh_embed(cfg, tables, tp, batch):
+    """A row's embedded tokens in its residual layout (whole on shard 0,
+    or each shard's rows) and its :class:`SeqSplit`."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = tp_embed(cfg, tables, tp, tokens)
     if cfg.frontend == "patch_stub" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(h.dtype)
         h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
-    if ulysses:
-        return seq_slices(h, devices), ulysses_positions(B, S, devices)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None, :].repeat(B, 1)
-    return h, broadcast(positions, devices)
+    seq = SeqSplit(B, S, tp.devices)
+    return (seq.scatter(h) if LAYOUTS[tp.strategy][0] else h), seq
+
+
+def final_hidden(cfg, tp, seq, norms, h, *, last=False):
+    """The final norm of the residual stream, whole on a shard (``last``:
+    its last position only, on the shard that holds it)."""
+    if not LAYOUTS[tp.strategy][0]:
+        return apply_norm(cfg, norms[0], h[:, -1:] if last else h)
+    if last:
+        r = len(h) - 1 if seq.split else 0
+        return apply_norm(cfg, norms[r], h[r][:, -1:])
+    return seq.gather([apply_norm(cfg, n, hr) for n, hr in zip(norms, h)])
 
 
 def logit_parts(cfg, tables, tp, h, *, transpose):
@@ -1274,24 +1372,21 @@ def forward_tp(cfg, mp, batch_rows):
     """The teacher-forcing forward of every data coordinate's row →
     per row (each shard's vocab slice of the logits, the row's MoE aux
     loss).  Layers run in order, every row's block of a layer under one
-    :func:`mesh_layer` (its leaves gathered inside remat); the heads
-    layout keeps a row's residual stream on its shard 0, ``ulysses_sp``
-    splits it by sequence."""
+    :func:`mesh_layer` (its leaves gathered inside remat), each in its
+    strategy's layout (:func:`mesh_block`)."""
     top = {p: mp.gathered(p) for p in flat_leaves(mp.tree)
            if p.split("/")[0] not in ("layers",)
            and not p.startswith("tail")}
     name = "embed" if cfg.tie_embeddings else "lm_head"
-    rows, hs, pos, aux = [], [], [], []
+    rows, hs, aux = [], [], []
     for i, batch in enumerate(batch_rows):
         row, view = mp.row_view(i)
-        tp = TensorParallel(cfg, view) if not mp.ulysses \
-            else _VocabTP(view)
-        rows.append((row, tp))
+        tp = TensorParallel(cfg, view)
         with on_row(row):
-            h, p = mesh_embed(cfg, [top["embed"][c] for c in row], tp,
-                              batch, view.devices, ulysses=mp.ulysses)
+            h, seq = mesh_embed(cfg, [top["embed"][c] for c in row], tp,
+                                batch)
+        rows.append((row, tp, seq))
         hs.append(h)
-        pos.append(p)
         aux.append(torch.zeros((), dtype=torch.float32,
                                device=view.devices[0]))
 
@@ -1299,13 +1394,10 @@ def forward_tp(cfg, mp, batch_rows):
         def fn(per, carry):
             hs, aux = carry
             out_h, out_a = [], []
-            for (row, tp), h, p, a in zip(rows, hs, pos, aux):
-                ps = [per[c] for c in row]
+            for (row, tp, seq), h, a in zip(rows, hs, aux):
                 with on_row(row):
-                    if mp.ulysses:
-                        h, b = _ulysses_block(cfg, kind, ps, h, p)
-                    else:
-                        h, b = _tp_block(cfg, kind, tp, ps, h, p)
+                    h, b, _ = mesh_block(cfg, kind, tp, [per[c] for c in row],
+                                         h, seq)
                 out_h.append(h)
                 out_a.append(a + b if b is not None else a)
             return out_h, out_a
@@ -1326,28 +1418,14 @@ def forward_tp(cfg, mp, batch_rows):
                             for c in mp.coords}, block(kind), carry,
                            stacked=False)
     out = []
-    for (row, tp), h, a in zip(rows, *carry):
+    for (row, tp, seq), h, a in zip(rows, *carry):
         with on_row(row):
-            norms = [top_tree(top, "final_norm", c) for c in row]
-            if mp.ulysses:
-                h = gather_seq([apply_norm(cfg, n, hr)
-                                for n, hr in zip(norms, h)])[0]
-            else:
-                h = apply_norm(cfg, norms[0], h)
+            h = final_hidden(cfg, tp, seq, [top_tree(top, "final_norm", c)
+                                            for c in row], h)
             parts = logit_parts(cfg, [top[name][c] for c in row], tp, h,
                                 transpose=cfg.tie_embeddings)
         out.append((parts, a, tp.vocab))
     return out
-
-
-class _VocabTP:
-    """What the ulysses_sp row's embedding and logits read: the row's
-    devices and whether the vocab tables are split."""
-
-    def __init__(self, view):
-        self.devices = view.devices
-        self.tp = view.tp
-        self.vocab = _on_model(view.specs["embed"][0])
 
 
 def top_tree(top, prefix, c) -> dict:

@@ -134,7 +134,11 @@ def apply_rglru_tp(cfg, ps, x, devices, *, return_state=False):
     """:func:`apply_rglru` over tensor-parallel shards (``ps[r]`` on
     ``devices[r]``; x replicated, on shard 0's device) → the output on
     shard 0's device, and with ``return_state`` each shard's decode cache
-    (its W/tp columns, or the whole width where it is replicated)."""
+    (its W/tp columns, or the whole width where it is replicated).  A
+    replicated block whose states nobody keeps (a train step's) runs on
+    shard 0 alone, whose output is the one read."""
+    if _replicated(cfg, ps) and not return_state:
+        return apply_rglru(cfg, ps[0], x)
     xs = broadcast(x, devices)
     if _replicated(cfg, ps):
         outs = [apply_rglru(cfg, p, xr, return_state=return_state)

@@ -249,10 +249,14 @@ def apply_ssd_tp(cfg, ps, x, devices, *, return_state=False):
     shard 0's device, and with ``return_state`` each shard's decode cache:
     ``ssm`` at its heads (all of them where they do not split), ``conv``
     its columns of the conv layout (all of them where they do not
-    split)."""
+    split).  A block that splits nothing, whose states nobody keeps (a
+    train step's), runs on shard 0 alone, whose output is the one read."""
+    splits = tp_splits(cfg, ps)
+    if not (return_state or any(splits.values())):
+        return apply_ssd(cfg, ps[0], x)
     b, S, _ = x.shape
     P = cfg.ssm_headdim
-    lay = tp_layout(cfg, len(ps), **tp_splits(cfg, ps))
+    lay = tp_layout(cfg, len(ps), **splits)
     xs = broadcast(x, devices)
     split = _split_proj_tp(lay, [xr @ p["w_in"].to(x.dtype)
                                  for p, xr in zip(ps, xs)], devices)

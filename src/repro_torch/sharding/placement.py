@@ -13,13 +13,15 @@ shard's device, so the result does not depend on where the shards live.
 The data axes (``pod``, ``data``): :func:`data_rows` lists each data
 coordinate's row of ``model`` coordinates, and :func:`mesh_gather` hands
 each coordinate a leaf gathered over the axes its use needs (the FSDP
-all-gather of the ``embed`` dim over ``data``; under ``ulysses_sp`` also
-the layer weights over ``model``); its backward is the reduce-scatter,
+all-gather of the ``embed`` dim over ``data``; under the ulysses
+strategies also the weights they use whole over ``model``, :func:`gather_axes`);
+its backward is the reduce-scatter,
 each local slice receiving the sum, in rank order, of every use of it.
 
 Every collective is an autograd Function, so gradients cross shards by
 the transposed collective (a broadcast's transpose sums, a gather's
-slices, an all-reduce's is itself), and each adds to
+slices, an all-reduce's is itself; an output no use reached gives its
+backward None, not a tensor of zeros), and each adds to
 :data:`COLLECTIVES` by the reference's kinds (``all-gather``,
 ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
 ``collective-permute``): a count of calls and the bytes the receiving
@@ -323,15 +325,28 @@ class ShardedParams:
 
 STACKED = ("layers", "enc_layers", "dec_layers")
 VOCAB_LEAVES = ("embed", "lm_head")
+# the attention subtrees, whose head_dim the ulysses strategies split over
+# model, and the subtrees that every strategy runs in the heads layout
+# (a recurrence along the whole sequence, MoE capacity over the row's
+# whole token set): their width, heads and experts stay split
+ATTENTION = ("attn", "self_attn", "cross_attn")
+HEADS_LAYOUT = ("moe", "rglru", "ssd")
 
 
 def gather_axes(mesh, path: str, strategy: str = "heads") -> tuple:
     """The mesh axes a leaf at ``path`` is gathered over before use: the
-    data axes (FSDP); under ``ulysses_sp`` every leaf but the
-    vocab-sharded tables is gathered over ``model`` too (each shard runs
-    its sequence rows through whole layers)."""
+    data axes (FSDP, and ZeRO-2's replicas, whose gather moves nothing);
+    over ``model`` too where the strategy computes with whole weights
+    what the rules split: under ``ulysses_sp`` every leaf but the
+    vocab-sharded tables and the heads-layout subtrees (each shard runs
+    its sequence rows through whole layers), under ``ulysses`` and
+    ``heads_sp`` the attention leaves (split over their head_dim)."""
     axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    if strategy == "ulysses_sp" and path not in VOCAB_LEAVES:
+    parts = set(path.split("/"))
+    if strategy == "ulysses_sp":
+        if path not in VOCAB_LEAVES and not parts & set(HEADS_LAYOUT):
+            axes += ("model",)
+    elif strategy in ("ulysses", "heads_sp") and parts & set(ATTENTION):
         axes += ("model",)
     return axes
 
@@ -516,6 +531,7 @@ class _MeshGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plan, *locs):
+        ctx.set_materialize_grads(False)
         ctx.plan = plan
         sources, consumers, regions, members, shapes, devices, _ = plan
         at = dict(zip(sources, locs))
@@ -647,6 +663,7 @@ def _distinct(ts, avoid=None) -> list:
 class _Broadcast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, devices, x):
+        ctx.set_materialize_grads(False)
         ctx.src = _coord(x)
         ctx.device = x.device
         coords = _row_coords(len(devices))
@@ -690,6 +707,7 @@ def broadcast(x: torch.Tensor, devices) -> list:
 class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *parts):
+        ctx.set_materialize_grads(False)
         coords = [_coord(p) for p in parts]
         ctx.coords = coords
         ctx.devices = [p.device for p in parts]
@@ -764,6 +782,7 @@ class _Collect(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dim, sets, devices, coords, *parts):
+        ctx.set_materialize_grads(False)
         ctx.dim, ctx.sets = dim, sets
         ctx.sizes = [p.shape[dim] for p in parts]
         ctx.src = [(p.device, _coord(p)) for p in parts]
@@ -842,6 +861,7 @@ def _regroup_run(plan, devices, parts):
 class _Regroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, plan, devices, *parts):
+        ctx.set_materialize_grads(False)
         ctx.plan = plan
         ctx.src = [(p.shape, p.device, p.dtype, _coord(p)) for p in parts]
         with _quiet():

@@ -459,27 +459,29 @@ def test_profile_report_reads_busy_share_and_port_kernels(tmp_path,
 
 def test_train_phases_parse():
     """The five train phases, the fleet phase, the tensor-parallel,
-    all-reduce, tensor-parallel families and fallbacks phases and the
-    PopPy programs' phase are phases of the script, in this order (the
-    fallbacks phase right after the families phase): ``--phases`` takes
+    all-reduce, tensor-parallel families and fallbacks phases, the two
+    sharded train phases and the PopPy programs' phase are phases of the
+    script, in this order (the fallbacks phase right after the families
+    phase, the layouts' train phase right after ``train_tp``): ``--phases`` takes
     them (and without a card the script stops before running any), and
     an unknown name is refused."""
     train = ("train", "train_ssm", "train_hybrid", "train_moe",
              "train_encdec")
-    assert chip_smoke.PHASES[-12:] == ("train", "train_ssm",
+    assert chip_smoke.PHASES[-13:] == ("train", "train_ssm",
                                        "train_hybrid", "serve_fleet",
                                        "train_moe", "train_encdec",
                                        "serve_tp", "ef_allreduce",
                                        "serve_tp_families",
                                        "serve_tp_fallbacks", "train_tp",
-                                       "poppy_apps")
+                                       "train_tp_layouts", "poppy_apps")
     assert tuple(chip_smoke.TRAIN_CASES) == train
     assert set(train) < set(chip_smoke.PHASES)
     if not torch.cuda.is_available():
         assert chip_smoke.main(["--phases", ",".join(train)
                                 + ",serve_fleet,serve_tp,ef_allreduce,"
                                 "serve_tp_families,serve_tp_fallbacks,"
-                                "train_tp,poppy_apps"]) == 2
+                                "train_tp,train_tp_layouts,poppy_apps"]) \
+            == 2
     with pytest.raises(SystemExit):
         chip_smoke.main(["--phases", "train,train_vlm"])
 
@@ -824,6 +826,112 @@ def test_train_tp_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
                 assert r["collectives_per_step"]["all-gather"]["count"] > 0
     assert launches["flash_attention"] == 2 * (4 + 8 + 8 + 16) \
         + (4 + 8 + 8 + 16) + 2 * (4 + 16) + (4 + 16)
+
+
+def test_train_tp_layouts_rehearsed_on_the_cpu(cpu_chip_smoke, monkeypatch,
+                                              capsys):
+    """train_tp_layouts at reduced width, every coordinate on the CPU: each
+    case's strategy as ``make_rules`` picks it, its float32 loss and
+    gradients held to the one-device step's, the timed cases' flash
+    launches a step held exactly (``layout_flash_launches``), every slice
+    held more than once bit-equal after the steps, the collectives by
+    kind, and the ulysses_sp decode over a cache split by KV heads held
+    to one device, in one JSON line with the card beside the numbers."""
+    import json
+
+    import repro_torch.configs as configs
+    real = configs.get_config
+    monkeypatch.setattr(configs, "get_config",
+                        lambda name: real(name).reduced())
+    mod = cpu_chip_smoke
+    small = {"hybrid_ulysses_sp": dict(seq=12, rep=dict(attn_window=5)),
+             "moe_ulysses_sp": dict(seq=12),
+             "encdec_ulysses_sp": dict(seq=10, rep=dict(enc_seq=24)),
+             "dense_ulysses": dict(seq=8), "dense_heads_sp": dict(seq=8),
+             "dense_zero2": dict(seq=8), "dense_zero2_master": dict(seq=8),
+             "hybrid_heads": dict(seq=12, rep=dict(tp_strategy="heads",
+                                                   attn_window=5)),
+             "ssm_heads": dict(seq=8),
+             "encdec_heads": dict(seq=10, rep=dict(tp_strategy="heads")),
+             "gqa_heads": dict(seq=8, rep=dict(num_heads=40,
+                                               num_kv_heads=8))}
+    mod.TP_LAYOUTS = {n: {**c, "batch": 2, **small[n]}
+                      for n, c in chip_smoke.TP_LAYOUTS.items()}
+    mod.TP_LAYOUT_DECODE = dict(chip_smoke.TP_LAYOUT_DECODE, capacity=16,
+                                position=10)
+    _count_decode_on_cpu(monkeypatch)
+    launches, shapes = mod.phase_train_tp_layouts(0)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    cases = {ln["case"]: ln for ln in lines if "case" in ln
+             and "model" in ln}
+    last = lines[-1]
+    assert last["phase"] == "train_tp_layouts"
+    assert last["card"] == "CPU rehearsal"
+    assert list(cases) == list(chip_smoke.TP_LAYOUTS)
+    want = {"hybrid_ulysses_sp": "ulysses_sp", "moe_ulysses_sp": "ulysses_sp",
+            "encdec_ulysses_sp": "ulysses_sp", "dense_ulysses": "ulysses",
+            "dense_heads_sp": "heads_sp", "dense_zero2": "heads",
+            "dense_zero2_master": "heads", "hybrid_heads": "heads",
+            "ssm_heads": "heads", "encdec_heads": "heads",
+            "gqa_heads": "heads"}
+    for name, c in cases.items():
+        f32 = c["float32"]
+        assert f32["tp_strategy"] == want[name]
+        assert f32["loss_rel_err_vs_1x1"] <= last["f32_tol"]
+        assert f32["worst_grad_rel_l2_vs_1x1"] <= last["f32_tol"]
+        assert ("bfloat16" in c) == (name in ("hybrid_ulysses_sp",
+                                              "moe_ulysses_sp",
+                                              "encdec_ulysses_sp",
+                                              "dense_zero2"))
+    assert cases["gqa_heads"]["reduced"] == []
+    timed = {n: c["bfloat16"] for n, c in cases.items() if "bfloat16" in c}
+    # flash a step: 2 (remat) × rows × launches a sub-layer × sub-layers
+    assert {n: [r["flash_launches_per_step"] for r in t.values()]
+            for n, t in timed.items()} == {
+        "hybrid_ulysses_sp": [2, 6], "moe_ulysses_sp": [4, 12],
+        "encdec_ulysses_sp": [12, 36], "dense_zero2": [4, 8]}
+    for t in timed.values():
+        for mesh, r in t.items():
+            assert len(r["losses"]) == chip_smoke.TP_LAYOUT_STEPS
+            if mesh != "1x1":
+                assert r["replicated_slices_bit_equal"] > 0
+                assert r["step_vs_1x1"] > 0
+    zero2 = timed["dense_zero2"]["2x1"]["collectives_per_step"]
+    assert zero2["all-gather"]["count"] > 0
+    assert zero2["all-reduce"]["count"] > 0
+    assert launches["flash_attention"] == chip_smoke.TP_LAYOUT_STEPS * (
+        2 + 6 + 4 + 12 + 12 + 36 + 4 + 8)
+    assert launches["rglru_scan"] > 0
+    dec = last["ulysses_sp_decode"]
+    assert dec["tp_strategy"] == "ulysses_sp"
+    assert dec["cache_k_spec"][3] == "model"
+    assert dec["logits_rel_l2_vs_1x1"] <= last["f32_tol"]
+    assert dec["decode_attention_launches"] == 4
+
+
+def test_train_tp_layouts_rows_rehearsed_on_the_cpu(cpu_chip_smoke):
+    """The kernels phase's rows at train_tp_layouts' shards (timers
+    stubbed, tiny shapes): flash's windowed prefix form, its window
+    reaching back across the prefix, and the encoder's non-causal shard,
+    each within tolerance of its plain version in bf16 and f32, with a
+    bound and SDPA's time."""
+    mod = cpu_chip_smoke
+    mod.time_ms = lambda fn, args, **k: (fn(*args), (0.0, True))[1]
+    mod.call_ms = lambda fn, **k: (fn(), 0.0)[1]
+    mod.LAYOUT_FLASH = {
+        "hybrid": dict(chip_smoke.LAYOUT_FLASH["hybrid"], S=8, T=24, H=4,
+                       d=16, window=12, prefix_pad=16, prefix_len=16),
+        "encoder": dict(chip_smoke.LAYOUT_FLASH["encoder"], B=2, S=6, T=18,
+                        H=4, KVH=4, d=16)}
+    rows = mod.layout_flash_rows(torch.Generator().manual_seed(0))
+    assert [(r["dtype"], r["causal"], r.get("window", 0)) for r in rows] == [
+        ("bfloat16", True, 12), ("bfloat16", False, 0),
+        ("float32", True, 12), ("float32", False, 0)]
+    for r in rows:
+        assert r["max_abs_err"] <= r["tol"] and r["bound_ms"] > 0
+        assert r["library_ms"] == 0.0
+    # the window keeps prefix rows 5..15 of the first query: 11 of 16
+    assert rows[0]["kv_rows"] == 24 - 5
 
 
 def test_backward_rows_rehearsed_on_the_cpu(cpu_chip_smoke):

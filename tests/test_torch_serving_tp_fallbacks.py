@@ -8,7 +8,8 @@ single-device JAX engine (greedy tokens equal) or its ``encdec``
 functions (1e-5).  Every shard's cache leaf has the local shape of the
 reference's ``cache_pspecs``, and every leaf the rules replicate is
 bit-equal across the shards after decoding.  The sharded train step
-refuses, with its own message, what it does not run yet."""
+runs each of these layouts, held to the one-device step, and the
+dry-run's ``ulysses_sp`` decode step a cache split by KV heads."""
 
 import asyncio
 
@@ -38,7 +39,6 @@ from repro_torch.sharding.rules import (  # noqa: E402
     make_serving_rules,
     params_pspecs,
 )
-from repro_torch.training.optimizer import AdamW  # noqa: E402
 from test_torch_serving_tp_families import (  # noqa: E402
     CONTIG_PROMPTS,
     ENC_TOL,
@@ -253,8 +253,11 @@ def test_encdec_tp3_matches_jax():
 def test_ulysses_decode_over_a_head_split_cache_refuses():
     """Reduced qwen3-14b under ``ulysses_sp`` on a model axis that divides
     its KV heads: the rules split the cache by KV heads and keep every
-    slot, and the attention weights are replicated.  The dry-run's decode
-    step, given the capacity, refuses it by name (ROADMAP A.11f)."""
+    slot, and the attention weights come gathered whole.  The dry-run's
+    decode step runs it: each shard writes and attends its own KV heads
+    with the q heads that read them (``lm.heads_view``) and the outputs
+    are summed as under ``heads``.  Four steps' logits
+    against the one-device ``decode_step`` (f32, 1e-5)."""
     from repro_torch.sharding import rules as R
     cfg = get_config("qwen3-14b").reduced().replace(
         tp_strategy="ulysses_sp")
@@ -268,15 +271,23 @@ def test_ulysses_decode_over_a_head_split_cache_refuses():
     # [L, B, C, KVH, hd]: the KV heads split, the slots whole
     assert specs and all(tuple(s)[3] == "model" and tuple(s)[2] is None
                          for s in specs.values())
+    params = model.init(seed=0, device="cpu")
+    placed = ST.place_cache(rls, cache)
     step = ST.make_decode_step(model, rls, cap)
-    with pytest.raises(NotImplementedError, match="A.11f"):
-        step(ST.place_params(model, rls, model.init(seed=0, device="cpu")),
-             ST.place_cache(rls, cache),
-             torch.ones(B, 1, dtype=torch.int32),
-             torch.full((B,), 3, dtype=torch.int32))
+    rng = np.random.RandomState(3)
+    for t in range(4):
+        tok = torch.as_tensor(rng.randint(1, cfg.vocab_size, (B, 1)),
+                              dtype=torch.int32)
+        pos = torch.full((B,), t, dtype=torch.int32)
+        want, cache = model.decode_step(params, cache, tok, pos)
+        got = step(ST.place_params(model, rls, params), placed, tok, pos)
+        torch.testing.assert_close(got[0], want, rtol=ENC_TOL, atol=ENC_TOL)
+    for name, st in _leaves(placed):
+        torch.testing.assert_close(st.full(), dict(_leaves(cache))[name],
+                                   rtol=ENC_TOL, atol=ENC_TOL)
 
 
-# -- what the sharded train step refuses -------------------------------------
+# -- the sharded train step's replicated, ZeRO-2 and ulysses layouts ----------
 
 
 def _mesh(shape):
@@ -285,34 +296,46 @@ def _mesh(shape):
                 ("data", "model"))
 
 
+# name -> (arch, config changes, mesh, the strategy the rules pick, the
+# batch's sequence length)
 TRAIN_REFUSALS = {
     "ulysses": ("stablelm-3b", dict(tp_strategy="ulysses"), (1, 2),
-                "ulysses strategy"),
+                "ulysses", 16),
     "heads_sp": ("stablelm-3b", dict(tp_strategy="heads_sp"), (1, 2),
-                 "heads_sp strategy"),
+                 "heads_sp", 16),
     "ulysses_sp_moe": ("olmoe-1b-7b", dict(tp_strategy="ulysses_sp"),
-                       (1, 2), "ulysses_sp on"),
-    "ulysses_sp_hybrid": ("recurrentgemma-9b", {}, (1, 3), "ulysses_sp on"),
-    "ulysses_sp_encdec": ("whisper-medium", {}, (1, 3), "ulysses_sp on"),
+                       (1, 2), "ulysses_sp", 16),
+    "ulysses_sp_hybrid": ("recurrentgemma-9b", {}, (1, 3), "ulysses_sp", 12),
+    "ulysses_sp_encdec": ("whisper-medium", {}, (1, 3), "ulysses_sp", 16),
     "zero2": ("stablelm-3b", dict(param_strategy="zero2"), (2, 1),
-              "'zero2'"),
+              "heads", 16),
     "rglru_width": ("recurrentgemma-9b", dict(tp_strategy="heads"), (1, 3),
-                    "RG-LRU width"),
-    "ssd": ("mamba2-2.7b", {}, (1, 3), "SSD block"),
-    "gqa_groups": ("stablelm-3b", GQA, (1, 3), "unequal groups"),
+                    "heads", 16),
+    "ssd": ("mamba2-2.7b", {}, (1, 3), "heads", 16),
+    "gqa_groups": ("stablelm-3b", GQA, (1, 3), "heads", 16),
     "encdec_kv": ("whisper-medium", dict(tp_strategy="heads"), (1, 3),
-                  "KV heads replicated"),
+                  "heads", 16),
 }
 
 
 @pytest.mark.parametrize("name", list(TRAIN_REFUSALS))
 def test_train_step_refuses_what_it_does_not_run(name):
-    """Each case the sharded train step does not run yet raises its own
-    message, naming the train step and ROADMAP A.11f, before any of it
-    runs (the serving program runs the serving half of these layouts)."""
-    arch, rep, shape, what = TRAIN_REFUSALS[name]
-    model = build_model(get_config(arch).reduced().replace(**rep))
-    with pytest.raises(NotImplementedError,
-                       match="sharded train step") as err:
-        ST.make_train_step(model, AdamW(), _mesh(shape))
-    assert what in str(err.value) and "A.11f" in str(err.value)
+    """Each of these layouts runs in the sharded train step, held to the
+    one-device step by
+    ``test_torch_train_tp.hold_sharded_step``: loss, every coordinate's
+    gradient (every replica of a replicated leaf given the same), the
+    state after one step, and every replica bit-equal after three."""
+    from repro_torch.sharding import rules as R
+    from test_torch_train_tp import _batch, hold_sharded_step
+    arch, rep, shape, strategy, S = TRAIN_REFUSALS[name]
+    cfg = get_config(arch).reduced().replace(**rep)
+    assert R.make_rules(_mesh(shape), cfg).tp_strategy == strategy
+    if name in ("rglru_width", "ssd", "gqa_groups", "encdec_kv"):
+        specs = params_pspecs(R.make_rules(_mesh(shape), cfg),
+                              build_model(cfg))
+        tpl = (encdec.EncDecTP if cfg.family == "enc_dec"
+               else lm.TensorParallel).from_specs(cfg, specs, shape[1])
+        assert not getattr(tpl, {"rglru_width": "lru", "ssd": "ssd_heads",
+                                 "gqa_groups": "kv_split",
+                                 "encdec_kv": "kv_split"}[name])
+    hold_sharded_step(cfg, shape, _batch(cfg, S=S))

@@ -192,8 +192,12 @@ def test_mesh_construction_and_validation(monkeypatch):
     pm = mesh_port.make_production_mesh(multi_pod=True,
                                         devices=["meta"] * 512)
     assert pm.shape == {"pod": 2, "data": 16, "model": 16}
-    h = mesh_port.make_host_mesh()
+    h = mesh_port.make_host_mesh(device="cpu")
     assert h.devices.shape == (1, 1)
+    assert h.device_list() == [torch.device("cpu")]
+    if not torch.cuda.is_available():     # the default is the card
+        with pytest.raises(RuntimeError, match="cuda"):
+            mesh_port.make_host_mesh()
     with pytest.raises(ValueError, match="axes"):
         mesh_port.Mesh([["cpu"]], ("model",))
     hw = mesh_port.hardware_constants()

@@ -212,18 +212,31 @@ class _FakeMesh:
         self.devices = np.empty(shape)
 
 
-@pytest.mark.parametrize("name", ARCH_IDS)
-def test_state_specs_equal_the_references(name):
+# the param strategies beside the default fsdp: ZeRO-2 replicates the
+# weights over data and keeps the moments (and the master) in the FSDP
+# layout
+ZERO2 = ("zero2", "zero2_master")
+
+
+@pytest.mark.parametrize("name,strategy", [
+    pytest.param(n, "fsdp", id=n) for n in ARCH_IDS] + [
+    pytest.param(n, z, id=f"{n}-{z}") for z in ZERO2 for n in ARCH_IDS])
+def test_state_specs_equal_the_references(name, strategy):
     """``train_state_pspecs`` under the production meshes' shapes equals
-    the reference's, leaf for leaf."""
+    the reference's, leaf for leaf, under each param strategy (master
+    weights under ``zero2_master``)."""
+    master = strategy == "zero2_master"
     for shape, axes in (((16, 16), ("data", "model")),
                         ((2, 16, 16), ("pod", "data", "model"))):
         mesh = _FakeMesh(shape, axes)
-        cfg_t, cfg_j = get_config(name), get_config_jax(name)
+        cfg_t = get_config(name).replace(param_strategy=strategy)
+        cfg_j = get_config_jax(name).replace(param_strategy=strategy)
         got = ST.train_state_pspecs(R.make_rules(mesh, cfg_t),
-                                    build_model(cfg_t), AdamW())
+                                    build_model(cfg_t),
+                                    AdamW(master_weights=master))
         want = steps_jax.train_state_pspecs(
-            rules_jax.make_rules(mesh, cfg_j), build_jax(cfg_j), AdamWJax())
+            rules_jax.make_rules(mesh, cfg_j), build_jax(cfg_j),
+            AdamWJax(master_weights=master))
         assert R.make_rules(mesh, cfg_t).tp_strategy == \
             rules_jax.make_rules(mesh, cfg_j).tp_strategy
         flat_w = _flat_specs(want)
@@ -244,22 +257,28 @@ def _flat_specs(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "dense-ulysses"])
+@pytest.mark.parametrize("family", ["dense", "moe", "dense-ulysses"]
+                         + [f"dense-{z}" for z in ZERO2])
 def test_placed_state_specs_equal_the_references(family):
     """The placed state's leaves (reduced config, a (2, 2) mesh) carry
     the reference's specs under a fake mesh of that shape."""
-    name, replace = FAMILIES[family]
+    if family.startswith("dense-zero2"):
+        name, replace = "stablelm-3b", {"param_strategy": family[6:]}
+    else:
+        name, replace = FAMILIES[family]
+    master = replace.get("param_strategy") == "zero2_master"
     cfg = get_config(name).reduced().replace(**replace)
     model = build_model(cfg)
-    opt = AdamW()
+    opt = AdamW(master_weights=master)
     placed = ST.place_train_state(
         model, opt, ST.init_train_state(model, opt, 0, device="cpu"),
         _mesh((2, 2)))
     cfg_j = get_config_jax(name).reduced().replace(**replace)
     want = steps_jax.train_state_pspecs(
         rules_jax.make_rules(_FakeMesh((2, 2), ("data", "model")), cfg_j),
-        build_jax(cfg_j), AdamWJax())
+        build_jax(cfg_j), AdamWJax(master_weights=master))
     flat_w = _flat_specs(want)
+    assert _flat_specs(placed).keys() == flat_w.keys()
     for key, st in _flat_specs(placed).items():
         assert tuple(st.spec) == tuple(flat_w[key]), key
 
@@ -294,14 +313,86 @@ def test_flash_prefix_form_matches_the_references_mask(S, pad, plen):
 
 
 def test_ulysses_rejects_a_sequence_that_does_not_split():
+    """A ``ulysses_sp`` sequence the model axis does not divide (6 over 4
+    shards) runs with every shard holding the row's whole sequence, as
+    the reference's activation rule falls back, and the step holds to
+    the one-device step."""
     cfg = get_config("qwen3-14b").reduced().replace(tp_strategy="ulysses_sp")
+    rls = hold_sharded_step(cfg, (1, 4), _batch(cfg, S=6))
+    assert rls.tp_strategy == "ulysses_sp"
+    assert R.act_pspec(rls, "act_hidden", (4, 6, cfg.d_model))[1] is None
+
+
+def _replicas_equal(st, what):
+    """Every coordinate's local slice of ``st`` equals, bit for bit, every
+    other coordinate's copy of that slice."""
+    from repro_torch.sharding.placement import shard_slices
+    first = {}
+    for c in np.ndindex(st.mesh.devices.shape):
+        key = tuple((s.start, s.stop) for s in shard_slices(
+            st.shape, st.spec, st.mesh, c))
+        t = st.local(c)
+        if key in first:
+            assert torch.equal(t, first[key]), (what, c)
+        else:
+            first[key] = t
+
+
+def hold_sharded_step(cfg, shape, batch, *, steps=3):
+    """The sharded step of ``cfg`` on a CPU mesh of ``shape`` against the
+    port's one-device step (under the same rules, as the MoE dispatch
+    reads them): the loss to ``LOSS_RTOL``, every coordinate's gradient
+    of its slices to ``GRAD_TOL`` of the leaf's largest entry with every
+    replica of a slice given the same gradient (``_global``), the state
+    after one step against AdamW on one device over the gathered
+    gradients (``STATE_RTOL``; the master copy too under
+    ``zero2_master``), and after ``steps`` steps every replica of every
+    leaf of the state bit-equal.  → the rules."""
     model = build_model(cfg)
-    opt = AdamW()
-    mesh = _mesh((1, 4))
-    placed = ST.place_train_state(
-        model, opt, ST.init_train_state(model, opt, 0, device="cpu"), mesh)
-    with pytest.raises(ValueError, match="does not split"):
-        ST.make_train_step(model, opt, mesh)(placed, _batch(cfg, S=6))
+    opt = AdamW(learning_rate=LR,
+                master_weights=cfg.param_strategy == "zero2_master")
+    mesh = _mesh(shape)
+    rls = R.make_rules(mesh, cfg)
+    state = ST.init_train_state(model, opt, 0, device="cpu")
+    placed = ST.place_train_state(model, opt, state, mesh)
+    with R.use_rules(rls):
+        loss1, _, g1 = ST.loss_and_grads(model, state["params"], batch)
+    loss2, _, g2 = ST.mesh_loss_and_grads(
+        model, rls, placed["params"], ST.row_batches(rls, batch))
+    torch.testing.assert_close(loss2, loss1, rtol=LOSS_RTOL, atol=0)
+    flat_p = flatten(placed["params"])
+    grads = {}
+    for key, st in flat_p.items():
+        grads[key] = got = _global(st, g2, key)
+        want = g1[key].float()
+        scale = max(want.abs().max().item(), 1e-6)
+        torch.testing.assert_close(got, want, rtol=0, atol=GRAD_TOL * scale,
+                                   msg=key)
+    step = ST.make_train_step(model, opt, mesh)
+    placed, m = step(placed, batch)
+    torch.testing.assert_close(m["loss"], loss1, rtol=LOSS_RTOL, atol=0)
+    ref = tree_map(lambda t: t.clone(), state)
+    p_ref, o_ref, om = opt.update(unflatten(state["params"], grads),
+                                  ref["opt"], ref["params"])
+    torch.testing.assert_close(m["grad_norm"], om["grad_norm"], rtol=1e-6,
+                               atol=0)
+    trees = [("params", placed["params"], p_ref)] + [
+        (n, placed["opt"][n], o_ref[n]) for n in ("mu", "nu", "master")
+        if n in o_ref]
+    for name, got, want in trees:
+        for key, st in flatten(got).items():
+            torch.testing.assert_close(st.full(), flatten(want)[key],
+                                       rtol=STATE_RTOL, atol=STATE_ATOL,
+                                       msg=f"{name} {key}")
+    for _ in range(steps - 1):
+        placed, m = step(placed, batch)
+        assert torch.isfinite(m["loss"])
+    for name, tree in [("params", placed["params"])] + [
+            (n, t) for n, t in placed["opt"].items() if n != "count"]:
+        for key, st in flatten(tree).items():
+            _replicas_equal(st, f"{name} {key}")
+    assert all(int(t) == steps for t in placed["step"].shards.flat)
+    return rls
 
 
 def test_named_sharding_of_a_placed_leaf():
