@@ -12,7 +12,10 @@ critical-path report.  Off by default::
 
 Offline: ``python -m repro_torch.obs run.json [--timeline]``.
 
-The engine reads only :func:`current_tracer` of this package.  To record
+The engine reads :func:`current_tracer` where a request is submitted and,
+in its loop, a request's own tracer or else :func:`process_tracer`;
+:func:`set_process_tracer` switches tracing on for every context of the
+process, an engine loop already running among them.  To record
 the PopPy runtime (``repro.obs``) and the port's engine into one trace,
 enter both packages' ``tracing(trz)`` with the same tracer.
 """
@@ -22,11 +25,11 @@ from .export import (chrome_trace, load_spans, render_timeline,
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .report import Component, RunReport, Segment, report
 from .spans import (Span, Tracer, current_span, current_tracer, maybe_span,
-                    tracing)
+                    process_tracer, set_process_tracer, tracing)
 
 __all__ = [
     "Span", "Tracer", "tracing", "current_tracer", "current_span",
-    "maybe_span",
+    "maybe_span", "process_tracer", "set_process_tracer",
     "chrome_trace", "write_chrome_trace", "load_spans", "render_timeline",
     "report", "RunReport", "Segment", "Component",
     "MetricsRegistry", "Counter", "Gauge", "Histogram",

@@ -5,9 +5,10 @@ variables: the port imports nothing of ``repro``.  The port's runtime
 (``repro_torch.core``) and engine both read :func:`current_tracer`, so one
 ``tracing()`` records a program's externals, its dispatch and the engine's
 prefill chunks and decode steps on one timeline.  The engine uses a tracer
-only through ``begin``, ``end``, ``span`` and ``event``, so a program of
-the reference's core can still trace it: enter both packages'
-``tracing(trz)`` with the same tracer.
+only through ``begin``, ``end``, ``record``, ``span`` and ``event`` (and,
+where the tracer has it, ``time_device``), so a program of the reference's
+core can still trace it: enter both packages' ``tracing(trz)`` with the
+same tracer.
 
 A *span* is a named time interval on a *track* (a display lane: an effect
 domain, a backend replica, a decode slot, an offload worker thread).  Spans
@@ -31,9 +32,21 @@ Design constraints, in order:
    workers, the ai bridge loop, and the engine loop all record
    concurrently.
 
-Enable with ``with obs.tracing() as trz:`` or the ``POPPY_TRACE``
-environment variable (``POPPY_TRACE=1`` records; ``POPPY_TRACE=out.json``
-additionally writes a Chrome/Perfetto trace at process exit).
+Enable with ``with obs.tracing() as trz:`` (this context and what it
+spawns), :func:`set_process_tracer` (every context of the process, for
+instance an engine loop started before tracing was switched on) or the
+``POPPY_TRACE`` environment variable (``POPPY_TRACE=1`` records;
+``POPPY_TRACE=out.json`` additionally writes a Chrome/Perfetto trace at
+process exit).
+
+Spans are stamped on the host's monotonic clock.  :meth:`Tracer.anchor`
+ties that clock to ``torch.profiler``'s: it notes :meth:`Tracer.now` and
+opens a ``record_function`` range named :data:`ANCHOR`, a few times, and
+:meth:`Tracer.profiler_offset` turns the ranges' starts in the profiler's
+trace into the offset of every span on the profiler's clock.
+:meth:`Tracer.time_device` keeps a CUDA event pair for a span and
+:meth:`Tracer.resolve` waits for the device once and writes the span's
+``device_ms``.
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ from typing import Any, ContextManager
 
 __all__ = [
     "Span", "Tracer", "tracing", "current_tracer", "current_span",
-    "maybe_span",
+    "maybe_span", "process_tracer", "set_process_tracer", "ANCHOR",
 ]
 
 #: Diagnostic counter of Span allocations (all tracers, process-wide).
@@ -62,6 +75,11 @@ SPAN_ALLOCS = 0
 #: they carry no attribution signal and would dominate span count on
 #: fan-out workloads where most calls never wait.
 PHASE_MIN_S = 100e-6
+
+#: Name of the ``record_function`` ranges :meth:`Tracer.anchor` opens,
+#: and how many: the least delayed of them sets the offset.
+ANCHOR = "poppy.anchor"
+ANCHOR_RANGES = 5
 
 
 @dataclass(slots=True)
@@ -121,10 +139,58 @@ class Tracer:
         # loop record concurrently); the lock only guards snapshot views
         self._lock = threading.Lock()
         self._next_id = itertools.count(1).__next__
+        # tracer times noted just before the profiler's ANCHOR ranges
+        # (empty: never anchored), and the spans awaiting their device time
+        self.anchors: list[float] = []
+        self._device: list[tuple[Span, Any, Any]] = []
 
     def now(self) -> float:
         """Seconds since this tracer's origin."""
         return time.monotonic() - self.origin
+
+    # -- the profiler's clock and the device's -------------------------------
+
+    def anchor(self) -> list[float]:
+        """Note this tracer's time, then open a ``torch.profiler`` range
+        named :data:`ANCHOR`, ANCHOR_RANGES times back to back
+        (``anchors``: the times noted); :meth:`profiler_offset` reads
+        them.  Outside a profiler the ranges record nothing."""
+        from torch.profiler import record_function
+        # the first range of a process or of a profile spends up
+        # to a millisecond before its start: pay it here
+        with record_function(ANCHOR + ".warm"):
+            pass
+        self.anchors = []
+        for _ in range(ANCHOR_RANGES):
+            self.anchors.append(self.now())
+            with record_function(ANCHOR):
+                pass
+        return self.anchors
+
+    def profiler_offset(self, starts: list[float]) -> float | None:
+        """Seconds to add to this tracer's times to put them on the
+        profiler's clock, from the starts (s, the profiler's clock) of the
+        :data:`ANCHOR` ranges of :meth:`anchor`, in order; None unless the
+        trace holds each of them.  Between a reading and its range's start
+        the thread may wait (for the interpreter lock, for the CPU), which
+        only raises that start minus the reading, so the least is the
+        offset."""
+        if not self.anchors or len(starts) != len(self.anchors):
+            return None
+        return min(s - t for s, t in zip(sorted(starts), self.anchors))
+
+    def time_device(self, span: Span, start: Any, end: Any) -> None:
+        """Keep a recorded CUDA event pair bracketing ``span``'s device
+        work; :meth:`resolve` reads it.  Adds no synchronisation."""
+        self._device.append((span, start, end))
+
+    def resolve(self) -> None:
+        """Wait for each kept event pair's device once and write its
+        span's ``device_ms`` attribute (the events' elapsed time)."""
+        pairs, self._device = self._device, []
+        for span, start, end in pairs:
+            end.synchronize()
+            span.attrs["device_ms"] = start.elapsed_time(end)
 
     # -- recording -----------------------------------------------------------
 
@@ -268,6 +334,8 @@ _tracer_var: contextvars.ContextVar[Tracer | None] = contextvars.ContextVar(
 #: not touch os.environ per call).
 _ENV_SPEC = os.environ.get("POPPY_TRACE", "")
 _env_tracer: Tracer | None = None
+#: The process-wide tracer (:func:`set_process_tracer`); None: off.
+_process_tracer: Tracer | None = None
 _env_lock = threading.Lock()
 
 
@@ -291,13 +359,36 @@ def _get_env_tracer() -> Tracer:
 
 
 def current_tracer() -> Tracer | None:
-    """The active tracer, or None when tracing is off (the fast path)."""
+    """The active tracer, or None when tracing is off (the fast path): the
+    context's (:class:`tracing`), else the process-wide one
+    (:func:`set_process_tracer`), else ``POPPY_TRACE``'s."""
     t = _tracer_var.get()
     if t is not None:
         return t
+    return process_tracer()
+
+
+def process_tracer() -> Tracer | None:
+    """The tracer of a context that entered none of its own: the
+    process-wide one (:func:`set_process_tracer`), else ``POPPY_TRACE``'s;
+    None when off.  Unlike :func:`current_tracer` it does not read the
+    caller's context, which a long-lived task (the engine loop) copied
+    when it was created, under whatever tracer was on then."""
+    if _process_tracer is not None:
+        return _process_tracer
     if _ENV_SPEC and _ENV_SPEC not in ("0", "false", "no", "off"):
         return _get_env_tracer()
     return None
+
+
+def set_process_tracer(tracer: Tracer | None) -> Tracer | None:
+    """Make ``tracer`` every context's tracer where none of its own is
+    entered (None switches it off); → the tracer it replaces.  Unlike
+    :class:`tracing`, it reaches tasks and threads that were started
+    before it, such as a running engine loop."""
+    global _process_tracer
+    prev, _process_tracer = _process_tracer, tracer
+    return prev
 
 
 class tracing:

@@ -54,6 +54,7 @@ engine refuses it, as above), and head-dim-sharded strategies raise.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -63,7 +64,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import TensorParallel, init_cache_tp, shard_key
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.spans import DETACHED, current_tracer, maybe_span
+from repro_torch.obs.spans import DETACHED, current_tracer, process_tracer
 from repro_torch.sharding.placement import ShardedParams, local_zeros
 from repro_torch.sharding.rules import (
     cache_pspecs,
@@ -83,6 +84,52 @@ from .prefix_cache import (
 )
 from .sampler import sample_tokens, sample_tokens_batched
 
+#: The spans this engine records beyond the reference engine's, each with
+#: the span it nests under: the phases of a prefill chunk and of a decode
+#: step, and the work after a chunk beside it (under the chunk's parent: a
+#: request, a warm task's ``warm_prefix``, or none for a request with no
+#: tracer of its own, recorded on the process's).
+PORT_SPANS = {
+    "prefill.prep": "prefill.chunk",      # bucket, pad or memo, upload
+    "prefill.forward": "prefill.chunk",   # Model.prefill's launches
+    "prefill.post": "prefill.chunk",      # the suffix KV's slice
+    "prefill.concat": "request",          # the task's KV joined
+    "prefill.finalize": "request",        # page fill, trie, first token
+    "decode.upload": "decode.step",       # host state to the device
+    "decode.replay": "decode.step",       # the graph replay (or eager step)
+    "decode.sync": "decode.step",         # sampling and the tokens' copy
+    "decode.tokens": "decode.step",       # the per-slot loop
+}
+
+
+class _Phases:
+    """Consecutive phases of one span: each :meth:`mark` records a child
+    span of ``parent`` from the previous mark (the first from ``t``, a
+    time of ``trz``) to now."""
+
+    __slots__ = ("trz", "parent", "cat", "t", "track")
+
+    def __init__(self, trz, parent, cat: str, t: float, track="main"):
+        self.trz, self.parent, self.cat, self.t, self.track = \
+            trz, parent, cat, t, track
+
+    def mark(self, name: str) -> None:
+        self.t = self.trz.record(name, self.t, cat=self.cat,
+                                 track=self.track, parent=self.parent).t1
+
+
+class _NoPhases:
+    """:class:`_Phases` while tracing is off: records nothing."""
+
+    __slots__ = ()
+
+    def mark(self, name: str) -> None:
+        pass
+
+
+_NO_PHASES = _NoPhases()
+_NO_SPAN = contextlib.nullcontext()
+
 
 @dataclass
 class Request:
@@ -93,7 +140,9 @@ class Request:
     out_tokens: list = field(default_factory=list)
     slot: int = -1
     submitted_at: float = 0.0
-    started_at: float = 0.0
+    started_at: float = 0.0                # admitted to a slot
+    prefill_at: float = 0.0                # its first prefill chunk began
+    first_token_at: float = 0.0            # its first token sampled
     finished_at: float = 0.0
     # the client-side request span and its tracer: the scheduler loop
     # parents its per-request work under it explicitly
@@ -317,6 +366,21 @@ class ServingEngine:
         # keeps this at 0; the contiguous layout copies once per admission
         self.kv_admit_copies = 0
         self.admit_stalls = 0
+        # the lifecycle of every request finished, not abandoned: seconds
+        # queued (submit → admit), waiting behind other tasks' chunks
+        # (admit → first chunk), prefilling (→ first token), decoding
+        # (→ finish); the four sum to submit → finish
+        self.queue_wait_s = 0.0
+        self.prefill_wait_s = 0.0
+        self.prefill_s = 0.0
+        self.decode_s = 0.0
+        self.requests_finished = 0
+        self._chunk_phases = _NO_PHASES   # the running chunk's, if traced
+        # the tracers of the decoding requests that carry one, each with
+        # how many carry it: the decode step records on the first
+        self._decode_tracers: dict = {}
+        # a traced chunk keeps a CUDA event pair for its device time
+        self._chunk_events = self.device.type == "cuda"
 
         # the per-slot decode state: host arrays (numpy views of pinned
         # staging tensors on CUDA) copied each step into static device
@@ -625,6 +689,7 @@ class ServingEngine:
                 req.done.set_exception(exc)
             del self.active[slot]
             self._free_slot(slot)
+        self._decode_tracers.clear()
         for req in self._wait_pages:
             if req.done and not req.done.done():
                 req.done.set_exception(exc)
@@ -673,6 +738,11 @@ class ServingEngine:
             "prefill_chunks": self.prefill_chunks,
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "prefill_tokens_reused": self.prefill_tokens_reused,
+            "queue_wait_s": self.queue_wait_s,
+            "prefill_wait_s": self.prefill_wait_s,
+            "prefill_s": self.prefill_s,
+            "decode_s": self.decode_s,
+            "requests_finished": self.requests_finished,
             "kv_layout": self.kv_layout,
             "kv_admit_copies": self.kv_admit_copies,
             "prefix_cache": self.prefix_cache.stats()
@@ -707,6 +777,7 @@ class ServingEngine:
         """Prefill ``seg`` (a prompt suffix) given ``prefix_len`` tokens of
         already-computed KV.  Pads both sides to buckets; returns
         (boundary logits [1,V], suffix KV of exactly len(seg) positions)."""
+        phases = self._chunk_phases
         L = len(seg)
         Sb = self._bucket(L)
         toks = np.zeros((1, Sb), np.int32)
@@ -723,15 +794,18 @@ class ServingEngine:
                     self._pad_memo.pop(next(iter(self._pad_memo)))
                 self._pad_memo[memo_key] = pfx
         self.prefill_shapes.add((Tb, Sb))
+        tokens = torch.as_tensor(toks, device=self.device)
+        phases.mark("prefill.prep")
         logits, cache = self.model.prefill(
-            self.params,
-            {"tokens": torch.as_tensor(toks, device=self.device)},
+            self.params, {"tokens": tokens},
             capacity=Sb, prefix=pfx, prefix_len=prefix_len,
             last_index=L - 1)
+        phases.mark("prefill.forward")
         self.prefill_chunks += 1
         self.prefill_tokens_computed += L
         if Sb != L:
             cache = tree_slice(cache, self._seq_axes, 0, L)
+        phases.mark("prefill.post")
         return logits, cache
 
     def _prefill_start(self, task: _PrefillTask) -> bool:
@@ -754,13 +828,14 @@ class ServingEngine:
         if self.paged_kv:
             mpages = kv  # the paged trie returns page ids, not KV
             n_fresh = (len(task.tokens) - matched) // self.page_size
-            fresh = self._alloc_pages(n_fresh)
+            trz = self._prefill_tracer(task)[0]
+            fresh = self._alloc_pages(n_fresh, trz)
             if fresh is None:
                 return False
             task.fresh_ids = fresh
             task.page_row = list(mpages) + fresh
             task.acc = self._gather_matched(mpages, matched,
-                                            task.tokens[:matched]) \
+                                            task.tokens[:matched], trz) \
                 if matched else None
         else:
             task.acc = kv
@@ -800,28 +875,59 @@ class ServingEngine:
         if self.prefill_chunk:
             chunk = min(chunk, self.prefill_chunk)
         seg = task.tokens[task.covered:task.covered + chunk]
-        trz = task.req.trz if task.req is not None else task.trz
-        psp = None
+        if task.req is not None and not task.req.prefill_at:
+            task.req.prefill_at = time.monotonic()
+        trz, parent = self._prefill_tracer(task)
+        psp = ev = None
         if trz is not None:
-            psp = trz.begin(
-                "prefill.chunk", cat="serving.prefill",
-                parent=(task.req.span if task.req is not None
-                        else task.span),
-                track=self._tr(f"slot:{task.slot}" if task.slot >= 0
-                               else "prefill"),
-                tokens=chunk, covered=task.covered)
-        logits, kvseg = self._run_prefill(
-            seg, task.acc, task.covered,
-            prefix_key=task.tokens[:task.covered])
+            track = self._tr(f"slot:{task.slot}" if task.slot >= 0
+                             else "prefill")
+            if self._chunk_events and hasattr(trz, "time_device"):
+                # the device's time of the chunk (a tracer of the port's);
+                # outside the span, which covers the _run_prefill call alone
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record(torch.cuda.current_stream(self.device))
+            psp = trz.begin("prefill.chunk", cat="serving.prefill",
+                            parent=parent, track=track,
+                            tokens=chunk, covered=task.covered)
+            self._chunk_phases = _Phases(trz, psp, "serving.prefill",
+                                         psp.t0)
+        try:
+            logits, kvseg = self._run_prefill(
+                seg, task.acc, task.covered,
+                prefix_key=task.tokens[:task.covered])
+        finally:
+            self._chunk_phases = _NO_PHASES
+        phases = _NO_PHASES
         if psp is not None:
             trz.end(psp)
-        task.acc = kvseg if task.acc is None \
-            else tree_concat([task.acc, kvseg], self._seq_axes)
+            if ev is not None:
+                ev[1].record(torch.cuda.current_stream(self.device))
+                trz.time_device(psp, *ev)
+            # the work after the chunk, beside it under its parent
+            phases = _Phases(trz, parent, "serving.prefill", psp.t1, track)
+        if task.acc is None:
+            task.acc = kvseg
+        else:
+            task.acc = tree_concat([task.acc, kvseg], self._seq_axes)
+            phases.mark("prefill.concat")
         task.covered += chunk
         task.last_logits = logits
         if task.covered >= n:
             self._pending.pop(0)
             self._finalize(task)
+            phases.mark("prefill.finalize")
+
+    def _prefill_tracer(self, task: _PrefillTask):
+        """(tracer, parent span) of a prefill task's chunk: the tracer the
+        task's request (or warm task) was submitted under, with its span;
+        else the process's (``process_tracer``), detached."""
+        if task.req is not None and task.req.trz is not None:
+            return task.req.trz, task.req.span
+        if task.trz is not None:
+            return task.trz, task.span
+        return process_tracer(), DETACHED
 
     @torch.no_grad()
     def _finalize(self, task: _PrefillTask):
@@ -862,8 +968,8 @@ class ServingEngine:
             ids = task.page_row[m_pages:m_pages + n_fill] \
                 + [0] * (nb - n_fill)
             self.page_op_shapes.add(("fill", nb))
-            with maybe_span("page.fill", cat="serving.paging",
-                            track=self._tr("paging"), pages=n_fill):
+            with self._paging(self._prefill_tracer(task)[0], "page.fill",
+                              pages=n_fill):
                 self._fill_fn(seg, ids)
         if self.prefix_cache is not None:
             aligned = (task.covered // ps) * ps
@@ -890,10 +996,14 @@ class ServingEngine:
 
     def _begin_decode(self, req: Request, slot: int, logits):
         tok = int(self._sample(logits, req)[0])
+        req.first_token_at = time.monotonic()
         req.out_tokens.append(tok)
         self._cur_tokens[slot, 0] = tok
         self._positions[slot] = len(req.prompt_tokens)
         self.active[slot] = req
+        if req.trz is not None:
+            self._decode_tracers[req.trz] = \
+                self._decode_tracers.get(req.trz, 0) + 1
 
     def _sample(self, logits, req):
         return sample_tokens(logits, temperature=req.temperature,
@@ -938,6 +1048,7 @@ class ServingEngine:
         ring buffers at ``min(max_len, window)``) and is copied into the
         slot in place."""
         n = len(req.prompt_tokens)
+        req.prefill_at = time.monotonic()
         self.prefill_shapes.add((0, n))
         self.prefill_tokens_computed += n
         self.prefill_chunks += 1
@@ -983,10 +1094,10 @@ class ServingEngine:
                 tokens[:n - 1])
         total = min(n + req.max_new_tokens, self.max_len)
         need = -(-total // self.page_size) - matched // self.page_size
-        with maybe_span("page.alloc", cat="serving.paging",
-                        track=self._tr("paging"),
-                        need=need, matched_pages=matched // self.page_size):
-            fresh = self._alloc_pages(need)
+        trz = req.trz if req.trz is not None else process_tracer()
+        with self._paging(trz, "page.alloc", need=need,
+                          matched_pages=matched // self.page_size):
+            fresh = self._alloc_pages(need, trz)
         if fresh is None:
             if handle is not None:
                 self.prefix_cache.release(handle)
@@ -1012,32 +1123,42 @@ class ServingEngine:
                             pinned_in=self.prefix_cache, page_row=row,
                             fresh_ids=fresh)
         task.covered = matched
-        task.acc = self._gather_matched(mpages, matched, tokens[:matched]) \
-            if matched else None
+        task.acc = self._gather_matched(mpages, matched, tokens[:matched],
+                                        trz) if matched else None
         self.prefill_tokens_reused += matched
         self._update_page_gauges()
         if req.span is not None:
             req.span.attrs["prefix_matched"] = matched
         return task
 
-    def _alloc_pages(self, need: int) -> list | None:
-        """Allocate ``need`` pages, reclaiming trie LRU leaves on a fault;
-        None when even eviction can't cover it (caller stalls)."""
+    def _paging(self, trz, name: str, **attrs):
+        """A ``serving.paging`` span on ``trz`` (None: records nothing).
+        The loop copied the context of whichever request started it, so it
+        names the tracer of the request or task the paging serves, else
+        the process's, rather than reading its context's."""
+        if trz is None:
+            return _NO_SPAN
+        return trz.span(name, cat="serving.paging", track=self._tr("paging"),
+                        **attrs)
+
+    def _alloc_pages(self, need: int, trz) -> list | None:
+        """Allocate ``need`` pages, reclaiming trie LRU leaves on a fault
+        (a ``page.reclaim`` span on ``trz``); None when even eviction
+        can't cover it (caller stalls)."""
         if need <= 0:
             return []
         a = self.allocator
         if a.free_count < need:
             a.note_fault()
             if self.prefix_cache is not None:
-                with maybe_span("page.reclaim", cat="serving.paging",
-                                track=self._tr("paging"), need=need):
+                with self._paging(trz, "page.reclaim", need=need):
                     self.prefix_cache.reclaim(need)
         ids = a.alloc(need)
         self._update_page_gauges()
         return ids
 
     @torch.no_grad()
-    def _gather_matched(self, mpages, matched: int, key_tokens):
+    def _gather_matched(self, mpages, matched: int, key_tokens, trz):
         """Matched pages as a contiguous prefix view for prefill (bucketed
         and memoized like ``_run_prefill``'s pad path, so a fan-out burst
         gathers its shared prefix once).  The memo holds a copy, so it
@@ -1049,8 +1170,7 @@ class ServingEngine:
             nb = tb // self.page_size
             ids = list(mpages) + [0] * (nb - len(mpages))
             self.page_op_shapes.add(("gather", nb))
-            with maybe_span("page.gather", cat="serving.paging",
-                            track=self._tr("paging"), pages=len(mpages)):
+            with self._paging(trz, "page.gather", pages=len(mpages)):
                 pfx = self._gather_fn(ids)
             if len(self._pad_memo) >= self._pad_memo_cap:
                 self._pad_memo.pop(next(iter(self._pad_memo)))
@@ -1077,7 +1197,18 @@ class ServingEngine:
         req = self.active.pop(slot)
         req.finished_at = time.monotonic()
         self._free_slot(slot)
+        if req.trz is not None:
+            n = self._decode_tracers[req.trz]
+            if n > 1:
+                self._decode_tracers[req.trz] = n - 1
+            else:
+                del self._decode_tracers[req.trz]
         if not req.done.done():
+            self.queue_wait_s += req.started_at - req.submitted_at
+            self.prefill_wait_s += req.prefill_at - req.started_at
+            self.prefill_s += req.first_token_at - req.prefill_at
+            self.decode_s += req.finished_at - req.first_token_at
+            self.requests_finished += 1
             req.done.set_result(req.out_tokens)
 
     def _retire_finished(self):
@@ -1124,17 +1255,22 @@ class ServingEngine:
     @torch.no_grad()
     def _decode_once(self):
         # decode steps serve the whole batch: record them detached on the
-        # engine's decode track, on whichever tracer the requests carry
-        trz = next((r.trz for r in self.active.values()
-                    if r.trz is not None), None)
-        dsp = trz.begin("decode.step", cat="serving.decode",
-                        parent=DETACHED, track=self._tr("decode"),
-                        occupancy=len(self.active)) \
-            if trz is not None else None
+        # engine's decode track, on a decoding request's tracer, else on
+        # the process's
+        trz = next(iter(self._decode_tracers)) if self._decode_tracers \
+            else process_tracer()
+        dsp, phases = None, _NO_PHASES
+        if trz is not None:
+            dsp = trz.begin("decode.step", cat="serving.decode",
+                            parent=DETACHED, track=self._tr("decode"),
+                            occupancy=len(self.active))
+            phases = _Phases(trz, dsp, "serving.decode", dsp.t0)
         t0 = time.perf_counter()
         self._upload_step_inputs()
+        phases.mark("decode.upload")
         logits = self._graph.replay() if self._graph is not None \
             else self._decode_step()
+        phases.mark("decode.replay")
         self.steps += 1
         self.batch_occupancy.append(len(self.active))
         if any(r.temperature > 0.0 for r in self.active.values()):
@@ -1148,12 +1284,14 @@ class ServingEngine:
             toks = torch.argmax(logits, dim=-1).to(torch.int32)
         nxt = toks.cpu().numpy()              # host sync: step really done
         self.decode_step_s.append(time.perf_counter() - t0)
+        phases.mark("decode.sync")
         for slot, req in self.active.items():
             tok = int(nxt[slot])
             req.out_tokens.append(tok)
             self.decode_tokens += 1
             self._cur_tokens[slot, 0] = tok
             self._positions[slot] += 1
+        phases.mark("decode.tokens")
         if dsp is not None:
             trz.end(dsp)
         if self._graph is None and self.device.type == "cuda" and (

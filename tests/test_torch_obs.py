@@ -20,7 +20,7 @@ from repro.obs import spans as spans_jax  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import spans  # noqa: E402
-from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.engine import PORT_SPANS, ServingEngine  # noqa: E402
 
 
 def _record(pkg, span_mod):
@@ -122,6 +122,15 @@ def _structure(trz):
                    for s in trz.spans + trz.instants)
 
 
+def _without_port_spans(structure):
+    """The reference's part of an engine trace's structure, and the
+    (name, parent) pairs of the port's own spans (``PORT_SPANS``) in it."""
+    ref = Counter({k: n for k, n in structure.items()
+                   if k[0] not in PORT_SPANS})
+    port = {(k[0], k[3]) for k in structure if k[0] in PORT_SPANS}
+    return ref, port
+
+
 def test_engine_spans_and_page_metrics_equal_reference(dense):
     _, mj, params_j, mt, params_t = dense
     kw = dict(max_slots=4, max_len=64, page_size=16, num_pages=8,
@@ -132,7 +141,11 @@ def test_engine_spans_and_page_metrics_equal_reference(dense):
     got, trz_t = _burst(et, obs)
     assert got == want
     assert et.admit_stalls > 0 and et.allocator.page_faults > 0
-    assert _structure(trz_t) == _structure(trz_j)
+    # every span the reference records, as the reference records it; the
+    # port's own spans on top, each under its declared parent
+    ref, port = _without_port_spans(_structure(trz_t))
+    assert ref == _structure(trz_j)
+    assert set(PORT_SPANS.items()) <= port
     names = Counter(s.name for s in trz_t.spans + trz_t.instants)
     for name in ("request", "warm_prefix", "prefill.chunk", "admit",
                  "page.fill", "page.alloc", "page.stall", "page.reclaim",
